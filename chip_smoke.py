@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/H100 port (``cap4d_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (each must pass; any failure raises and the exit code is non-zero):
+  1. device: the card's name and power limit; build every kernel from
+     ``cap4d_torch/csrc`` (one nvcc per source, all started together);
+  2. K1 flash attention against its plain version at the main path's shapes
+     (bf16, d=64) plus a ragged S;
+  3. K2 GroupNorm(+SiLU) against its plain version at main-path shapes;
+  4. K3 rasterizer against its plain version on 32 synthetic FLAME frames at
+     128²;
+  5. one full-width UNet forward (shipped config, V=8, 64² latents, CFG
+     batch 2, bf16) with nonzero norm scales, kernels against plain versions;
+  6. the main path: ``run_generation`` at the shipped width on synthetic
+     assets with random weights (the debug generation config: 10 DDIM steps,
+     28 samples), with every kernel's launch count read around that run;
+  7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+
+Without CUDA, or outside a checkout, it exits non-zero and prints no result.
+Times are CUDA-event times on the card, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+BF16_FLOPS = 989e12           # dense bf16 tensor cores
+FP32_FLOPS = 67e12            # fp32 outside the tensor cores
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
+    """Elementwise |out - ref| <= rtol·|ref| + atol; logs and returns the max
+    abs error."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    bad = err > rtol * ref.abs() + atol
+    max_err = float(err.max())
+    max_rel = float((err / ref.abs().clamp(min=atol)).max())
+    log(f"[{name}] max abs err {max_err:.3g}, max rel err {max_rel:.3g} "
+        f"(tolerance |out - plain| <= {rtol:g}·|plain| + {atol:.3g})")
+    assert bool(out.isfinite().all()), f"{name}: non-finite output"
+    assert not bool(bad.any()), (f"{name}: {int(bad.sum())} elements outside "
+                                 f"rtol {rtol} atol {atol:.3g}; max abs err {max_err:.3g}")
+    return max_err
+
+
+class Entry:
+    """Accumulates one kernel's numbers over the shapes of its phase."""
+
+    def __init__(self, name, route, source, replaces, kernel, library: bool):
+        self.d = {"name": name, "route": route, "source": source, "replaces": replaces,
+                  "launches": None, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0 if library else None}
+        self.kernel = kernel
+        self._flop_ms = self._byte_ms = 0.0
+
+    def add(self, err, ms, plain_ms, flop_ms, byte_ms, library_ms=None):
+        d = self.d
+        d["max_abs_err"] = max(d["max_abs_err"], err)
+        d["ms"] += ms
+        d["plain_ms"] += plain_ms
+        self._flop_ms += flop_ms
+        self._byte_ms += byte_ms
+        d["bound_ms"] = max(self._flop_ms, self._byte_ms)
+        d["bound_by"] = "operations" if self._flop_ms >= self._byte_ms else "bytes"
+        if d["library_ms"] is not None:
+            d["library_ms"] += library_ms
+
+
+# ---------------------------------------------------------------- phases ----
+
+def phase_build(kernels):
+    from cap4d_torch.ops.cuda_build import build_all
+
+    t0 = time.perf_counter()
+    build_all(kernels)
+    log(f"[build] {len(kernels)} kernels built in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {k.source.name}: {line.strip()}")
+
+
+def phase_attention(entry: Entry):
+    import torch
+    import torch.nn.functional as F
+
+    from cap4d_torch.ops.flash_attention import flash_attention
+
+    # (B, S, H) as the main path calls it: ds1 spatial, ds2/ds4/mid 3d; + ragged S
+    shapes = [(16, 4096, 5), (2, 8192, 10), (2, 2048, 20), (2, 512, 20), (2, 1000, 4)]
+    d = 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, S, H in shapes:
+        q, k, v = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        out = flash_attention(q, k, v)
+        ref = flash_attention(q, k, v, plain=True)
+        torch.cuda.synchronize()
+        # bf16 output: 2e-2 relative (~5 bf16 ulps) plus 2e-2 of the output's
+        # largest magnitude for entries near zero
+        err = check_close(f"K1 B={B} S={S} H={H}", out, ref, 2e-2,
+                          2e-2 * float(ref.float().abs().max()))
+        ms = time_ms(lambda: flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: flash_attention(q, k, v, plain=True), iters=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        flops = 4.0 * S * S * d * B * H
+        nbytes = 4.0 * B * S * H * d * 2
+        flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        entry.add(err, ms, plain_ms, flop_ms, byte_ms, lib_ms)
+        log(f"[K1] B={B} S={S} H={H}: kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa {lib_ms:.3f} ms "
+            f"| bound {max(flop_ms, byte_ms):.3f} ms")
+
+
+def phase_group_norm(entry: Entry):
+    import torch
+    import torch.nn.functional as F
+
+    from cap4d_torch.ops.norms import group_norm_silu
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape in [(16, 64, 64, 320), (16, 32, 32, 960), (16, 8, 8, 2560)]:
+        C = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(torch.bfloat16)
+        scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(C, generator=gen, device="cuda")
+        for silu, eps in ((True, 1e-5), (False, 1e-6)):
+            out = group_norm_silu(x, scale, bias, 32, eps, silu)
+            ref = group_norm_silu(x, scale, bias, 32, eps, silu, plain=True)
+            torch.cuda.synchronize()
+            # bf16 output: a 1-2 ulp difference from the folded affine
+            err = check_close(f"K2 {shape} silu={silu}", out, ref, 1e-2, 1e-3)
+            ms = time_ms(lambda: group_norm_silu(x, scale, bias, 32, eps, silu))
+            plain_ms = time_ms(lambda: group_norm_silu(x, scale, bias, 32, eps, silu, plain=True))
+            xn, sb, bb = x.permute(0, 3, 1, 2), scale.to(x.dtype), bias.to(x.dtype)
+            lib_ms = time_ms(lambda: F.group_norm(xn, 32, sb, bb, eps))
+            nbytes = 2.0 * x.numel() * x.element_size()     # read x once, write y once
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            flop_ms = 8.0 * x.numel() / FP32_FLOPS * 1e3
+            entry.add(err, ms, plain_ms, flop_ms, byte_ms, lib_ms)
+            log(f"[K2] {shape} silu={silu} eps={eps}: kernel {ms:.3f} ms "
+                f"({nbytes / ms / 1e6:.0f} GB/s moved once) | plain {plain_ms:.3f} ms | "
+                f"F.group_norm {lib_ms:.3f} ms | bound {byte_ms:.4f} ms "
+                f"(two-pass floor {1.5 * byte_ms:.4f} ms)")
+
+
+def synthetic_frames(work: Path, n: int):
+    """NDC verts (n, V, 3) of synthetic FLAME generation frames, as the main
+    path's conditioning sees them, and the template's faces."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.data.datasets import build_frame_set, load_reference_items, make_generation_items
+    from cap4d_torch.flame.compute import load_cap4d_flame_model
+    from cap4d_torch.mmdm.conditioning import load_prop_renderer_assets
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    flame_dir = sa.make_asset_dir(work)
+    ref_dir = sa.make_reference_dir(work, resolution=512)
+    bank = dict(np.load(sa.make_gen_bank(work, n=n)))
+    flame = load_cap4d_flame_model(flame_dir, 150, 65, add_mouth=True, device="cuda")
+    ref_items, ref_extr = load_reference_items(ref_dir)
+    items = make_generation_items(bank, ref_items[0], n_samples=n, rng=np.random.RandomState(0))
+    head = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
+    fs = build_frame_set(flame, items, head, ref_extr, 512)
+    assets = load_prop_renderer_assets(flame_dir / "cap4d_flame_template.obj",
+                                       flame_dir / "head_vertices.txt", device="cuda")
+    return torch.as_tensor(fs.verts_2d[:, 0], device="cuda"), assets.faces
+
+
+def box_pixel_tests(verts, faces, size) -> int:
+    """Pixel-face tests the rasterization needs: for every frame and face,
+    the pixel centres (ndc 1 - (2i+1)/S) inside the face's screen box."""
+    import torch
+
+    fv = verts[:, faces.long(), :2]                       # (B, F, 3, 2)
+    lo, hi = fv.amin(dim=2), fv.amax(dim=2)                # (B, F, 2) as (x, y)
+    counts = []
+    for axis, n in ((0, size[1]), (1, size[0])):
+        # centre k lies in [lo, hi] iff n(1 - hi) <= 2k + 1 <= n(1 - lo)
+        k0 = torch.ceil((n * (1.0 - hi[..., axis]) - 1.0) / 2.0).clamp(min=0)
+        k1 = torch.floor((n * (1.0 - lo[..., axis]) - 1.0) / 2.0).clamp(max=n - 1)
+        counts.append((k1 - k0 + 1).clamp(min=0).double())
+    return int((counts[0] * counts[1]).sum())
+
+
+def phase_rasterize(entry: Entry, work: Path):
+    import torch
+
+    from cap4d_torch.ops.rasterize import rasterize_meshes
+
+    verts, faces = synthetic_frames(work, 32)
+    size = (128, 128)
+    out = rasterize_meshes(verts, faces, size)
+    ref = rasterize_meshes(verts, faces, size, plain=True)
+    torch.cuda.synchronize()
+    agree = float((out.pix_to_face == ref.pix_to_face).float().mean())
+    same = (out.pix_to_face == ref.pix_to_face) & (ref.pix_to_face >= 0)
+    z_err = float((out.zbuf - ref.zbuf)[same].abs().max()) if bool(same.any()) else 0.0
+    b_err = float((out.bary_coords - ref.bary_coords)[same].abs().max()) if bool(same.any()) else 0.0
+    covered = float((ref.pix_to_face >= 0).float().mean())
+    log(f"[K3] {verts.shape[0]} frames x {size[0]}x{size[1]}, {faces.shape[0]} faces, "
+        f"{verts.shape[1]} verts: pix_to_face agreement {agree:.6f} (covered {covered:.3f}) | "
+        f"z max err {z_err:.3g} | bary max err {b_err:.3g}")
+    # rounding is made identical (no FMA contraction), so the tolerance is
+    # 1e-4 of the pixels and 1e-5 on z / barycentrics where the faces agree
+    assert agree >= 1.0 - 1e-4, f"K3 pix_to_face agreement {agree}"
+    assert z_err <= 1e-5 and b_err <= 1e-5, f"K3 z/bary error {z_err} / {b_err}"
+    ms = time_ms(lambda: rasterize_meshes(verts, faces, size))
+    plain_ms = time_ms(lambda: rasterize_meshes(verts, faces, size, plain=True), iters=3, warmup=1)
+    B, V = verts.shape[:2]
+    Fn, P = faces.shape[0], size[0] * size[1]
+    # the work the function needs: each face tested only against the pixels
+    # of its screen box (the kernel itself still tests every face)
+    tests = box_pixel_tests(verts, faces, size)
+    flops = 18.0 * tests               # 3 edge functions + 3 scalings per pixel-face test
+    nbytes = B * V * 12 + Fn * 12 + B * P * 20
+    flop_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    entry.add(max(z_err, b_err), ms, plain_ms, flop_ms, byte_ms)
+    log(f"[K3] kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound {max(flop_ms, byte_ms):.4f} ms "
+        f"({tests} box tests = {tests / (B * P * Fn):.2e} of the {B * P * Fn} brute-force tests "
+        f"the kernel makes; {flop_ms:.4f} ms ops, {byte_ms:.4f} ms bytes)")
+
+
+def shipped_model_section():
+    from cap4d_torch.utils.config import load_yaml
+
+    return load_yaml(REPO / "configs" / "mmdm" / "cap4d_mmdm_final.yaml")["model"]
+
+
+def profile_breakdown(fn) -> None:
+    """Device time of one call by kernel family (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    families = {"K1 flash_fwd": ("flash_fwd",), "K2 group norm": ("gn_stats", "gn_apply"),
+                "K3 raster": ("raster",), "conv": ("conv", "cudnn", "implicit"),
+                "gemm": ("gemm", "cutlass", "sm90_xmma", "nvjet")}
+    totals = dict.fromkeys(list(families) + ["other"], 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue   # CPU-side ops: their kernels are counted as CUDA events
+        us = evt.self_device_time_total
+        name = evt.key.lower()
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)), "other")
+        totals[fam] += us / 1e3
+    busy = sum(totals.values())
+    if busy == 0:
+        log("[profile] the profiler saw no device time")
+        return
+    log("[profile] device ms by family: " + ", ".join(
+        f"{f} {ms:.2f} ({100 * ms / busy:.0f}%)" for f, ms in totals.items()) + f"; busy {busy:.2f} ms")
+
+
+def phase_unet():
+    import torch
+
+    from cap4d_torch.mmdm.unet import GroupNorm32, MMDMUNet
+
+    up = shipped_model_section()["params"]["unet_config"]["params"]
+    with torch.device("meta"):
+        unet = MMDMUNet(
+            in_channels=up["in_channels"], out_channels=up["out_channels"],
+            model_channels=up["model_channels"], channel_mult=tuple(up["channel_mult"]),
+            num_res_blocks=up["num_res_blocks"],
+            attention_resolutions=tuple(up["attention_resolutions"]),
+            num_head_channels=up["num_head_channels"],
+            condition_channels=up["condition_channels"], time_steps=up["time_steps"],
+            temporal_mode=up["temporal_mode"])
+    unet.to_empty(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    norms = {id(m.weight) for m in unet.modules()
+             if isinstance(m, (GroupNorm32, torch.nn.LayerNorm))}
+    with torch.no_grad():
+        # fan-in-scaled weights, norm scales 1 ± 0.1, small biases: every
+        # layer (the zero-initialised ones included) carries signal
+        for p in unet.parameters():
+            if id(p) in norms:
+                p.normal_(1.0, 0.1, generator=gen)
+            elif p.ndim == 1:
+                p.normal_(0.0, 0.02, generator=gen)
+            else:
+                p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
+    unet.set_dtype(torch.bfloat16).eval().requires_grad_(False)
+    unet.to(memory_format=torch.channels_last)
+    B, T, L = 2, up["time_steps"], 64
+    x = torch.randn((B, T, L, L, 4), generator=gen, device="cuda")
+    t = torch.full((B, T), 500, device="cuda")
+    ref = torch.zeros((B, T, L, L, 1), device="cuda")
+    ref[:, 0] = 1.0
+    cond = {"pos_enc": 0.5 * torch.randn((B, T, L, L, up["condition_channels"]), generator=gen,
+                                         device="cuda"),
+            "z_input": torch.randn((B, T, L, L, 4), generator=gen, device="cuda"),
+            "ref_mask": ref}
+    with torch.no_grad():
+        eps_k = unet.use_plain_ops(False)(x, t, cond)
+        ms_k = time_ms(lambda: unet(x, t, cond), iters=3, warmup=1)
+        profile_breakdown(lambda: unet(x, t, cond))
+        eps_p = unet.use_plain_ops(True)(x, t, cond)
+        ms_p = time_ms(lambda: unet(x, t, cond), iters=3, warmup=1)
+    torch.cuda.synchronize()
+    scale = float(eps_p[:, 1:].abs().max())
+    err = float((eps_k - eps_p).abs().max())
+    mean_rel = float((eps_k - eps_p).abs().mean() / eps_p[:, 1:].abs().mean())
+    log(f"[unet] full width bf16 (B={B}, T={T}, {L}x{L}): eps max |kernels - plain| {err:.4g} "
+        f"(max |eps| {scale:.4g}, mean rel {mean_rel:.3g}) | forward kernels {ms_k:.1f} ms, "
+        f"plain {ms_p:.1f} ms")
+    assert bool(eps_k.isfinite().all()) and bool(eps_p.isfinite().all()), "UNet eps not finite"
+    # bf16 through ~60 norms and 16 attentions: 5e-2 of the largest |eps|
+    assert err <= 5e-2 * scale, f"UNet kernels vs plain: {err} > 5e-2 x {scale}"
+    del unet
+    torch.cuda.empty_cache()
+
+
+def phase_main_path(work: Path, kernels, card: str):
+    import numpy as np
+    import torch
+
+    from cap4d_torch.inference.generate_images import run_generation
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.config import dump_yaml, load_yaml
+
+    gen_cfg = load_yaml(REPO / "configs" / "generation" / "debug.yaml")
+    n_samples = gen_cfg["generation_data"]["n_samples"]
+    root = work / "main"
+    flame_dir = sa.make_asset_dir(root)
+    ref_dir = sa.make_reference_dir(root, resolution=gen_cfg["resolution"])
+    bank = sa.make_gen_bank(root, n=n_samples)
+    ckpt_dir = sa.write_model_config(root, shipped_model_section())
+    cfg = root / "gen_config.yaml"
+    dump_yaml(dict(gen_cfg, ckpt_path=str(ckpt_dir),
+                   generation_data=dict(gen_cfg["generation_data"], data_path=str(bank))), cfg)
+    out = root / "output"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = run_generation(cfg, ref_dir, out, allow_random_weights=True, flame_asset_dir=flame_dir,
+                         dtype=torch.bfloat16)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    n_unet = res["group_steps"]
+    log(f"[main] run_generation wall {wall:.1f} s | sampler {res['sampler_s']:.2f} s, "
+        f"{res['sampler_s'] / n_unet:.4f} s per group-step ({n_unet} group-steps) | decode+save "
+        f"{res['decode_s']:.2f} s | on {card}")
+    log(f"[main] launches {launches} over {n_unet} UNet calls")
+    for sub, n in (("reference_images", 1), ("generated_images", n_samples)):
+        assert len(list((out / sub / "images").glob("*.png"))) == n, sub
+        assert len(list((out / sub / "flame").glob("*.npz"))) == n, sub
+    assert res["z_gen"].shape == (n_samples, 64, 64, 4), res["z_gen"].shape
+    assert np.isfinite(res["z_gen"]).all(), "non-finite latents"
+    assert res["images"].shape == (n_samples, 512, 512, 3)
+    assert launches["flash_attention"] == 16 * n_unet, launches
+    assert launches["group_norm"] == 61 * n_unet, launches
+    assert launches["rasterize"] > 0, launches
+    return launches
+
+
+def main() -> int:
+    if not (REPO / "cap4d_torch").is_dir() or not (REPO / "configs").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from cap4d_torch.ops import flash_attention, norms, rasterize
+
+    card = card_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
+        f"nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    kernels = [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL]
+    phase_build(kernels)
+
+    work = REPO / ".chip_smoke_work"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    entries = [
+        Entry("flash_attention", "cuda", "cap4d_torch/csrc/flash_attention.cu",
+              "cap4d_tpu/ops/flash_attention.py:45", flash_attention.KERNEL, library=True),
+        Entry("group_norm_silu", "cuda", "cap4d_torch/csrc/group_norm.cu",
+              "cap4d_tpu/ops/norms.py:26", norms.KERNEL, library=True),
+        Entry("rasterize", "cuda", "cap4d_torch/csrc/rasterize.cu",
+              "cap4d_tpu/ops/rasterize.py:233", rasterize.KERNEL, library=False),
+    ]
+    phase_attention(entries[0])
+    phase_group_norm(entries[1])
+    phase_rasterize(entries[2], work / "raster")
+    phase_unet()
+    launches = phase_main_path(work, kernels, card)
+    for e in entries:
+        e.d["launches"] = launches[e.kernel.name]
+
+    shutil.rmtree(work, ignore_errors=True)
+
+    log(f"[device] {card}")
+    print(json.dumps({"kernels": [e.d for e in entries]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""The port's boundaries: no module of cap4d_torch (nor chip_smoke.py) imports
+JAX, flax, optax, cap4d_tpu or the host libraries the card machine lacks
+(yaml, cv2, PIL); entry points refuse to run without CUDA unless asked for
+the CPU; the kernel wrappers take their plain versions on CPU tensors."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cap4d_tpu", "yaml", "cv2", "PIL"}
+SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "cap4d_torch").rglob("*.py")) + [
+    "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("rel", SOURCES)
+def test_no_forbidden_imports(rel):
+    tree = ast.parse((REPO / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{rel}:{node.lineno} imports {name}"
+
+
+def test_entry_points_refuse_to_run_without_cuda(tmp_path):
+    from cap4d_torch.inference.generate_images import run_generation
+    from cap4d_torch.mmdm.model import MMDM
+    from cap4d_torch.utils.device import resolve_device
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_generation(tmp_path / "missing.yaml", tmp_path, tmp_path / "out")
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MMDM.from_config({})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_use_plain_versions_on_cpu():
+    from cap4d_torch.ops import flash_attention, norms, rasterize
+
+    kernels = (flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL)
+    before = [k.launches for k in kernels]
+    q = torch.randn(1, 70, 2, 64)
+    flash_attention.flash_attention(q, q, q)
+    norms.group_norm_silu(torch.randn(1, 4, 4, 64), torch.ones(64), torch.zeros(64))
+    verts = torch.rand(1, 3, 3)
+    rasterize.rasterize_meshes(verts, torch.tensor([[0, 1, 2]]), (8, 8))
+    assert [k.launches for k in kernels] == before
+    assert all(k._lib is None for k in kernels)  # nothing built or loaded
