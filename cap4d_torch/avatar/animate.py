@@ -1,0 +1,187 @@
+"""Stage-3 CLI: animate a fitted avatar with a driving sequence and camera
+path (counterpart of ``cap4d_tpu/avatar/animate.py``).
+
+Reference: gaussianavatars/animate.py (config_dump.yaml and the newest
+chkpnt, a driving fit.npz and an optional orbit trajectory, per-frame
+renders with optional alpha and depth, threaded PNG writes, ffmpeg mp4
+assembly, the animated PLY export; the single-frame ``render_static``).
+Frames render one after another on one card; the JAX package's
+``--dp_frames`` split of frames over several devices is not ported. Run it
+with ``python -m cap4d_torch.avatar.animate``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from cap4d_torch.avatar.convert_ref import (
+    load_reference_avatar_checkpoint,
+    restore_reference_checkpoint,
+)
+from cap4d_torch.avatar.export import PlyWriter
+from cap4d_torch.avatar.scene import load_cap4d_dataset
+from cap4d_torch.avatar.trainer import AvatarTrainer, search_max_iteration
+from cap4d_torch.utils.config import load_yaml
+from cap4d_torch.utils.device import resolve_device
+from cap4d_torch.utils.png import write_png
+
+
+def frames_to_mp4(frame_dir: Path, out_path: Path, fps: int = 24) -> None:
+    """ffmpeg frames → mp4 (animate.py:55-74); skipped with a warning when
+    ffmpeg is absent or fails."""
+    cmd = ["ffmpeg", "-y", "-framerate", str(fps), "-pattern_type", "glob",
+           "-i", str(frame_dir / "*.png"), "-c:v", "libx264", "-pix_fmt", "yuv420p",
+           str(out_path)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        print(f"Wrote {out_path}")
+    except (FileNotFoundError, subprocess.CalledProcessError) as e:
+        print(f"WARNING: ffmpeg failed/unavailable ({e}); frames left in {frame_dir}")
+
+
+def load_trained_avatar(model_path: Path, flame_asset_dir: str, scene, device=None) -> AvatarTrainer:
+    """A trainer built from ``config_dump.yaml`` for ``scene`` (the driving
+    sequence) with the newest checkpoint (written by the reference, the JAX
+    package or the port) installed."""
+    config = load_yaml(Path(model_path) / "config_dump.yaml")
+    trainer = AvatarTrainer.create(scene, config["model_params"], config["opt_params"],
+                                   flame_asset_dir=flame_asset_dir, device=device)
+    it, ckpt_path = search_max_iteration(model_path)
+    assert ckpt_path is not None, f"no chkpnt*.pth under {model_path}"
+    print(f"Loading checkpoint at iteration {it}")
+    chkpt, _ = load_reference_avatar_checkpoint(ckpt_path)
+    # the driving sequence's bank stays: only shape and base rotation come
+    # from the fit (the JAX package also loads the fit's bank and neck rows,
+    # which replays the fit's expressions and clamps frames past its length)
+    restore_reference_checkpoint(trainer, chkpt, with_extras=False)
+    return trainer
+
+
+def render_frame_loop(trainer: AvatarTrainer, cams, frame_dir: Path, writer=None,
+                      save_alpha: bool = False, save_depth: bool = False) -> float:
+    """Render every camera in turn; PNG and npy writes run on two threads
+    (animate.py:127-164). Returns the loop's wall seconds."""
+    t0 = time.perf_counter()
+    attrs = None
+    if writer is not None:
+        # gaussian attributes are constant across the sequence: fetch once
+        attrs = {k: v.cpu().numpy() for k, v in trainer.gauss.items()}
+        attrs["binding"] = trainer.aux["binding"].cpu().numpy()
+        remesh_faces = trainer.uv.remesh_faces.cpu().numpy()
+    with ThreadPoolExecutor(max_workers=2) as io_pool:
+        futures = []
+        for i, cam in enumerate(cams):
+            out = trainer.render_camera(cam, cam.timestep, compute_depth=save_depth, clip=True)
+            img = np.clip(out["render"].cpu().numpy(), 0, 1)
+            futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}.png",
+                                          (img * 255).astype(np.uint8)))
+            if save_alpha:
+                a8 = (out["alpha"].cpu().numpy() * 255).astype(np.uint8)
+                futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}_alpha.png", a8))
+            if save_depth:
+                futures.append(io_pool.submit(np.save, frame_dir / f"{i:05d}_depth.npy",
+                                              out["depth"].cpu().numpy()))
+            if writer is not None:
+                writer.update(trainer.mesh_at_timestep(cam.timestep).verts.cpu().numpy(),
+                              remesh_faces, attrs)
+            if (i + 1) % 10 == 0:
+                print(f"rendered {i + 1}/{len(cams)} frames")
+        for f in futures:
+            f.result()   # surface any write error
+    return time.perf_counter() - t0
+
+
+def render_sequence(
+    model_path: str | Path,
+    animation_path: str | Path,
+    output_path: str | Path,
+    cam_trajectory_path: Optional[str | Path] = None,
+    flame_asset_dir: str = "data/assets/flame",
+    fps: int = 24,
+    save_alpha: bool = False,
+    save_depth: bool = False,
+    export_animation: bool = True,
+    compress_ply: bool = False,
+    n_max_frames: Optional[int] = None,
+    device=None,
+) -> dict:
+    """Drive the avatar through a target sequence (animate.py:77-171);
+    returns the frame count and the render loop's seconds. Runs on the card
+    unless ``device="cpu"``."""
+    device = resolve_device(device)
+    output_path = Path(output_path)
+    frame_dir = output_path / "frames"
+    frame_dir.mkdir(parents=True, exist_ok=True)
+    scene = load_cap4d_dataset(source_paths=None, target_paths={
+        "animation_path": str(animation_path),
+        "cam_trajectory_path": str(cam_trajectory_path) if cam_trajectory_path else None})
+    trainer = load_trained_avatar(Path(model_path), flame_asset_dir, scene, device=device)
+    writer = PlyWriter(compress=compress_ply) if export_animation else None
+    cams = scene.tgt_cameras[:n_max_frames] if n_max_frames else scene.tgt_cameras
+    render_s = render_frame_loop(trainer, cams, frame_dir, writer=writer,
+                                 save_alpha=save_alpha, save_depth=save_depth)
+    if writer is not None:
+        writer.save_ply(output_path / "exported_animation.ply")
+        print(f"Wrote {output_path / 'exported_animation.ply'}")
+    frames_to_mp4(frame_dir, output_path / "renders.mp4", fps)
+    return {"frames": len(cams), "render_s": render_s}
+
+
+def render_static(model_path: str | Path, animation_path: str | Path, output_path: str | Path,
+                  timestep: int = 0, flame_asset_dir: str = "data/assets/flame",
+                  device=None) -> Path:
+    """Single-frame render (animate.py:174-222)."""
+    device = resolve_device(device)
+    output_path = Path(output_path)
+    output_path.mkdir(parents=True, exist_ok=True)
+    scene = load_cap4d_dataset(source_paths=None, target_paths={
+        "animation_path": str(animation_path), "cam_trajectory_path": None})
+    trainer = load_trained_avatar(Path(model_path), flame_asset_dir, scene, device=device)
+    cam = scene.tgt_cameras[timestep]
+    img = np.clip(trainer.render_camera(cam, cam.timestep, clip=True)["render"].cpu().numpy(), 0, 1)
+    path = output_path / f"static_{timestep:05d}.png"
+    write_png(path, (img * 255).astype(np.uint8))
+    print(f"Wrote {path}")
+    return path
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model_path", type=str, required=True)
+    parser.add_argument("--animation_path", type=str, required=True)
+    parser.add_argument("--output_path", type=str, required=True)
+    parser.add_argument("--cam_trajectory_path", type=str, default=None)
+    parser.add_argument("--flame_asset_dir", type=str, default="data/assets/flame")
+    parser.add_argument("--fps", type=int, default=24)
+    parser.add_argument("--save_alpha", action="store_true")
+    parser.add_argument("--save_depth", action="store_true")
+    parser.add_argument("--no_export_animation", action="store_true")
+    parser.add_argument("--compress_ply", action="store_true")
+    parser.add_argument("--static", type=int, default=None,
+                        help="render a single frame at this timestep")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the CUDA card; 'cpu' runs the plain "
+                             "versions of the kernels)")
+    args = parser.parse_args()
+    if args.static is not None:
+        render_static(args.model_path, args.animation_path, args.output_path,
+                      timestep=args.static, flame_asset_dir=args.flame_asset_dir,
+                      device=args.device)
+    else:
+        render_sequence(args.model_path, args.animation_path, args.output_path,
+                        cam_trajectory_path=args.cam_trajectory_path,
+                        flame_asset_dir=args.flame_asset_dir, fps=args.fps,
+                        save_alpha=args.save_alpha, save_depth=args.save_depth,
+                        export_animation=not args.no_export_animation,
+                        compress_ply=args.compress_ply, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -150,3 +150,16 @@ def load_frame(frame_dir: Path, frame_id: int) -> np.ndarray:
     if path.suffix.lower() != ".png":
         raise ValueError(f"{path}: only PNG frames can be decoded without cv2/PIL")
     return read_png(path)
+
+
+def adjust_intrinsics_crop(fx, fy, cx, cy, bbox, target_resolution):
+    """Intrinsics of a square crop ``bbox`` resized to ``target_resolution``."""
+    scale = target_resolution / (bbox[2] - bbox[0])
+    return fx * scale, fy * scale, (cx - bbox[0]) * scale, (cy - bbox[1]) * scale
+
+
+def get_crop_mask(orig_resolution, target_resolution, crop_box) -> np.ndarray:
+    """1 inside the original image, 0 outside, in crop coordinates."""
+    m = np.ones(orig_resolution)
+    m = crop_image(m, crop_box, bg_value=0)
+    return rescale_image(m, target_resolution)

@@ -1,0 +1,234 @@
+"""Tile-binned 3D Gaussian splatting renderer (counterpart of
+``cap4d_tpu/ops/gsplat_pallas.py``, entry point ``rasterize_gaussians_pallas``).
+
+Pipeline, all differentiable where the JAX package's is:
+
+* projection and SH in plain PyTorch (``ops/gsplat.py``), producing one
+  packed row per gaussian: mean_x, mean_y, conic a/b/c, opacity, rgb, depth;
+* the pair build in PyTorch ops (the JAX package's is XLA, outside any Pallas
+  kernel): tile boxes from the radius, the exact alpha-bound tile cull, one
+  (tile, depth rank) key per covered tile, one ``torch.sort`` of int64 keys
+  ``tile << 32 | rank`` and the per-tile ``[start, end)`` bounds. Every tile a
+  splat's box touches is covered (no window ladder, no pair budget), so
+  ``n_truncated`` and ``n_truncated_depth`` are always 0;
+* compositing through :class:`Composite`: kernel K4 (``csrc/gsplat_fwd.cu``)
+  forward and kernel K5 (``csrc/gsplat_bwd.cu``) backward on CUDA tensors,
+  the plain compositor ``ops/gsplat.py::rasterize_gaussians_plain`` (with
+  autograd for the backward) on CPU tensors or with ``plain=True``.
+
+Gradients reach means3d, quats, scales, opacities, SH and ``means2d_offset``
+through the projection's autograd; the densify statistics read the
+``means2d_offset`` gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from cap4d_torch.ops.cuda_build import CudaKernel, I, P
+from cap4d_torch.ops.gsplat import (
+    ALPHA_MIN,
+    N_OUT,
+    N_PACKED,
+    TILE,
+    eval_sh_ch,
+    project_gaussians_ch,
+    rasterize_gaussians_plain,
+)
+
+KERNEL_FWD = CudaKernel("gsplat_fwd.cu", {"c4d_gsplat_fwd": [P, P, P, I, I, P, P, P]})
+KERNEL_BWD = CudaKernel("gsplat_bwd.cu", {"c4d_gsplat_bwd": [P, P, P, P, P, P, I, I, P, P]})
+
+
+def tile_pairs(mean_x, mean_y, conic_a, conic_b, conic_c, opacity, radius, valid, depth,
+               width: int, height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted (tile, depth) pairs: ``pair_gauss`` (M,) int32 gaussian per
+    pair, tile-major and front to back within a tile, and ``bounds``
+    (n_tiles + 1,) int32 segment starts. No gradient flows through here."""
+    with torch.no_grad():
+        dev = mean_x.device
+        tiles_x = (width + TILE - 1) // TILE
+        tiles_y = (height + TILE - 1) // TILE
+        n_tiles = tiles_x * tiles_y
+        n = mean_x.shape[0]
+        # exact global depth order as an integer rank, ties by gaussian index
+        order = torch.sort(depth, stable=True).indices
+        # alpha-bound cull (gsplat_pallas.py:733-750): σ ≥ ½·λ_min·r² at
+        # distance r from the mean, so a tile whose nearest point lies past
+        # r²_cut = 2·ln(opac·255)/λ_min never passes the keep mask
+        lam_min = (0.5 * (conic_a + conic_c)
+                   - torch.sqrt(0.25 * (conic_a - conic_c) ** 2 + conic_b ** 2))
+        r2_cut = (2.0 * torch.log(torch.clamp(opacity, min=1e-30) / ALPHA_MIN)
+                  / torch.clamp(lam_min, min=1e-12))
+        tx0 = torch.floor((mean_x - radius) / TILE).long().clamp(0, tiles_x - 1)
+        ty0 = torch.floor((mean_y - radius) / TILE).long().clamp(0, tiles_y - 1)
+        tx1 = torch.floor((mean_x + radius) / TILE).long().clamp(0, tiles_x - 1)
+        ty1 = torch.floor((mean_y + radius) / TILE).long().clamp(0, tiles_y - 1)
+        wx = tx1 - tx0 + 1
+        count = torch.where(valid, wx * (ty1 - ty0 + 1), torch.zeros_like(wx))
+        g = torch.repeat_interleave(torch.arange(n, device=dev), count)
+        first = torch.cumsum(count, 0) - count
+        local = torch.arange(g.shape[0], device=dev) - first[g]
+        cx = tx0[g] + local % wx[g]
+        cy = ty0[g] + local // wx[g]
+        tlx = (cx * TILE).float()
+        tly = (cy * TILE).float()
+        mx, my = mean_x[g], mean_y[g]
+        ddx = torch.clamp(torch.maximum(tlx - mx, mx - (tlx + TILE)), min=0.0)
+        ddy = torch.clamp(torch.maximum(tly - my, my - (tly + TILE)), min=0.0)
+        ok = ddx * ddx + ddy * ddy <= r2_cut[g]
+        g, tile = g[ok], (cy * tiles_x + cx)[ok]
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(n, device=dev)
+        keys = (tile << 32) | rank[g]
+        sorted_keys = torch.sort(keys).values
+        pair_gauss = order[sorted_keys & 0xFFFFFFFF].to(torch.int32)
+        counts = torch.bincount(tile, minlength=n_tiles)
+        bounds = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+        bounds[1:] = torch.cumsum(counts, 0)
+        return pair_gauss, bounds.to(torch.int32)
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous CUDA {dtype} tensor, got "
+                         f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def composite_fwd_cuda(packed, pair_gauss, bounds, tiles_x: int):
+    """K4: (n_tiles, 256, 6) outputs and the batches each tile ran."""
+    n_tiles = bounds.shape[0] - 1
+    _check("packed", packed, torch.float32, (packed.shape[0], N_PACKED))
+    _check("pair_gauss", pair_gauss, torch.int32, (pair_gauss.shape[0],))
+    _check("bounds", bounds, torch.int32, (n_tiles + 1,))
+    out = torch.empty((n_tiles, TILE * TILE, N_OUT), dtype=torch.float32, device=packed.device)
+    n_done = torch.empty((n_tiles,), dtype=torch.int32, device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    KERNEL_FWD.call("c4d_gsplat_fwd", packed.data_ptr(), pair_gauss.data_ptr(),
+                    bounds.data_ptr(), n_tiles, tiles_x, out.data_ptr(), n_done.data_ptr(),
+                    ctypes.c_void_p(stream))
+    return out, n_done
+
+
+def composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, grad_out, tiles_x: int):
+    """K5: per-gaussian gradient (N, 10) of the packed rows."""
+    n_tiles = bounds.shape[0] - 1
+    grad_out = grad_out.contiguous()
+    _check("out", out, torch.float32, (n_tiles, TILE * TILE, N_OUT))
+    _check("grad_out", grad_out, torch.float32, (n_tiles, TILE * TILE, N_OUT))
+    _check("n_done", n_done, torch.int32, (n_tiles,))
+    dpacked = torch.zeros_like(packed)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    KERNEL_BWD.call("c4d_gsplat_bwd", packed.data_ptr(), pair_gauss.data_ptr(),
+                    bounds.data_ptr(), out.data_ptr(), n_done.data_ptr(),
+                    grad_out.data_ptr(), n_tiles, tiles_x, dpacked.data_ptr(),
+                    ctypes.c_void_p(stream))
+    return dpacked
+
+
+class Composite(torch.autograd.Function):
+    """K4 forward, K5 backward over the sorted pairs; CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, packed, pair_gauss, bounds, tiles_x):
+        packed = packed.contiguous()
+        out, n_done = composite_fwd_cuda(packed, pair_gauss, bounds, tiles_x)
+        ctx.save_for_backward(packed, pair_gauss, bounds, out, n_done)
+        ctx.tiles_x = tiles_x
+        ctx.mark_non_differentiable(n_done)
+        return out, n_done
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_n_done):
+        packed, pair_gauss, bounds, out, n_done = ctx.saved_tensors
+        dpacked = composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, grad_out,
+                                     ctx.tiles_x)
+        return dpacked, None, None, None
+
+
+def composite(packed: torch.Tensor, pair_gauss: torch.Tensor, bounds: torch.Tensor,
+              tiles_x: int, plain: bool = False) -> torch.Tensor:
+    """(n_tiles, 256, 6) compositor outputs. CUDA tensors launch K4 (and K5
+    in the backward); ``plain=True`` runs the plain version there instead
+    (for comparisons only). CPU tensors take the plain version."""
+    if packed.is_cuda and not plain:
+        return Composite.apply(packed, pair_gauss, bounds, tiles_x)[0]
+    return rasterize_gaussians_plain(packed, pair_gauss, bounds, tiles_x)
+
+
+def tiles_to_image(tiles: torch.Tensor, tiles_x: int, tiles_y: int,
+                   width: int, height: int) -> torch.Tensor:
+    """(n_tiles, 256, C) → (H, W, C)."""
+    c = tiles.shape[-1]
+    img = tiles.reshape(tiles_y, tiles_x, TILE, TILE, c).permute(0, 2, 1, 3, 4)
+    return img.reshape(tiles_y * TILE, tiles_x * TILE, c)[:height, :width]
+
+
+def rasterize_gaussians(
+    means3d: torch.Tensor,        # (N, 3) world
+    quats: torch.Tensor,          # (N, 4) wxyz
+    scales: torch.Tensor,         # (N, 3) world-space scales (post-activation)
+    opacities: torch.Tensor,      # (N,)
+    sh_colors: torch.Tensor,      # (N, K, 3)
+    viewmat: torch.Tensor,        # (4, 4) world→cam
+    K: torch.Tensor,              # (3, 3)
+    width: int,
+    height: int,
+    sh_degree: int = 3,
+    background: Optional[torch.Tensor] = None,
+    near: float = 0.01,
+    far=1e10,
+    render_depth: bool = False,
+    means2d_offset: Optional[torch.Tensor] = None,   # (N, 2) zeros; grad = densify stats
+    plain: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Render one camera; the result keys of ``rasterize_gaussians_pallas``
+    (its ``mask`` of inactive slots has no counterpart: every row is live),
+    plus ``n_pairs``."""
+    if background is None:
+        background = torch.ones(3, dtype=torch.float32, device=means3d.device)
+    ch = project_gaussians_ch(means3d, quats, scales, viewmat, K, width, height, near, far)
+    mean_x, mean_y = ch["mean_x"], ch["mean_y"]
+    radius, valid, depth = ch["radius"], ch["valid"], ch["depth"]
+    if means2d_offset is not None:
+        mean_x = mean_x + means2d_offset[:, 0]
+        mean_y = mean_y + means2d_offset[:, 1]
+
+    cam_pos = -(viewmat[:3, :3].T @ viewmat[:3, 3])
+    d = means3d - cam_pos
+    dn = torch.clamp(torch.sqrt((d * d).sum(-1)), min=1e-8)
+    colors = torch.clamp(eval_sh_ch(sh_colors, d[:, 0] / dn, d[:, 1] / dn, d[:, 2] / dn,
+                                    sh_degree) + 0.5, min=0.0)          # (3, N)
+    packed = torch.stack([mean_x, mean_y, ch["conic_a"], ch["conic_b"], ch["conic_c"],
+                          opacities, colors[0], colors[1], colors[2], depth], dim=-1)
+
+    tiles_x = (width + TILE - 1) // TILE
+    tiles_y = (height + TILE - 1) // TILE
+    pair_gauss, bounds = tile_pairs(mean_x, mean_y, ch["conic_a"], ch["conic_b"],
+                                    ch["conic_c"], opacities, radius, valid, depth,
+                                    width, height)
+    out = composite(packed, pair_gauss, bounds, tiles_x, plain=plain)
+
+    T = torch.exp(out[..., 5])
+    rgb = out[..., 0:3] + T[..., None] * background
+    alpha = 1.0 - T
+    zero = torch.zeros((), dtype=torch.int64, device=means3d.device)
+    result = {
+        "render": tiles_to_image(rgb, tiles_x, tiles_y, width, height),
+        "alpha": tiles_to_image(alpha[..., None], tiles_x, tiles_y, width, height)[..., 0],
+        "radii": radius,
+        "means2d": torch.stack([mean_x, mean_y], dim=-1),
+        "visibility": valid & (radius > 0),
+        "n_truncated": zero,
+        "n_truncated_depth": zero,
+        "n_pairs": pair_gauss.shape[0],
+    }
+    if render_depth:
+        dtile = out[..., 4] / torch.clamp(alpha, min=1e-10)
+        result["depth"] = tiles_to_image(dtile[..., None], tiles_x, tiles_y, width, height)[..., 0]
+    return result

@@ -85,6 +85,15 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def png_size(path: str | Path):
+    """(width, height) from a PNG's header, without decoding it."""
+    with open(path, "rb") as fh:
+        head = fh.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG file")
+    return struct.unpack(">II", head[16:24])
+
+
 def read_png(path: str | Path) -> np.ndarray:
     """Read an 8-bit PNG as (H, W, 3) RGB uint8 (alpha dropped, gray
     replicated), the same array ``cv2.imread(path)[..., ::-1]`` gives."""

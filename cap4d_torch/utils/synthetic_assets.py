@@ -23,24 +23,33 @@ from cap4d_torch.utils.png import write_png
 N_FLAME_VERTS = 5023
 
 
-def write_obj(path, verts, faces) -> None:
-    """OBJ with grid-laid-out uvs, one ``vt`` per vertex."""
+def write_obj(path, verts, faces, uvs=None) -> None:
+    """OBJ with one ``vt`` per vertex: ``uvs`` (N, 2), or by default the
+    vertices laid out on a regular grid of the UV square."""
     n = len(verts)
     side = int(np.ceil(np.sqrt(n)))
+    if uvs is None:
+        i = np.arange(n)
+        uvs = np.stack([0.04 + 0.92 * (i % side) / side, 0.04 + 0.92 * (i // side) / side], -1)
     lines = [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in verts]
-    lines += [f"vt {0.04 + 0.92 * (i % side) / side:.6f} {0.04 + 0.92 * (i // side) / side:.6f}"
-              for i in range(n)]
+    lines += [f"vt {float(u):.6f} {float(w):.6f}" for u, w in uvs]
     lines += [f"f {f[0]+1}/{f[0]+1} {f[1]+1}/{f[1]+1} {f[2]+1}/{f[2]+1}" for f in faces]
     Path(path).write_text("\n".join(lines) + "\n")
 
 
-def make_asset_dir(root: Path, seed: int = 0) -> Path:
-    """``assets/flame`` with synthetic FLAME weights and the conditioning
-    template (FLAME verts + the mouth half-sphere, fan faces over both)."""
+def make_asset_dir(root: Path, seed: int = 0, sphere_radius: float = 0.0) -> Path:
+    """``assets/flame`` with synthetic FLAME weights, the conditioning
+    template (FLAME verts + the mouth half-sphere, fan faces over both) and
+    the avatar template with its deformable-vertex list.
+
+    ``sphere_radius`` > 0 makes the FLAME template a head-sized sphere and
+    the avatar template its convex hull with a lat-long UV chart (local
+    faces, so bound splats stay a few pixels wide); otherwise the avatar
+    template has grid connectivity matching the grid UV layout."""
     flame_dir = Path(root) / "assets" / "flame"
     flame_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
-    fd = make_synthetic_flame(n_verts=N_FLAME_VERTS, seed=seed)
+    fd = make_synthetic_flame(n_verts=N_FLAME_VERTS, seed=seed, sphere_radius=sphere_radius)
     save_flame_pkl(fd, flame_dir / "flame2023_no_jaw.pkl")
     np.save(flame_dir / "blink_blendshape.npy",
             rng.normal(scale=0.01, size=(N_FLAME_VERTS, 3)).astype(np.float32))
@@ -50,7 +59,31 @@ def make_asset_dir(root: Path, seed: int = 0) -> Path:
     verts = np.concatenate([fd["v_template"], mouth_v * 0.02], axis=0)
     faces = np.concatenate([fd["f"], mouth_f + N_FLAME_VERTS], axis=0)
     write_obj(flame_dir / "cap4d_flame_template.obj", verts, faces)
-    np.savetxt(flame_dir / "head_vertices.txt", np.arange(0, N_FLAME_VERTS, 2), fmt="%d")
+    if sphere_radius > 0:
+        from scipy.spatial import ConvexHull
+
+        hull_faces = ConvexHull(fd["v_template"]).simplices.astype(np.int32)
+        norm = np.maximum(np.linalg.norm(verts, axis=1), 1e-9)
+        u = np.arctan2(verts[:, 1], verts[:, 0]) / (2 * np.pi) + 0.5
+        w = np.clip(verts[:, 2] / norm * 0.5 + 0.5, 0.0, 1.0)
+        uvs = np.stack([0.04 + 0.92 * u, 0.04 + 0.92 * w], axis=-1)
+        du = uvs[hull_faces][:, :, 0]
+        seam_ok = (du.max(1) - du.min(1)) < 0.5   # drop faces across the u seam
+        write_obj(flame_dir / "cap4d_avatar_template.obj", verts, hull_faces[seam_ok], uvs=uvs)
+    else:
+        n = len(verts)
+        side = int(np.ceil(np.sqrt(n)))
+        r, c = np.mgrid[0 : side - 1, 0 : side - 1]
+        p00 = r * side + c
+        p01, p10 = p00 + side, p00 + 1
+        p11 = p01 + 1
+        grid_faces = np.concatenate([np.stack([p00, p01, p11], -1).reshape(-1, 3),
+                                     np.stack([p00, p11, p10], -1).reshape(-1, 3)])
+        grid_faces = grid_faces[(grid_faces < n).all(axis=1)].astype(np.int32)
+        write_obj(flame_dir / "cap4d_avatar_template.obj", verts, grid_faces)
+    head_ids = np.arange(0, N_FLAME_VERTS, 2)
+    np.savetxt(flame_dir / "head_vertices.txt", head_ids, fmt="%d")
+    np.savetxt(flame_dir / "deformable_verts.txt", head_ids, fmt="%d")
     return flame_dir
 
 
@@ -167,4 +200,29 @@ def write_gen_config(root: Path, ckpt_dir: Path, gen_data_path: Path, n_samples:
     }
     path = Path(root) / "gen_config.yaml"
     dump_yaml(cfg, path)
+    return path
+
+
+def make_driving_sequence(root: Path, n_frames: int = 48, resolution: int = 512,
+                          seed: int = 9, fx: float = 800.0, distance: float = 1.5) -> Path:
+    """A driving ``fit.npz`` (the animation input of stage 3): one camera
+    ``distance`` in front of the head, per-frame expression, head and eye
+    rotations drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    path = Path(root) / "driving" / "fit.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    extr = np.eye(4, dtype=np.float32)[None]
+    extr[0, 2, 3] = distance
+    np.savez(path,
+             fx=np.full((1, 1), fx, np.float32), fy=np.full((1, 1), fx, np.float32),
+             cx=np.full((1, 1), resolution / 2, np.float32),
+             cy=np.full((1, 1), resolution / 2, np.float32),
+             extr=extr,
+             shape=rng.normal(scale=0.3, size=(150,)).astype(np.float32),
+             expr=rng.normal(scale=0.3, size=(n_frames, 65)).astype(np.float32),
+             rot=rng.normal(scale=0.05, size=(n_frames, 3)).astype(np.float32),
+             tra=np.zeros((n_frames, 3), np.float32),
+             eye_rot=rng.normal(scale=0.05, size=(n_frames, 3)).astype(np.float32),
+             resolutions=np.array([[resolution, resolution]], np.int64),
+             n_timesteps=np.int64(n_frames))
     return path

@@ -15,10 +15,24 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      128²;
   5. one full-width UNet forward (shipped config, V=8, 64² latents, CFG
      batch 2, bf16) with nonzero norm scales, kernels against plain versions;
-  6. the main path: ``run_generation`` at the shipped width on synthetic
-     assets with random weights (the debug generation config: 10 DDIM steps,
-     28 samples), with every kernel's launch count read around that run;
-  7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+  6. the stage-1 main path: ``run_generation`` at the shipped width on
+     synthetic assets with random weights (the debug generation config: 10
+     DDIM steps, 28 samples), with every kernel's launch count read around
+     that run;
+  7. K4/K5 (3DGS tile compositing forward/backward) against the plain
+     compositor at the fit's shapes: a freshly initialised full-width avatar
+     (``configs/avatar/default.yaml`` model_params, head-sized sphere
+     template) rendered at 512² from a stage-1 camera, outputs and the
+     gradients of a fixed loss;
+  8. the stage-2 main path: ``training()`` on phase 6's 28 + 1 images with
+     default model_params and debug opt_params cut to 300 iterations
+     (densification, opacity reset, SH warmup, evaluation, checkpoint);
+  9. the stage-3 main path: ``render_sequence`` of that checkpoint driven by
+     a synthetic 48-frame fit.npz at 512², with the animated PLY;
+ 10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+
+Launch counts are read around each main path (6, 8, 9) with every count
+set to 0 just before it; the kernels line sums them.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 Times are CUDA-event times on the card, with the card's name and power limit.
@@ -267,17 +281,24 @@ def shipped_model_section():
     return load_yaml(REPO / "configs" / "mmdm" / "cap4d_mmdm_final.yaml")["model"]
 
 
-def profile_breakdown(fn) -> None:
-    """Device time of one call by kernel family (torch.profiler)."""
+def profile_breakdown(fn, label: str = "profile") -> None:
+    """Device time of one call by kernel family (torch.profiler), and the
+    device's busy share of the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"K1 flash_fwd": ("flash_fwd",), "K2 group norm": ("gn_stats", "gn_apply"),
-                "K3 raster": ("raster",), "conv": ("conv", "cudnn", "implicit"),
-                "gemm": ("gemm", "cutlass", "sm90_xmma", "nvjet")}
+                "K3 raster": ("raster",), "K4 gsplat_fwd": ("gsplat_fwd",),
+                "K5 gsplat_bwd": ("gsplat_bwd",), "conv": ("conv", "cudnn", "implicit"),
+                "gemm": ("gemm", "cutlass", "sm90_xmma", "nvjet"),
+                "sort/scan": ("sort", "radix", "scan"),
+                "index/scatter": ("index", "scatter", "gather")}
     totals = dict.fromkeys(list(families) + ["other"], 0.0)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -288,10 +309,16 @@ def profile_breakdown(fn) -> None:
         totals[fam] += us / 1e3
     busy = sum(totals.values())
     if busy == 0:
-        log("[profile] the profiler saw no device time")
+        log(f"[{label}] the profiler saw no device time")
         return
-    log("[profile] device ms by family: " + ", ".join(
-        f"{f} {ms:.2f} ({100 * ms / busy:.0f}%)" for f, ms in totals.items()) + f"; busy {busy:.2f} ms")
+    cpu = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    log(f"[{label}] host ms by op (self, profiled): " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ({e.count})" for e in cpu))
+    log(f"[{label}] device ms by family: " + ", ".join(
+        f"{f} {ms:.2f} ({100 * ms / busy:.0f}%)" for f, ms in totals.items() if ms)
+        + f"; busy {busy:.2f} ms of {wall_ms:.2f} ms wall ({100 * busy / wall_ms:.0f}% busy)")
 
 
 def phase_unet():
@@ -394,6 +421,274 @@ def phase_main_path(work: Path, kernels, card: str):
     assert launches["flash_attention"] == 16 * n_unet, launches
     assert launches["group_norm"] == 61 * n_unet, launches
     assert launches["rasterize"] > 0, launches
+    return launches, out
+
+
+# ------------------------------------------------ slice 2: avatar phases ----
+
+def avatar_params():
+    from cap4d_torch.utils.config import load_yaml
+
+    model = load_yaml(REPO / "configs" / "avatar" / "default.yaml")["model_params"]
+    opt = load_yaml(REPO / "configs" / "avatar" / "debug.yaml")["opt_params"]
+    return model, dict(opt, iterations=300)
+
+
+def pair_pixel_counts(packed, pair_gauss, bounds, n_done, tiles_x):
+    """(pair-pixel evaluations, kept pair-pixels) that this render needs:
+    every pair of the batches its tile ran against the tile's 256 pixels;
+    kept where σ ≥ 0 and opac·e^-σ ≥ 1/255."""
+    import torch
+
+    from cap4d_torch.ops.gsplat import ALPHA_MIN, BATCH, tile_pixel_centres
+
+    lens = (bounds[1:] - bounds[:-1]).long()
+    ran = torch.minimum(lens, n_done.long() * BATCH)
+    evals = int(ran.sum()) * 256
+    kept = 0
+    starts = bounds[:-1].tolist()
+    for t, n in enumerate(ran.tolist()):
+        if n == 0:
+            continue
+        d = packed[pair_gauss[starts[t]: starts[t] + n].long()]
+        px, py = tile_pixel_centres(torch.tensor([t], device=packed.device), tiles_x)
+        dx, dy = px - d[:, 0:1], py - d[:, 1:2]
+        sig = 0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) + d[:, 3:4] * dx * dy
+        kept += int(((sig >= 0) & (d[:, 5:6] * torch.exp(-sig.clamp(min=0)) >= ALPHA_MIN)).sum())
+    return evals, kept
+
+
+def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
+    """K4/K5 against the plain compositor on a freshly initialised avatar."""
+    import torch
+
+    from cap4d_torch.avatar import gaussians as G
+    from cap4d_torch.avatar.scene import load_cap4d_dataset
+    from cap4d_torch.avatar.trainer import AvatarTrainer
+    from cap4d_torch.ops import gsplat_tiles as gt
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    model, opt = avatar_params()
+    flame_dir = sa.make_asset_dir(work / "avatar_assets", sphere_radius=0.09)
+    scene = load_cap4d_dataset([str(stage1_out / "reference_images"),
+                                str(stage1_out / "generated_images")])
+    trainer = AvatarTrainer.create(scene, model, opt, flame_asset_dir=flame_dir)
+    cam = scene.train_cameras[0]
+    ct = trainer.camera_tensors(cam)
+    mesh = trainer.mesh_at_timestep(cam.timestep)
+    world = {k: v.detach() for k, v in G.world_gaussians(trainer.gauss, trainer.aux,
+                                                           mesh.face_pack).items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    target = torch.rand((cam.height, cam.width, 3), generator=gen, device="cuda")
+    cases = [("fresh avatar", world["opacities"]),
+             ("opacities U[0.05, 1)", 0.05 + 0.95 * torch.rand(world["opacities"].shape,
+                                                                generator=gen, device="cuda"))]
+    err = gerr = 0.0
+    for label, opac in cases:
+        leaves = [world["means3d"], world["quats"], world["scales"], opac, world["sh"],
+                  torch.zeros((trainer.n_active, 2), device="cuda")]
+        names = ["means3d", "quats", "scales", "opacities", "sh", "means2d_offset"]
+        res = {}
+        for plain in (False, True):
+            xs = [x.clone().requires_grad_(True) for x in leaves]
+            out = gt.rasterize_gaussians(xs[0], xs[1], xs[2], xs[3], xs[4], ct["rt"], ct["K"],
+                                         cam.width, cam.height, sh_degree=model["sh_degree"],
+                                         render_depth=True, means2d_offset=xs[5], plain=plain)
+            loss = (((out["render"] - target) ** 2).mean() + 0.1 * out["alpha"].mean()
+                    + 0.01 * (out["depth"] * out["alpha"]).mean())
+            grads = torch.autograd.grad(loss, xs)
+            torch.cuda.synchronize()
+            res[plain] = (out, grads, float(loss.detach()))
+        (ok_, gk, lk), (op_, gp, lp) = res[False], res[True]
+        # forward: fp32 sums in another order, __expf, and a tile's stop
+        # decision at a batch boundary (the plain version sums ln T by cumsum)
+        # -> 2e-4 absolute on render/alpha (the stop rule's own bound is
+        # 1e-4 of a colour); depth = Σw·d / alpha where alpha > 1e-2, 2e-4 of
+        # the largest depth
+        err = max(err, check_close(f"K4 {label} render", ok_["render"], op_["render"], 0.0, 2e-4),
+                  check_close(f"K4 {label} alpha", ok_["alpha"], op_["alpha"], 0.0, 2e-4))
+        cov = op_["alpha"] > 1e-2
+        dmax = float(op_["depth"][cov].abs().max()) if bool(cov.any()) else 1.0
+        check_close(f"K4 {label} depth", ok_["depth"][cov], op_["depth"][cov], 0.0, 2e-4 * dmax)
+        # backward: atomics in run-dependent order plus the forward's
+        # rounding -> 1e-3 of the largest gradient of each input, floored at
+        # 1e-6 of the largest gradient of all inputs (an input whose gradient
+        # vanishes, as the quats of isotropic splats do, carries rounding
+        # noise only)
+        top = max(float(b.abs().max()) for b in gp)
+        for name, a, b in zip(names, gk, gp):
+            scale = max(float(b.abs().max()), 1e-3 * top)
+            check_close(f"K5 {label} d{name}", a, b, 0.0, 1e-3 * scale)
+            gerr = max(gerr, float((a - b).abs().max()))
+        log(f"[K4/K5] {label}: {ok_['n_pairs']} pairs, loss kernel {lk:.7f} plain {lp:.7f}")
+
+    # timings of the compositor alone at these shapes (the second case)
+    with torch.no_grad():
+        ch = gt.project_gaussians_ch(world["means3d"], world["quats"], world["scales"],
+                                     ct["rt"], ct["K"], cam.width, cam.height)
+        cols = torch.rand((trainer.n_active, 3), generator=gen, device="cuda")
+        packed = torch.stack([ch["mean_x"], ch["mean_y"], ch["conic_a"], ch["conic_b"],
+                              ch["conic_c"], opac, cols[:, 0], cols[:, 1], cols[:, 2],
+                              ch["depth"]], dim=-1).contiguous()
+        pg, bd = gt.tile_pairs(ch["mean_x"], ch["mean_y"], ch["conic_a"], ch["conic_b"],
+                               ch["conic_c"], opac, ch["radius"], ch["valid"], ch["depth"],
+                               cam.width, cam.height)
+        tiles_x = (cam.width + 15) // 16
+        fwd, n_done = gt.composite_fwd_cuda(packed, pg, bd, tiles_x)
+        go = torch.randn(fwd.shape, generator=gen, device="cuda")
+        ms_f = time_ms(lambda: gt.composite_fwd_cuda(packed, pg, bd, tiles_x), iters=20)
+        ms_b = time_ms(lambda: gt.composite_bwd_cuda(packed, pg, bd, fwd, n_done, go, tiles_x),
+                       iters=20)
+        plain_f = time_ms(lambda: gt.rasterize_gaussians_plain(packed, pg, bd, tiles_x),
+                          iters=3, warmup=1)
+        evals, kept = pair_pixel_counts(packed, pg, bd, n_done, tiles_x)
+    pk = packed.clone().requires_grad_(True)
+    plain_out = gt.rasterize_gaussians_plain(pk, pg, bd, tiles_x)
+    plain_b = time_ms(lambda: torch.autograd.grad(plain_out, pk, go, retain_graph=True),
+                      iters=3, warmup=1)
+    N, M, n_tiles = packed.shape[0], pg.shape[0], n_done.shape[0]
+    # operations per pair-pixel: forward 11 for every evaluation (dx, dy,
+    # σ, e^-σ, compares) + 13 for a kept one (α, w, 5 accumulations, log1p,
+    # T); backward the same 11 + 45 for a kept one (q, the suffix, dL/dα,
+    # ten gradients and their warp-level sums)
+    f_flops, b_flops = 11.0 * evals + 13.0 * kept, 11.0 * evals + 45.0 * kept
+    f_bytes = N * 40 + M * 4 + (n_tiles + 1) * 4 + n_tiles * 256 * 24 + n_tiles * 4
+    b_bytes = N * 40 + M * 4 + (n_tiles + 1) * 4 + 2 * n_tiles * 256 * 24 + n_tiles * 4 + N * 40
+    for e, ms, pms, fl, by in ((e_fwd, ms_f, plain_f, f_flops, f_bytes),
+                               (e_bwd, ms_b, plain_b, b_flops, b_bytes)):
+        flop_ms, byte_ms = fl / FP32_FLOPS * 1e3, by / HBM_BYTES_PER_S * 1e3
+        e.add(err if e is e_fwd else gerr, ms, pms, flop_ms, byte_ms)
+        log(f"[{e.d['name']}] {N} gaussians, {M} pairs, {n_tiles} tiles, {evals} pair-pixel "
+            f"evaluations ({kept} kept): kernel {ms:.3f} ms | plain {pms:.3f} ms | bound "
+            f"{max(flop_ms, byte_ms):.4f} ms ({flop_ms:.4f} ms ops, {byte_ms:.4f} ms bytes)")
+    log(f"[K4/K5] tiles that stopped early: {int((n_done.long() * 256 < (bd[1:] - bd[:-1])).sum())}"
+        f" | max segment {int((bd[1:] - bd[:-1]).max())} pairs")
+    del trainer, plain_out
+    torch.cuda.empty_cache()
+    return flame_dir
+
+
+def check_eval_renders(trainer, scene, evals):
+    """The evaluation's renders show the fitted avatar.
+
+    Two kinds of held-out camera cannot. One whose stage-1 crop lies wholly
+    outside its source image has an empty crop mask: its masked render and
+    target are both zero, so ``evaluate`` counts an L1 of 0 and a PSNR of
+    inf for it. One with no splat in front of it renders the white
+    background alone. Both are named. Every other camera must show the
+    avatar in its crop (alpha summing to at least 50 pixels there) and
+    render the crop closer to the target than the white background would,
+    at least one camera must, and a split without an empty camera must
+    report a finite PSNR. Also counts the training views that see the head."""
+    import torch
+
+    def render(cam):
+        with torch.no_grad():
+            return trainer.render_camera(cam, int(cam.timestep))
+
+    seen = sum(bool(render(c)["visibility"].any()) for c in scene.train_cameras)
+    log(f"[fit] training views with splats in front of the camera: {seen} of "
+        f"{len(scene.train_cameras)}")
+    shown = 0
+    for split in ("val", "test"):
+        cams = getattr(scene, f"{split}_cameras")[:10]
+        empty, unseen = [], []
+        for cam in cams:
+            ct = trainer.camera_tensors(cam)
+            inside = ct["mask"] > 0.5
+            if not bool(inside.any()):
+                empty.append(cam.uid)
+                continue
+            out = render(cam)
+            if not bool(out["visibility"].any()):
+                assert float(out["alpha"].max()) == 0.0, (split, cam.uid)
+                unseen.append(cam.uid)
+                continue
+            alpha = out["alpha"][inside]
+            cover = float(alpha.sum())
+            err = float((out["render"].clamp(0, 1) - ct["gt"]).abs().mean(-1)[inside].mean())
+            err_bg = float((1.0 - ct["gt"]).mean(-1)[inside].mean())
+            log(f"[fit] {split} camera {cam.uid}: {int(inside.sum())} in-crop pixels, alpha sum "
+                f"{cover:.1f} (> 0.05 on {int((alpha > 0.05).sum())}, > 0.5 on "
+                f"{int((alpha > 0.5).sum())}), L1 there {err:.4f} (white background {err_bg:.4f})")
+            assert cover >= 50 and err < err_bg, (split, cam.uid, cover, err, err_bg)
+            shown += 1
+        psnrs = [l[f"{split}/psnr"] for l in evals if f"{split}/psnr" in l]
+        log(f"[fit] {split}: cameras with an empty crop mask {empty}, with no splat in front "
+            f"{unseen} | psnr {psnrs}")
+        if cams and not empty:
+            assert psnrs and all(math.isfinite(p) for p in psnrs), (split, psnrs)
+    assert shown > 0, "no held-out camera shows the avatar"
+
+
+def phase_fit(work: Path, stage1_out: Path, flame_dir: Path, kernels, card: str):
+    """Stage 2 through ``training()``; returns the model path and launches."""
+    import json as _json
+
+    from cap4d_torch.avatar.train import training
+
+    model, opt = avatar_params()
+    model_path = work / "avatar"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer = training([str(stage1_out / "reference_images"),
+                        str(stage1_out / "generated_images")],
+                       model_path, model, opt, testing_iterations=[300],
+                       checkpoint_iterations=[300], flame_asset_dir=flame_dir)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    lines = [_json.loads(l) for l in open(model_path / "metrics.jsonl")]
+    steps = {l["iter"]: l for l in lines if "loss" in l}
+    evals = [l for l in lines if "val/psnr" in l]
+    assert all(math.isfinite(l["loss"]) for l in steps.values()), "non-finite fit loss"
+    assert (model_path / "chkpnt300.pth").exists() and evals, "no checkpoint / eval"
+    assert steps[190]["n_active"] != steps[210]["n_active"], "densification changed nothing"
+    s_per_it = (steps[300]["elapsed_s"] - steps[20]["elapsed_s"]) / 280
+    from cap4d_torch.avatar.scene import load_cap4d_dataset
+
+    scene = load_cap4d_dataset([str(stage1_out / "reference_images"),
+                                str(stage1_out / "generated_images")])
+    n_eval = min(len(scene.val_cameras), 10) + min(len(scene.test_cameras), 10)
+    log(f"[fit] 300 iterations, wall {wall:.1f} s | {s_per_it:.4f} s per iteration over "
+        f"iterations 20-300 ({1 / s_per_it:.2f} it/s) | gaussians {steps[20]['n_active']} -> "
+        f"{steps[300]['n_active']} | loss {steps[10]['loss']:.4f} -> {steps[300]['loss']:.4f} | "
+        f"{evals[0]} | on {card}")
+    log(f"[fit] launches {launches} (300 iterations + {n_eval} evaluation renders)")
+    assert launches["gsplat_bwd"] == 300 and launches["gsplat_fwd"] == 300 + n_eval, launches
+    assert launches["rasterize"] > 0, launches
+    check_eval_renders(trainer, scene, [l for l in lines if "val/psnr" in l or "test/psnr" in l])
+    # one more iteration and one evaluation render, outside the counted run
+    cam = scene.train_cameras[0]
+    profile_breakdown(lambda: trainer.train_step(cam, 301, 301), "fit iteration profile")
+    profile_breakdown(lambda: trainer.render_camera(cam, cam.timestep, clip=True),
+                      "render profile")
+    del trainer
+    return model_path, launches
+
+
+def phase_animate(work: Path, model_path: Path, flame_dir: Path, kernels, card: str):
+    from cap4d_torch.avatar.animate import render_sequence
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.plyio import read_ply
+
+    drv = sa.make_driving_sequence(work, n_frames=48, resolution=512)
+    out = work / "animation"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = render_sequence(model_path, drv, out, flame_asset_dir=str(flame_dir), compress_ply=True)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    frames = sorted((out / "frames").glob("*.png"))
+    assert res["frames"] == 48 and len(frames) == 48, (res, len(frames))
+    ply = read_ply(out / "exported_animation.ply")
+    assert "delta_vertex_00047" in ply, sorted(ply)[:5]
+    log(f"[animate] 48 frames at 512x512: render loop {res['render_s']:.2f} s = "
+        f"{48 / res['render_s']:.2f} FPS (PNG writes and PLY vertex capture included) | wall "
+        f"{wall:.1f} s | on {card}")
+    log(f"[animate] launches {launches}")
+    assert launches["gsplat_fwd"] == 48, launches
     return launches
 
 
@@ -410,12 +705,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from cap4d_torch.ops import flash_attention, norms, rasterize
+    from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, rasterize
 
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
         f"nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    kernels = [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL]
+    kernels = [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL,
+               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD]
     phase_build(kernels)
 
     work = REPO / ".chip_smoke_work"
@@ -428,14 +724,23 @@ def main() -> int:
               "cap4d_tpu/ops/norms.py:26", norms.KERNEL, library=True),
         Entry("rasterize", "cuda", "cap4d_torch/csrc/rasterize.cu",
               "cap4d_tpu/ops/rasterize.py:233", rasterize.KERNEL, library=False),
+        Entry("gsplat_fwd", "cuda", "cap4d_torch/csrc/gsplat_fwd.cu",
+              "cap4d_tpu/ops/gsplat_pallas.py:197", gsplat_tiles.KERNEL_FWD, library=False),
+        Entry("gsplat_bwd", "cuda", "cap4d_torch/csrc/gsplat_bwd.cu",
+              "cap4d_tpu/ops/gsplat_pallas.py:266", gsplat_tiles.KERNEL_BWD, library=False),
     ]
     phase_attention(entries[0])
     phase_group_norm(entries[1])
     phase_rasterize(entries[2], work / "raster")
     phase_unet()
-    launches = phase_main_path(work, kernels, card)
+    gen_launches, stage1_out = phase_main_path(work, kernels, card)
+    flame_dir = phase_gsplat(entries[3], entries[4], work, stage1_out)
+    model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
+    anim_launches = phase_animate(work, model_path, flame_dir, kernels, card)
     for e in entries:
-        e.d["launches"] = launches[e.kernel.name]
+        n = e.kernel.name
+        e.d["launches"] = gen_launches[n] + fit_launches[n] + anim_launches[n]
+        assert e.d["launches"] > 0, f"{n} never launched on the main paths"
 
     shutil.rmtree(work, ignore_errors=True)
 

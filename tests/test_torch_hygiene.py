@@ -1,7 +1,9 @@
 """The port's boundaries: no module of cap4d_torch (nor chip_smoke.py) imports
 JAX, flax, optax, cap4d_tpu or the host libraries the card machine lacks
-(yaml, cv2, PIL); entry points refuse to run without CUDA unless asked for
-the CPU; the kernel wrappers take their plain versions on CPU tensors."""
+(yaml, cv2, PIL); entry points (stage-1 generation, the avatar fit and
+animation) refuse to run without CUDA unless asked for the CPU; the kernel
+wrappers (K1-K5) take their plain versions on CPU tensors, building and
+launching nothing."""
 
 import ast
 from pathlib import Path
@@ -47,15 +49,37 @@ def test_entry_points_refuse_to_run_without_cuda(tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_kernel_wrappers_use_plain_versions_on_cpu():
-    from cap4d_torch.ops import flash_attention, norms, rasterize
+def test_avatar_entry_points_refuse_to_run_without_cuda(tmp_path):
+    from cap4d_torch.avatar.animate import render_sequence, render_static
+    from cap4d_torch.avatar.train import training
 
-    kernels = (flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        training([str(tmp_path)], tmp_path / "avatar", {}, {}, [], [])
+    assert not (tmp_path / "avatar").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_sequence(tmp_path, tmp_path / "fit.npz", tmp_path / "anim")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_static(tmp_path, tmp_path / "fit.npz", tmp_path / "anim")
+    assert not (tmp_path / "anim").exists()
+
+
+def test_kernel_wrappers_use_plain_versions_on_cpu():
+    from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, rasterize
+
+    kernels = (flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL,
+               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD)
     before = [k.launches for k in kernels]
     q = torch.randn(1, 70, 2, 64)
     flash_attention.flash_attention(q, q, q)
     norms.group_norm_silu(torch.randn(1, 4, 4, 64), torch.ones(64), torch.zeros(64))
     verts = torch.rand(1, 3, 3)
     rasterize.rasterize_meshes(verts, torch.tensor([[0, 1, 2]]), (8, 8))
+    means = torch.tensor([[0.0, 0.0, 2.0], [0.05, 0.0, 2.5]], requires_grad=True)
+    out = gsplat_tiles.rasterize_gaussians(
+        means, torch.tensor([[1.0, 0, 0, 0]] * 2), torch.full((2, 3), 0.05),
+        torch.tensor([0.8, 0.5]), torch.zeros(2, 1, 3), torch.eye(4),
+        torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]]), 32, 32, sh_degree=0)
+    out["render"].sum().backward()
+    assert float(out["alpha"].max()) > 0.5
     assert [k.launches for k in kernels] == before
     assert all(k._lib is None for k in kernels)  # nothing built or loaded
