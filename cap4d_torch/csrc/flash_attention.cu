@@ -19,6 +19,13 @@
 // ragged last key tile is masked (keys >= S score -inf and load as zeros)
 // and rows >= S are not stored, so every S works.
 //
+// For training, the kernel can also write each row's log-sum-exp in base 2,
+// lse2 = m·scale·log2(e) + log2(l) (fp32, (B, H, S)), from the final running
+// max m of the raw scores and the row sum l. The backward (K6,
+// flash_attention_bwd.cu) recomputes P = exp2(s·scale·log2(e) − lse2) with
+// the same scale folding. A null lse pointer writes nothing, and O is the
+// same either way.
+//
 // K/V tiles are double-buffered: cp.async fetches tile j+1 into shared memory
 // while the warps compute on tile j; K and V fragments come in through
 // ldmatrix, and the softmax takes one FFMA and one ex2.approx per score.
@@ -102,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int H, int S,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int S,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
@@ -245,6 +252,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (lse != nullptr && t == 0) {  // the quad shares the row totals; one lane writes
+    float* lrow = lse + static_cast<long long>(blockIdx.y) * S;
+    if (row0 < S) lrow[row0] = m0 * scale_log2 + log2f(l0);
+    if (row0 + 8 < S) lrow[row0 + 8] = m1 * scale_log2 + log2f(l1);
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
   for (int i = 0; i < kD / 8; ++i) {
@@ -264,9 +276,10 @@ extern "C" {
 
 // q, k, v, o: (B, S, H, 64) bf16 with the head dim contiguous; strides in
 // elements (each a multiple of 8, base pointers 16-byte aligned: checked by
-// the Python wrapper). Launches on `stream`; returns cudaGetLastError().
+// the Python wrapper). lse: (B, H, S) fp32, or null to skip it. Launches on
+// `stream`; returns cudaGetLastError().
 int c4d_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                            int B, int S, int H,
+                            void* lse, int B, int S, int H,
                             long long q_sb, long long q_ss, long long q_sh,
                             long long k_sb, long long k_ss, long long k_sh,
                             long long v_sb, long long v_ss, long long v_sh,
@@ -276,7 +289,8 @@ int c4d_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, S,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, S,
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());

@@ -8,6 +8,11 @@ Without a checkpoint the weights are random, drawn as the JAX package's
 random-weights mode draws them: N(0, 0.02) for every ≥2-D parameter and
 zeros for every ≤1-D one — which zeros every norm scale, so on that path
 every GroupNorm/LayerNorm outputs its bias.
+
+``trainable=True`` builds the UNet for training: fp32 parameters that
+require gradients, train mode, ``dtype`` as the compute dtype
+(``MMDMUNet.compute_dtype``) instead of the weights' dtype; ``remat=True``
+checkpoints its blocks. The VAE stays frozen in ``dtype``.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ class MMDM:
     device: torch.device
     scale_factor: float = SCALE_FACTOR
     latent_size: int = 64
+    n_frames: int = 8
+    cfg_probability: float = 0.1
 
     @classmethod
     def from_config(
@@ -71,11 +78,14 @@ class MMDM:
         flame_asset_dir: str | Path = DEFAULT_FLAME_ASSETS,
         dtype: torch.dtype = torch.float32,
         device=None,
+        remat: bool = False,
+        trainable: bool = False,
     ) -> "MMDM":
         """Build from a reference config_dump.yaml dict or path.
 
         ckpt_path: directory holding checkpoints/*.ckpt (the newest by ctime
-        is loaded); None → random weights. ``device`` None means the card."""
+        is loaded); None → random weights. ``device`` None means the card.
+        ``trainable``/``remat``: see the module docstring."""
         dev = resolve_device(device)
         if not isinstance(config, dict):
             config = load_yaml(config)
@@ -112,7 +122,12 @@ class MMDM:
             latest = newest_checkpoint(ckpt_path)
             print(f"Loading MMDM weights from {latest}")
             load_mmdm_checkpoint(latest, unet, vae)
-        unet.set_dtype(dtype).eval().requires_grad_(False)
+        if trainable:
+            unet.train().requires_grad_(True)
+            unet.compute_dtype = dtype
+        else:
+            unet.set_dtype(dtype).eval().requires_grad_(False)
+        unet.remat = remat
         vae.set_dtype(dtype).eval().requires_grad_(False)
         if dev.type == "cuda":
             # conv weights in the activations' channels-last layout
@@ -146,7 +161,8 @@ class MMDM:
         )
         return cls(unet=unet, vae=vae, cond_model=cond_model, schedule=schedule,
                    device=dev, scale_factor=mp.get("scale_factor", SCALE_FACTOR),
-                   latent_size=mp["image_size"])
+                   latent_size=mp["image_size"], n_frames=mp["n_frames"],
+                   cfg_probability=mp.get("cfg_probability", 0.1))
 
     # ---------------- first stage ----------------
 

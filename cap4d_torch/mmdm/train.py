@@ -1,0 +1,236 @@
+"""MMDM training CLI: multi-view diffusion training with virtual batching
+(counterpart of ``cap4d_tpu/mmdm/train.py``).
+
+    python -m cap4d_torch.mmdm.train --config_path configs/mmdm/cap4d_mmdm_final.yaml \
+        --output_path out/mmdm_train
+
+Reference parity: the shipped recipe (per-device batch 1, virtual batch 64,
+AdamW at lr 1e-4, 100k steps, n_ref 4), the MMLDM loss path (per-view
+timesteps, ref-masked eps loss, ``cfg_probability`` unconditional mixing)
+and the ImageLogger's periodic sample grids.
+
+As in the JAX package, the weights start from the random-weights mode (the
+config's ``init_path`` names SD 2.1 weights that are not in the repository)
+and the data from ``SyntheticMMDMDataset`` unless a dataset is passed.
+
+Differences from ``cap4d_tpu``:
+
+- one card: the JAX ``dp_mesh`` batch sharding has no counterpart;
+- the micro-batches of a step run in a Python loop, each with its own
+  backward; PyTorch sums their gradients in ``.grad`` and the step divides
+  them by the number of micro-batches, as the JAX scan does;
+- training computes in bf16 by default (``dtype``), with fp32 parameters and
+  AdamW state: the attention kernels take bf16 only. The JAX CLI's default
+  is fp32;
+- ``mmdm_step{N}.pkl`` holds ``params`` in the JAX package's flax layout
+  (numpy) and ``opt_state`` as a plain dict ``{"count", "mu", "nu"}`` in the
+  same layout, since optax's state classes cannot be pickled without optax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pickle
+import time
+from pathlib import Path
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from cap4d_torch.mmdm.convert import (
+    flax_from_state_dict,
+    state_dict_from_flax,
+    unet_norm_kinds,
+    unet_torch_key,
+)
+from cap4d_torch.mmdm.ddim import ddim_sample
+from cap4d_torch.mmdm.model import MMDM
+from cap4d_torch.mmdm.training import TrainState, init_train_state, mmdm_loss, schedule_consts
+from cap4d_torch.utils.config import load_yaml
+from cap4d_torch.utils.device import resolve_device
+from cap4d_torch.utils.logging import save_image_grid
+
+
+class SyntheticMMDMDataset:
+    """Random multi-view batches with the real conditioning contract, drawn
+    from ``np.random.default_rng(seed)`` in the JAX dataset's order, so the
+    two packages see the same batches."""
+
+    def __init__(self, model: MMDM, n_views: int = 8, n_ref: int = 4, seed: int = 0):
+        self.model = model
+        self.V = n_views
+        self.R = n_ref
+        self.rng = np.random.default_rng(seed)
+
+    def batches(self, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+        lat = self.model.latent_size
+        cch = self.model.unet.condition_channels
+        while True:
+            z = self.rng.normal(size=(batch_size, self.V, lat, lat, 4)).astype(np.float32)
+            pos_enc = self.rng.normal(
+                size=(batch_size, self.V, lat, lat, cch)).astype(np.float32)
+            ref_mask = np.zeros((batch_size, self.V, lat, lat, 1), np.float32)
+            ref_mask[:, : self.R] = 1.0
+            yield {
+                "z": z,
+                "cond": {"pos_enc": pos_enc, "z_input": z * ref_mask, "ref_mask": ref_mask},
+            }
+
+
+def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_steps: int,
+                          cfg_probability: float = 0.1):
+    """One optimizer step over ``accum_steps`` micro-batches (virtual
+    batching). Returns step(state, z_stack, cond_stack, generator,
+    t_stack=None, noise_stack=None) → mean loss; the stacks are (accum, B,
+    ...). Each micro-batch draws its unconditional mask, then its timesteps
+    and noise, from ``generator`` unless ``t_stack``/``noise_stack`` give
+    them."""
+    unet = model.unet
+    consts = schedule_consts(model.schedule, model.device)
+    num_timesteps = model.schedule.num_timesteps
+
+    def micro_loss(z, cond, generator, t, noise):
+        # per-sample unconditional mixing (get_input, mmdm.py:78-85)
+        is_uncond = torch.rand((z.shape[0],), generator=generator, device=z.device) < cfg_probability
+
+        def mix(c):
+            drop = is_uncond.reshape(-1, *([1] * (c.ndim - 1)))
+            return torch.where(drop, torch.zeros_like(c), c)
+
+        cond = {"pos_enc": mix(cond["pos_enc"]), "z_input": mix(cond["z_input"]),
+                "ref_mask": cond["ref_mask"]}
+        return mmdm_loss(unet, consts, z, cond, generator, num_timesteps=num_timesteps,
+                         t=t, noise=noise)
+
+    def step(state: TrainState, z_stack, cond_stack, generator=None, t_stack=None,
+             noise_stack=None) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss_sum = torch.zeros((), device=z_stack.device)
+        for i in range(accum_steps):
+            loss, _ = micro_loss(z_stack[i], {k: v[i] for k, v in cond_stack.items()}, generator,
+                                 None if t_stack is None else t_stack[i],
+                                 None if noise_stack is None else noise_stack[i])
+            loss.backward()
+            loss_sum += loss.detach()
+        for p in unet.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum_steps)
+        optimizer.step()
+        state.step += 1
+        return loss_sum / accum_steps
+
+    return step
+
+
+def save_train_checkpoint(path: Path, state: TrainState, step: int) -> None:
+    """``params`` and the AdamW moments (after at least one update) in the
+    JAX package's flax layout."""
+    named = dict(state.unet.named_parameters())
+    norms = unet_norm_kinds(state.unet)
+    opt = state.optimizer.state
+    moments = {name: flax_from_state_dict({k: opt[p][name] for k, p in named.items()}, norms)
+               for name in ("exp_avg", "exp_avg_sq")}
+    count = int(opt[next(iter(named.values()))]["step"])
+    with open(path, "wb") as fh:
+        pickle.dump({"params": flax_from_state_dict(named, norms),
+                     "opt_state": {"count": np.int32(count), "mu": moments["exp_avg"],
+                                   "nu": moments["exp_avg_sq"]},
+                     "step": step}, fh)
+
+
+def load_train_checkpoint(path: Path, unet: torch.nn.Module) -> int:
+    """Load the ``params`` of ``mmdm_step{N}.pkl`` into ``unet``; returns the
+    step."""
+    with open(path, "rb") as fh:
+        ck = pickle.load(fh)
+    unet.load_state_dict(state_dict_from_flax(ck["params"], unet_torch_key), strict=True)
+    return int(ck["step"])
+
+
+def train_mmdm(
+    config_path: str | Path,
+    output_path: str | Path,
+    n_steps: Optional[int] = None,
+    flame_asset_dir: str = "data/assets/flame",
+    dtype: torch.dtype = torch.bfloat16,
+    log_every: int = 50,
+    save_every: Optional[int] = None,
+    dataset=None,
+    image_log_every: Optional[int] = None,
+    device=None,
+) -> TrainState:
+    """Train the MMDM UNet on the card (``device="cpu"`` for the plain
+    versions); returns the final ``TrainState``."""
+    dev = resolve_device(device)
+    config = load_yaml(config_path)
+    out = Path(output_path)
+    out.mkdir(parents=True, exist_ok=True)
+
+    model = MMDM.from_config(config, flame_asset_dir=flame_asset_dir, dtype=dtype, device=dev,
+                             remat=True, trainable=True)
+    lr = float(config.get("learning_rate", 1e-4))
+    batch = int(config.get("gpu_batch_size", 1))
+    accum = int(config.get("virtual_batch_size", 64)) // batch
+    total = n_steps or int(config.get("n_steps", 100_000))
+    save_every = save_every or int(config.get("save_every_n_steps", 1000))
+
+    state = init_train_state(model.unet, lr)
+    step_fn = make_accum_train_step(model, state.optimizer, accum,
+                                    cfg_probability=model.cfg_probability)
+    if dataset is None:
+        dataset = SyntheticMMDMDataset(model, n_views=model.n_frames,
+                                       n_ref=int(config.get("n_ref", 4)))
+    batches = dataset.batches(batch)
+    generator = torch.Generator(device=dev).manual_seed(0)
+
+    with open(out / "train_metrics.jsonl", "a") as metrics:
+        t0 = time.perf_counter()
+        for step in range(1, total + 1):
+            micro = [next(batches) for _ in range(accum)]
+            z_stack = torch.as_tensor(np.stack([m["z"] for m in micro]), device=dev)
+            cond_stack = {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro]), device=dev)
+                          for k in micro[0]["cond"]}
+            loss = step_fn(state, z_stack, cond_stack, generator)
+            if step % log_every == 0 or step == 1:
+                l = float(loss)   # waits for the step's work on the card
+                dt = (time.perf_counter() - t0) / step
+                print(f"[{step}/{total}] loss={l:.5f} {1 / dt:.3f} steps/s", flush=True)
+                metrics.write(json.dumps({"step": step, "loss": l, "steps_per_sec": 1 / dt}) + "\n")
+                metrics.flush()
+            if image_log_every and step % image_log_every == 0:
+                # ImageLogger parity (cldm/logger.py): a decoded sample grid
+                cond1 = {k: v[0][:1] for k, v in cond_stack.items()}
+                shape = (1, model.n_frames, model.latent_size, model.latent_size, 4)
+                z_s = ddim_sample(model, cond1, shape, steps=10,
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+                imgs = model.decode_latents(z_s.reshape(-1, *z_s.shape[2:]))
+                save_image_grid(imgs.reshape(1, *imgs.shape),
+                                out / "image_log" / f"samples_{step:06d}.png")
+            if step % save_every == 0 or step == total:
+                save_train_checkpoint(out / f"mmdm_step{step}.pkl", state, step)
+    return state
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_path", type=str, required=True,
+                        help="reference-format training config (config_dump.yaml)")
+    parser.add_argument("--output_path", type=str, required=True)
+    parser.add_argument("--n_steps", type=int, default=None)
+    parser.add_argument("--flame_asset_dir", type=str, default="data/assets/flame")
+    parser.add_argument("--detect_anomaly", action="store_true",
+                        help="torch.autograd.set_detect_anomaly (reference train.py:359,391)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the CUDA card; 'cpu' runs the plain "
+                             "versions of the kernels)")
+    args = parser.parse_args()
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
+    train_mmdm(args.config_path, args.output_path, n_steps=args.n_steps,
+               flame_asset_dir=args.flame_asset_dir, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,10 +16,27 @@ the boundary); convolutions see them through a channels-last NCHW view, and
 the GroupNorm kernel K2 and the attention kernel K1 read them in place.
 Every GroupNorm of the UNet (ResBlocks, transformer ``norm``, ``out``) goes
 through K2 and every attention through K1 on the card; ``use_plain_ops``
-switches both to their plain versions for comparisons. GroupNorm and
-LayerNorm parameters stay fp32; everything else follows the compute dtype
-(``set_dtype``). The GEGLU gate uses the tanh-approximated GELU, as flax's
-``nn.gelu`` does in the JAX package.
+switches both to their plain versions for comparisons. The GEGLU gate uses
+the tanh-approximated GELU, as flax's ``nn.gelu`` does in the JAX package.
+
+Two precisions, as flax separates ``dtype`` from ``param_dtype``:
+
+- inference casts the weights themselves (``set_dtype``): convolutions and
+  linears in the compute dtype, GroupNorm and LayerNorm parameters fp32;
+- training keeps every parameter (and so every gradient and AdamW moment)
+  fp32 and sets ``compute_dtype``: the forward then runs under
+  ``torch.autocast``, which hands each convolution and linear bf16 copies of
+  its weights and inputs, as flax's ``dtype=bfloat16`` does. Autocast was
+  picked over explicit casts because it leaves every module's forward as
+  the inference path runs it, keeps LayerNorm in fp32 by its own rules, and
+  is recorded and replayed by ``torch.utils.checkpoint``. Its bf16
+  activations are what K1/K6 take; fp32 activations on the card raise in
+  K1, so training on the card runs bf16.
+
+``remat=True`` wraps every ResBlock and SpatioTemporalTransformer in
+``torch.utils.checkpoint`` (non-reentrant) while gradients are recorded, as
+``cap4d_tpu/mmdm/unet.py`` wraps them in ``nn.remat``: their activations are
+recomputed in the backward, so K1 and K2 run twice per training forward.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cap4d_torch.ops.attention import attention_mode_reshape
 from cap4d_torch.ops.flash_attention import flash_attention
@@ -260,6 +278,9 @@ class MMDMUNet(nn.Module):
 
         self.out = nn.ModuleDict({"0": GroupNorm32(ch, fuse_silu=True),
                                   "2": nn.Conv2d(ch, out_channels, 3, padding=1)})
+        self.condition_channels = condition_channels
+        self.remat = False
+        self.compute_dtype = None   # None: the weights' own dtype
 
     def set_dtype(self, dtype: torch.dtype) -> "MMDMUNet":
         """Cast convolutions and linears to ``dtype``; norms stay fp32."""
@@ -280,12 +301,29 @@ class MMDMUNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.cond_linear.weight.dtype
 
+    def _layer(self, layer: nn.Module, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        args = (h, emb) if isinstance(layer, ResBlock) else (h,)
+        if (self.remat and torch.is_grad_enabled()
+                and isinstance(layer, (ResBlock, SpatioTemporalTransformer))):
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict) -> torch.Tensor:
         """x (B,T,H,W,C) noisy latents; timesteps (B,T); cond {"pos_enc"
         (B,T,H,W,50), "z_input" (B,T,H,W,C), "ref_mask" (B,T,H,W,1)}."""
         z_input, ref = cond["z_input"], cond["ref_mask"]
         x_input = x - z_input                     # ground-truth noise at ref slots
         x = z_input * ref + x * (1.0 - ref)       # clean ref latents substituted
+        if self.compute_dtype is None or self.compute_dtype == self.dtype:
+            h = self._denoise(x, timesteps, cond)
+        else:
+            with torch.autocast(x.device.type, dtype=self.compute_dtype):
+                h = self._denoise(x, timesteps, cond)
+        h = h.to(x.dtype)
+        # noise at ref slots is replaced by the true noise
+        return x_input * ref + h * (1.0 - ref)
+
+    def _denoise(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict) -> torch.Tensor:
         B, T, H, W, C = x.shape
         dt = self.dtype
         h = x.reshape(B * T, H, W, C).to(dt)
@@ -299,19 +337,16 @@ class MMDMUNet(nn.Module):
                 h = conv_nhwc(block[0], h) + pos_embedding  # injected once, after block 0
             else:
                 for layer in block:
-                    h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+                    h = self._layer(layer, h, emb)
             hs.append(h)
 
-        h = self.middle_block[0](h, emb)
-        h = self.middle_block[1](h)
-        h = self.middle_block[2](h, emb)
+        for layer in self.middle_block:
+            h = self._layer(layer, h, emb)
 
         for block in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=-1)
             for layer in block:
-                h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+                h = self._layer(layer, h, emb)
 
         h = conv_nhwc(self.out["2"], self.out["0"](h))
-        h = h.to(x.dtype).reshape(B, T, H, W, self.out_channels)
-        # noise at ref slots is replaced by the true noise
-        return x_input * ref + h * (1.0 - ref)
+        return h.reshape(B, T, H, W, self.out_channels)

@@ -1,10 +1,12 @@
 """GroupNorm (+SiLU) over NHWC activations with fp32 statistics
 (counterpart of ``cap4d_tpu/ops/norms.py``).
 
-``group_norm_silu`` launches kernel K2 (``csrc/group_norm.cu``) on CUDA
-tensors and runs the plain version ``group_norm_silu_plain`` (the math of
-``_gn_silu_jnp``) on CPU tensors. It raises on a shape or type the kernel
-does not take rather than falling back.
+``group_norm_silu`` runs the ``GroupNormSiLU`` autograd Function. Its
+forward launches kernel K2 (``csrc/group_norm.cu``) on CUDA tensors and runs
+the plain version ``group_norm_silu_plain`` (the math of ``_gn_silu_jnp``)
+on CPU tensors; it raises on a shape or type the kernel does not take rather
+than falling back. Its backward recomputes the plain version under autograd
+in fp32, as ``cap4d_tpu/ops/norms.py:186-206`` leaves the gradient to XLA.
 """
 
 from __future__ import annotations
@@ -61,13 +63,37 @@ def _group_norm_silu_cuda(x, scale, bias, num_groups, eps, apply_silu):
     return y
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """Forward K2 (the plain version for CPU tensors); backward by autograd
+    through the plain version recomputed in fp32. Saves x, scale, bias."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, apply_silu)
+        if x.is_cuda:
+            return _group_norm_silu_cuda(x, scale, bias, num_groups, eps, apply_silu)
+        return group_norm_silu_plain(x, scale, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, scale, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xf, sf, bf = (t.detach().float().requires_grad_() for t in (x, scale, bias))
+            out = group_norm_silu_plain(xf, sf, bf, *ctx.args)
+            gx, gs, gb = torch.autograd.grad(out, (xf, sf, bf), grad.float())
+        return gx.to(x.dtype), gs.to(scale.dtype), gb.to(bias.dtype), None, None, None
+
+
 def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     num_groups: int = 32, eps: float = 1e-5, apply_silu: bool = True,
                     plain: bool = False) -> torch.Tensor:
-    """GroupNorm over (H, W, group channels) + affine (+ SiLU) of NHWC ``x``.
+    """GroupNorm over (H, W, group channels) + affine (+ SiLU) of NHWC ``x``,
+    differentiable.
 
-    CUDA tensors launch kernel K2 (``plain=True`` selects the plain version
-    for comparisons); CPU tensors take the plain version."""
-    if x.is_cuda and not plain:
-        return _group_norm_silu_cuda(x, scale, bias, num_groups, eps, apply_silu)
-    return group_norm_silu_plain(x, scale, bias, num_groups, eps, apply_silu)
+    CUDA tensors launch kernel K2 forward; CPU tensors take the plain version
+    through the same Function. ``plain=True`` selects autograd through
+    ``group_norm_silu_plain`` for comparisons."""
+    if plain:
+        return group_norm_silu_plain(x, scale, bias, num_groups, eps, apply_silu)
+    return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)

@@ -9,12 +9,17 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
   1. device: the card's name and power limit; build every kernel from
      ``cap4d_torch/csrc`` (one nvcc per source, all started together);
   2. K1 flash attention against its plain version at the main path's shapes
-     (bf16, d=64) plus a ragged S;
+     (bf16, d=64) plus a ragged S; then, at the four attention shapes of MMDM
+     training and a ragged S, K1's output with and without its log-sum-exp
+     (bit-identical), that log-sum-exp against the fp32 one, and K6 (the
+     attention backward) against its plain version;
   3. K2 GroupNorm(+SiLU) against its plain version at main-path shapes;
   4. K3 rasterizer against its plain version on 32 synthetic FLAME frames at
      128²;
   5. one full-width UNet forward (shipped config, V=8, 64² latents, CFG
      batch 2, bf16) with nonzero norm scales, kernels against plain versions;
+     then one training loss and its gradients at full width (fp32 parameters,
+     bf16 compute, remat), kernels against plain versions, every parameter;
   6. the stage-1 main path: ``run_generation`` at the shipped width on
      synthetic assets with random weights (the debug generation config: 10
      DDIM steps, 28 samples), with every kernel's launch count read around
@@ -29,10 +34,19 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      (densification, opacity reset, SH warmup, evaluation, checkpoint);
   9. the stage-3 main path: ``render_sequence`` of that checkpoint driven by
      a synthetic 48-frame fit.npz at 512², with the animated PLY;
- 10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+ 10. the MMDM training main path: ``train_mmdm`` on the shipped training
+     config at full width with the synthetic dataset, bf16, cut to a virtual
+     batch of 4 micro-batches and 3 optimizer steps (checkpoint and image log
+     at step 3); the checkpoint reloads into a fresh UNet; then, outside the
+     counted run, one more step through the loop's step function, timed
+     alone and profiled, and the AdamW update alone;
+ 11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
-Launch counts are read around each main path (6, 8, 9) with every count
+Launch counts are read around each main path (6, 8, 9, 10) with every count
 set to 0 just before it; the kernels line sums them.
+
+``--phases`` runs a subset (for bring-up); the result lines are printed only
+when every phase ran.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 Times are CUDA-event times on the card, with the card's name and power limit.
@@ -40,6 +54,7 @@ Times are CUDA-event times on the card, with the card's name and power limit.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import shutil
@@ -47,6 +62,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -293,11 +309,13 @@ def profile_breakdown(fn, label: str = "profile") -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"K1 flash_fwd": ("flash_fwd",), "K2 group norm": ("gn_stats", "gn_apply"),
+    families = {"K1 flash_fwd": ("flash_fwd",), "K6 flash bwd": ("bwd_dot", "bwd_dkdv", "bwd_dq"),
+                "K2 group norm": ("gn_stats", "gn_apply"),
                 "K3 raster": ("raster",), "K4 gsplat_fwd": ("gsplat_fwd",),
                 "K5 gsplat_bwd": ("gsplat_bwd",), "conv": ("conv", "cudnn", "implicit"),
                 "gemm": ("gemm", "cutlass", "sm90_xmma", "nvjet"),
                 "sort/scan": ("sort", "radix", "scan"),
+                "AdamW (foreach)": ("multi_tensor_apply",),
                 "index/scatter": ("index", "scatter", "gather")}
     totals = dict.fromkeys(list(families) + ["other"], 0.0)
     for evt in prof.key_averages():
@@ -321,10 +339,11 @@ def profile_breakdown(fn, label: str = "profile") -> None:
         + f"; busy {busy:.2f} ms of {wall_ms:.2f} ms wall ({100 * busy / wall_ms:.0f}% busy)")
 
 
-def phase_unet():
+def build_shipped_unet():
+    """The shipped-width UNet on the card, empty."""
     import torch
 
-    from cap4d_torch.mmdm.unet import GroupNorm32, MMDMUNet
+    from cap4d_torch.mmdm.unet import MMDMUNet
 
     up = shipped_model_section()["params"]["unet_config"]["params"]
     with torch.device("meta"):
@@ -336,7 +355,16 @@ def phase_unet():
             num_head_channels=up["num_head_channels"],
             condition_channels=up["condition_channels"], time_steps=up["time_steps"],
             temporal_mode=up["temporal_mode"])
-    unet.to_empty(device="cuda")
+    return unet.to_empty(device="cuda")
+
+
+def phase_unet():
+    import torch
+
+    from cap4d_torch.mmdm.unet import GroupNorm32
+
+    up = shipped_model_section()["params"]["unet_config"]["params"]
+    unet = build_shipped_unet()
     gen = torch.Generator(device="cuda").manual_seed(2)
     norms = {id(m.weight) for m in unet.modules()
              if isinstance(m, (GroupNorm32, torch.nn.LayerNorm))}
@@ -692,6 +720,301 @@ def phase_animate(work: Path, model_path: Path, flame_dir: Path, kernels, card: 
     return launches
 
 
+# --------------------------------------------- slice 3: MMDM training ----
+
+TRAIN_ATTENTION = [  # (B, S, H) of the UNet's attentions at V=8, 64², calls per micro-batch
+    ((8, 4096, 5), 5),      # level 0, 64², spatial
+    ((1, 8192, 10), 5),     # level 1, 32², 3d
+    ((1, 2048, 20), 5),     # level 2, 16², 3d
+    ((1, 512, 20), 1),      # middle, 8², 3d
+]
+
+
+def phase_attention_backward(entry: Entry):
+    """K1's lse2 output and K6 against their plain versions at the training
+    shapes; K6's numbers summed over one micro-batch's 16 calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from cap4d_torch.ops import flash_attention as fa
+
+    d = 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (B, S, H), calls in TRAIN_ATTENTION + [((1, 1000, 4), 0)]:
+        # logits q·k/8 with a spread of ~2 (std): softmax rows neither flat nor one-hot
+        q = (1.5 * torch.randn((B, S, H, d), generator=gen, device="cuda")).to(torch.bfloat16)
+        k = (1.5 * torch.randn((B, S, H, d), generator=gen, device="cuda")).to(torch.bfloat16)
+        v, do = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        o_no_lse, _ = fa.flash_attention_fwd_cuda(q, k, v)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_no_lse), "K1 output changes when it writes lse2"
+        lse_ref = fa.attention_lse_plain(q, k)
+        # fp32 row sums of S ex2.approx terms: 1e-3 in log2 is 0.07 % of a probability
+        check_close(f"K1 lse2 B={B} S={S} H={H}", lse, lse_ref, 0.0, 1e-3)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        refs = fa.attention_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                           do.float(), lse)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            # P and dS are rounded to bf16 before their products (as the
+            # forward rounds P), and the outputs are bf16: 2e-2 of each
+            # output's largest |grad|
+            scale = float(r.abs().max())
+            e = check_close(f"K6 {name} B={B} S={S} H={H}", a, r, 0.0, 2e-2 * scale)
+            log(f"[K6] {name} B={B} S={S} H={H}: max |kernel - plain| / max |plain| = "
+                f"{e / scale:.3g}")
+            err = max(err, e)
+        del refs
+        if not calls:
+            continue
+        ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse))
+        plain_ms = time_ms(lambda: fa.attention_backward_plain(q, k, v, o, do, lse),
+                           iters=3, warmup=1)
+        fwd_lse_ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, with_lse=True))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        sdpa_fb = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt),
+                                                      (qt, kt, vt), dot))
+        lib_ms = sdpa_fb - sdpa_f
+        flops = 10.0 * S * S * d * B * H
+        nbytes = 8.0 * B * S * H * d * 2 + B * H * S * 4   # q k v o dO in, dq dk dv out, lse2
+        flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        entry.add(err, calls * ms, calls * plain_ms, calls * flop_ms, calls * byte_ms,
+                  calls * lib_ms)
+        log(f"[K6] B={B} S={S} H={H} (x{calls} per micro-batch): kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa fwd+bwd - fwd "
+            f"{lib_ms:.3f} ms ({sdpa_fb:.3f} - {sdpa_f:.3f}) | bound {max(flop_ms, byte_ms):.3f} ms "
+            f"| K1 with lse2 {fwd_lse_ms:.3f} ms")
+    log(f"[K6] per micro-batch (16 calls): kernel {entry.d['ms']:.3f} ms | plain "
+        f"{entry.d['plain_ms']:.3f} ms | sdpa backward {entry.d['library_ms']:.3f} ms | bound "
+        f"{entry.d['bound_ms']:.3f} ms ({entry.d['bound_by']})")
+
+
+def shipped_schedule():
+    from cap4d_torch.mmdm.schedule import make_mmdm_schedule
+
+    mp = shipped_model_section()["params"]
+    return make_mmdm_schedule(
+        timesteps=mp["timesteps"], linear_start=mp["linear_start"], linear_end=mp["linear_end"],
+        zero_snr_shift=mp["zero_snr_shift"], shift=mp["shift_schedule"],
+        sqrt_shift=mp["sqrt_shift"], minus_one_shift=mp["minus_one_shift"],
+        n_frames=mp["n_frames"], image_size=mp["image_size"])
+
+
+def phase_unet_grad():
+    """One training loss and its gradients at full width, kernels against
+    plain versions; no gradient that the plain versions give may be dropped."""
+    import torch
+
+    from cap4d_torch.mmdm.model import init_random_
+    from cap4d_torch.mmdm.training import mmdm_loss, schedule_consts
+    from cap4d_torch.mmdm.unet import GroupNorm32
+
+    mp = shipped_model_section()["params"]
+    unet = build_shipped_unet()
+    init_random_(unet, 0)   # the random-weights mode: N(0, 0.02), ≤1-D parameters zero
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    norms = {id(m.weight) for m in unet.modules()
+             if isinstance(m, (GroupNorm32, torch.nn.LayerNorm))}
+    with torch.no_grad():
+        # a live init: with every norm scale 0 (the random-weights mode) q = k
+        # = v = 0 and the attention gradients vanish
+        for p in unet.parameters():
+            if id(p) in norms:
+                p.fill_(1.0)
+            elif p.ndim == 1:
+                p.normal_(0.0, 0.02, generator=gen)
+    unet.train().requires_grad_(True)
+    unet.remat, unet.compute_dtype = True, torch.bfloat16
+    unet.to(memory_format=torch.channels_last)
+    n_params = sum(p.numel() for p in unet.parameters())
+    consts = schedule_consts(shipped_schedule(), "cuda")
+    B, T, L = 1, mp["n_frames"], mp["image_size"]
+    z = torch.randn((B, T, L, L, 4), generator=gen, device="cuda")
+    ref = torch.zeros((B, T, L, L, 1), device="cuda")
+    ref[:, :4] = 1.0
+    cond = {"pos_enc": torch.randn((B, T, L, L, 50), generator=gen, device="cuda"),
+            "z_input": z * ref, "ref_mask": ref}
+    t = torch.randint(0, mp["timesteps"], (B, T), generator=gen, device="cuda")
+    noise = torch.randn(z.shape, generator=gen, device="cuda")
+
+    def micro_batch():
+        unet.zero_grad(set_to_none=True)
+        loss, _ = mmdm_loss(unet, consts, z, cond, t=t, noise=noise)
+        loss.backward()
+        return loss
+
+    res = {}
+    for plain in (False, True):
+        unet.use_plain_ops(plain)
+        micro_batch()   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = micro_batch()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        grads = {n: p.grad.detach().clone() for n, p in unet.named_parameters()}
+        res[plain] = (float(loss.detach()), grads)
+        log(f"[unet grad] {'plain versions' if plain else 'kernels'}: loss {res[plain][0]:.6f} | "
+            f"micro-batch (forward, remat recompute, backward) {sec:.4f} s | peak "
+            f"{peak:.2f} GiB | {n_params} parameters")
+    unet.use_plain_ops(False)
+    profile_breakdown(micro_batch, "train micro-batch profile")
+    (lk, gk), (lp, gp) = res[False], res[True]
+    assert math.isfinite(lk) and math.isfinite(lp)
+    rel_loss = abs(lk - lp) / abs(lp)
+    rels, dropped = {}, []
+    for n, g in gp.items():
+        norm = float(g.float().norm())
+        if norm == 0.0:
+            continue
+        if not bool(gk[n].any()):
+            dropped.append(n)
+        rels[n] = float((gk[n] - g).float().norm()) / norm
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:8]
+    n_zero = len(gp) - len(rels)
+    log(f"[unet grad] loss relative difference {rel_loss:.3g} (tolerance 1e-2) | "
+        f"{len(rels)} parameter tensors with a nonzero plain gradient, {n_zero} with a zero one "
+        f"| worst ||g_k - g_p|| / ||g_p|| (tolerance 5e-2): "
+        + ", ".join(f"{n} {r:.3g}" for n, r in worst))
+    assert not dropped, f"kernel gradients all zero where the plain ones are not: {dropped}"
+    assert rel_loss <= 1e-2, rel_loss
+    bad = {n: r for n, r in rels.items() if r > 5e-2}
+    assert not bad, f"gradients off by more than 5e-2: {bad}"
+    del unet, res, gk, gp
+    torch.cuda.empty_cache()
+
+
+def phase_train(work: Path, kernels, card: str):
+    """The training main path, as a user runs it, with the cuts listed."""
+    import torch
+
+    from cap4d_torch.mmdm.schedule import make_ddim_timesteps
+    from cap4d_torch.mmdm.train import load_train_checkpoint, train_mmdm
+    from cap4d_torch.mmdm.unet import AttentionModule, GroupNorm32
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.config import dump_yaml, load_yaml
+    from cap4d_torch.utils.png import read_png
+
+    cfg = load_yaml(REPO / "configs" / "mmdm" / "cap4d_mmdm_final.yaml")
+    # the only cuts: the virtual batch and the step count (checkpoint and image log at the end)
+    cuts = {"virtual_batch_size": 4, "n_steps": 3, "save_every_n_steps": 3}
+    log(f"[train] cuts of configs/mmdm/cap4d_mmdm_final.yaml: " + ", ".join(
+        f"{k} {cfg[k]} -> {v}" for k, v in cuts.items()) + "; image_log_every 3")
+    root = work / "train"
+    cfg_path = root / "train_config.yaml"
+    root.mkdir(parents=True)
+    dump_yaml(dict(cfg, **cuts), cfg_path)
+    flame_dir = sa.make_asset_dir(root)
+    out = root / "output"
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_mmdm(cfg_path, out, flame_asset_dir=flame_dir, log_every=1, image_log_every=3)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unet = state.unet
+    n_params = sum(p.numel() for p in unet.parameters())
+    lines = [json.loads(l) for l in open(out / "train_metrics.jsonl")]
+    assert [l["step"] for l in lines] == [1, 2, 3], lines
+    losses = [l["loss"] for l in lines]
+    assert all(math.isfinite(l) for l in losses), losses
+    elapsed = {l["step"]: l["step"] / l["steps_per_sec"] for l in lines}
+    accum = cuts["virtual_batch_size"]
+    s_step = (elapsed[3] - elapsed[1]) / 2
+    log(f"[train] {n_params} UNet parameters | losses {losses} | step 1 (warm-up) "
+        f"{elapsed[1]:.3f} s | steps 2-3: {s_step:.4f} s per optimizer step, "
+        f"{s_step / accum:.4f} s per micro-batch ({accum} micro-batches a step) | peak "
+        f"{peak:.2f} GiB allocated | wall {wall:.1f} s with set-up, image log and checkpoint "
+        f"| on {card}")
+
+    n_attn = sum(isinstance(m, AttentionModule) for m in unet.modules())
+    n_gn = sum(isinstance(m, GroupNorm32) for m in unet.modules())
+    micro = accum * cuts["n_steps"]
+    n_ddim = len(make_ddim_timesteps(10, 1000))
+    # remat runs every attention and every GroupNorm but the last one twice;
+    # the image log's DDIM runs 10 forwards without gradients
+    expect = {"flash_attention_bwd": micro * n_attn,
+              "flash_attention": micro * 2 * n_attn + n_ddim * n_attn,
+              "group_norm": micro * (2 * n_gn - 1) + n_ddim * n_gn}
+    log(f"[train] launches {launches} over {micro} micro-batches and {n_ddim} DDIM forwards "
+        f"(expected {expect})")
+    for name, n in expect.items():
+        assert launches[name] == n, (name, launches[name], n)
+
+    grid = read_png(out / "image_log" / "samples_000003.png")
+    assert grid.shape == (512, 8 * 514 - 2, 3), grid.shape
+    ckpt = out / "mmdm_step3.pkl"
+    fresh = build_shipped_unet()
+    assert load_train_checkpoint(ckpt, fresh) == 3
+    fresh.compute_dtype = torch.bfloat16
+    fresh.to(memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    L = 64
+    x = torch.randn((1, 8, L, L, 4), generator=gen, device="cuda")
+    ref = torch.zeros((1, 8, L, L, 1), device="cuda")
+    ref[:, :4] = 1.0
+    cond = {"pos_enc": torch.randn((1, 8, L, L, 50), generator=gen, device="cuda"),
+            "z_input": x * ref, "ref_mask": ref}
+    ts = torch.randint(0, 1000, (1, 8), generator=gen, device="cuda")
+    with torch.no_grad():
+        eps_a, eps_b = unet(x, ts, cond), fresh(x, ts, cond)
+    err = float((eps_a - eps_b).abs().max())
+    log(f"[train] mmdm_step3.pkl ({ckpt.stat().st_size / 2**30:.2f} GiB) reloaded into a fresh "
+        f"UNet: eps max |trained - reloaded| {err:.3g} (max |eps| {float(eps_a.abs().max()):.3g})")
+    assert bool(eps_a.isfinite().all()) and err <= 1e-3 * float(eps_a.abs().max()), err
+    del fresh
+
+    # one more optimizer step through the loop's own step function, timed
+    # alone and profiled (outside the counted run)
+    import numpy as np
+
+    from cap4d_torch.mmdm.train import SyntheticMMDMDataset, make_accum_train_step
+
+    model = SimpleNamespace(unet=unet, schedule=shipped_schedule(), device=torch.device("cuda"),
+                            latent_size=L)
+    data = SyntheticMMDMDataset(model, n_views=8, n_ref=4, seed=1).batches(1)
+    t0 = time.perf_counter()
+    micro_batches = [next(data) for _ in range(accum)]
+    z_stack = torch.as_tensor(np.stack([m["z"] for m in micro_batches]), device="cuda")
+    cond_stack = {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro_batches]),
+                                     device="cuda") for k in micro_batches[0]["cond"]}
+    torch.cuda.synchronize()
+    log(f"[train] host: drawing and uploading one step's synthetic batches (as the loop does) "
+        f"{time.perf_counter() - t0:.4f} s")
+    step_fn = make_accum_train_step(model, state.optimizer, accum)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def one_step():
+        return step_fn(state, z_stack, cond_stack, gen)
+
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    log(f"[train] one more optimizer step ({accum} micro-batches + AdamW), timed alone: "
+        f"{time.perf_counter() - t0:.4f} s")
+    profile_breakdown(one_step, "train step profile")
+    adamw_ms = time_ms(lambda: state.optimizer.step(), iters=3, warmup=1)
+    log(f"[train] AdamW update over {n_params} fp32 parameters: {adamw_ms:.3f} ms")
+    del state, unet
+    torch.cuda.empty_cache()
+    return launches
+
+
+PHASES = ("attention", "attention_bwd", "group_norm", "rasterize", "unet", "unet_grad",
+          "generate", "gsplat", "fit", "animate", "train")
+
+
 def main() -> int:
     if not (REPO / "cap4d_torch").is_dir() or not (REPO / "configs").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -701,6 +1024,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
+    phases = parser.parse_args().phases.split(",")
+    assert set(phases) <= set(PHASES), phases
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -711,7 +1039,7 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
         f"nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     kernels = [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL,
-               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD]
+               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD, flash_attention.KERNEL_BWD]
     phase_build(kernels)
 
     work = REPO / ".chip_smoke_work"
@@ -728,21 +1056,42 @@ def main() -> int:
               "cap4d_tpu/ops/gsplat_pallas.py:197", gsplat_tiles.KERNEL_FWD, library=False),
         Entry("gsplat_bwd", "cuda", "cap4d_torch/csrc/gsplat_bwd.cu",
               "cap4d_tpu/ops/gsplat_pallas.py:266", gsplat_tiles.KERNEL_BWD, library=False),
+        Entry("flash_attention_bwd", "cuda", "cap4d_torch/csrc/flash_attention_bwd.cu",
+              "cap4d_tpu/ops/attention.py:42", flash_attention.KERNEL_BWD, library=True),
     ]
-    phase_attention(entries[0])
-    phase_group_norm(entries[1])
-    phase_rasterize(entries[2], work / "raster")
-    phase_unet()
-    gen_launches, stage1_out = phase_main_path(work, kernels, card)
-    flame_dir = phase_gsplat(entries[3], entries[4], work, stage1_out)
-    model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
-    anim_launches = phase_animate(work, model_path, flame_dir, kernels, card)
+    main_paths = []   # launch counts of each main path run
+    if "attention" in phases:
+        phase_attention(entries[0])
+    if "attention_bwd" in phases:
+        phase_attention_backward(entries[5])
+    if "group_norm" in phases:
+        phase_group_norm(entries[1])
+    if "rasterize" in phases:
+        phase_rasterize(entries[2], work / "raster")
+    if "unet" in phases:
+        phase_unet()
+    if "unet_grad" in phases:
+        phase_unet_grad()
+    if "generate" in phases:
+        gen_launches, stage1_out = phase_main_path(work, kernels, card)
+        main_paths.append(gen_launches)
+        if "gsplat" in phases:
+            flame_dir = phase_gsplat(entries[3], entries[4], work, stage1_out)
+            if "fit" in phases:
+                model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
+                main_paths.append(fit_launches)
+                if "animate" in phases:
+                    main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
+    if "train" in phases:
+        main_paths.append(phase_train(work, kernels, card))
+    shutil.rmtree(work, ignore_errors=True)
+    if phases != list(PHASES):
+        log(f"[done] phases {phases} passed; no result lines for a partial run")
+        return 1
     for e in entries:
         n = e.kernel.name
-        e.d["launches"] = gen_launches[n] + fit_launches[n] + anim_launches[n]
+        e.d["launches"] = sum(launches[n] for launches in main_paths)
         assert e.d["launches"] > 0, f"{n} never launched on the main paths"
-
-    shutil.rmtree(work, ignore_errors=True)
 
     log(f"[device] {card}")
     print(json.dumps({"kernels": [e.d for e in entries]}))

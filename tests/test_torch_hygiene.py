@@ -1,9 +1,9 @@
 """The port's boundaries: no module of cap4d_torch (nor chip_smoke.py) imports
 JAX, flax, optax, cap4d_tpu or the host libraries the card machine lacks
 (yaml, cv2, PIL); entry points (stage-1 generation, the avatar fit and
-animation) refuse to run without CUDA unless asked for the CPU; the kernel
-wrappers (K1-K5) take their plain versions on CPU tensors, building and
-launching nothing."""
+animation, MMDM training) refuse to run without CUDA unless asked for the
+CPU; the kernel wrappers (K1-K6) take their plain versions on CPU tensors,
+forward and backward, building and launching nothing."""
 
 import ast
 from pathlib import Path
@@ -63,15 +63,29 @@ def test_avatar_entry_points_refuse_to_run_without_cuda(tmp_path):
     assert not (tmp_path / "anim").exists()
 
 
+def test_training_entry_points_refuse_to_run_without_cuda(tmp_path, monkeypatch):
+    from cap4d_torch.mmdm import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_mmdm(tmp_path / "missing.yaml", tmp_path / "out")
+    monkeypatch.setattr("sys.argv", ["train", "--config_path", str(tmp_path / "missing.yaml"),
+                                     "--output_path", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main()
+    assert not (tmp_path / "out").exists()
+
+
 def test_kernel_wrappers_use_plain_versions_on_cpu():
     from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, rasterize
 
-    kernels = (flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL,
-               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD)
+    kernels = (flash_attention.KERNEL, flash_attention.KERNEL_BWD, norms.KERNEL,
+               rasterize.KERNEL, gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD)
     before = [k.launches for k in kernels]
-    q = torch.randn(1, 70, 2, 64)
-    flash_attention.flash_attention(q, q, q)
-    norms.group_norm_silu(torch.randn(1, 4, 4, 64), torch.ones(64), torch.zeros(64))
+    q = torch.randn(1, 70, 2, 64, requires_grad=True)
+    flash_attention.flash_attention(q, q, q).sum().backward()
+    x = torch.randn(1, 4, 4, 64, requires_grad=True)
+    norms.group_norm_silu(x, torch.ones(64), torch.zeros(64)).sum().backward()
+    assert q.grad.abs().sum() > 0 and x.grad.abs().sum() > 0
     verts = torch.rand(1, 3, 3)
     rasterize.rasterize_meshes(verts, torch.tensor([[0, 1, 2]]), (8, 8))
     means = torch.tensor([[0.0, 0.0, 2.0], [0.05, 0.0, 2.5]], requires_grad=True)
