@@ -5,7 +5,7 @@ state.
 The reference saves ``torch.save((capture, iteration), chkpnt{it}.pth)``
 with (gaussianavatars/scene/cap4d_gaussian_model.py:443-450)
 
-    {"shape", "base_rot", "deform_net": <UnetGenerator state_dict>,
+    {"shape" (FLAME) | "betas" (SMPL), "base_rot", "deform_net": <UnetGenerator state_dict>,
      "gaussians": (active_sh_degree, _xyz, _features_dc, _features_rest,
                    _scaling, _rotation, _opacity, binding, binding_counter,
                    max_radii2D, xyz_gradient_accum, denom,
@@ -169,8 +169,9 @@ def build_reference_capture(trainer, iteration: int) -> Dict[str, Any]:
         cpu(aux["denom"])[:, None], opt_state, float(trainer.spatial_lr_scale),
     )
     bank = {k: _to_np(v) for k, v in trainer.flame_bank.items()}
+    shape_key = trainer.shape_key   # an SMPL checkpoint carries "betas"
     return {
-        "shape": torch.as_tensor(bank["shape"]),
+        shape_key: torch.as_tensor(bank[shape_key]),
         "base_rot": torch.as_tensor(bank["base_rot"]),
         "deform_net": OrderedDict((k, cpu(v)) for k, v in trainer.deform_net.state_dict().items()),
         "gaussians": gauss_tuple,
@@ -262,5 +263,5 @@ def restore_reference_checkpoint(trainer, chkpt: Dict[str, Any], with_extras: bo
         trainer.neck_weight = t(extras["neck_weight"])
         trainer.moments["neck_m"] = t(extras["neck_m"])
         trainer.moments["neck_v"] = t(extras["neck_v"])
-    trainer.flame_bank["shape"] = t(chkpt.get("shape", chkpt.get("betas")))
+    trainer.flame_bank[trainer.shape_key] = t(chkpt.get("shape", chkpt.get("betas")))
     trainer.flame_bank["base_rot"] = t(chkpt["base_rot"])

@@ -219,6 +219,9 @@ def load_avatar_template(asset_dir: str | Path):
 class FlameVariant:
     """Per-timestep mesh state for the avatar trainer."""
 
+    name = "flame"
+    uses_deform_net = True
+
     def __init__(self, flame_model: FlameModel, uv: UVAssets, config: FlameAvatarConfig):
         self.flame_model = flame_model
         self.uv = uv

@@ -31,6 +31,7 @@ from cap4d_torch.avatar.losses import error_map, l1_loss, psnr, ssim
 from cap4d_torch.avatar.lpips import load_lpips
 from cap4d_torch.avatar.scene import dump_cameras_json, load_cap4d_dataset
 from cap4d_torch.avatar.trainer import AvatarTrainer, search_max_iteration
+from cap4d_torch.smpl.scene import load_smpl_dataset
 from cap4d_torch.utils.config import dump_yaml, load_yaml
 from cap4d_torch.utils.device import resolve_device
 from cap4d_torch.utils.png import write_png
@@ -60,20 +61,35 @@ def training(
     lpips_weights: Optional[str] = None,
     seed: int = 0,
     n_max_val_images: int = 10,
+    variant: str = "flame",
+    smpl_asset_dir: str | Path = "data/assets/smpl",
     device=None,
 ) -> AvatarTrainer:
-    """Fit an avatar; runs on the card unless ``device="cpu"``."""
+    """Fit an avatar: the FLAME head (``variant="flame"``, stage-1
+    flame/*.npz inputs) or the full SMPL body (``variant="smpl"``,
+    smpl/*.npz inputs, SMPL assets under ``smpl_asset_dir``). Runs on the
+    card unless ``device="cpu"``."""
     device = resolve_device(device)
+    if variant not in ("flame", "smpl"):
+        raise ValueError(f"variant must be 'flame' or 'smpl', got {variant!r}")
     model_path = Path(model_path)
     model_path.mkdir(parents=True, exist_ok=True)
     # config provenance, re-read by animate (train.py:386, animate.py:84)
     dump_yaml({"model_params": dict(model_params), "opt_params": dict(opt_params),
-               "variant": "flame"}, model_path / "config_dump.yaml")
-    scene = load_cap4d_dataset(source_paths, n_max_val_images=n_max_val_images)
-    dump_cameras_json(scene.train_cameras, model_path / "cameras.json")
-    trainer = AvatarTrainer.create(scene, model_params, opt_params,
-                                   flame_asset_dir=flame_asset_dir,
-                                   lpips=load_lpips(lpips_weights), seed=seed, device=device)
+               "variant": variant}, model_path / "config_dump.yaml")
+    lpips = load_lpips(lpips_weights)
+    if variant == "smpl":
+        scene = load_smpl_dataset(source_paths)
+        dump_cameras_json(scene.train_cameras, model_path / "cameras.json")
+        trainer = AvatarTrainer.create_smpl(scene, model_params, opt_params,
+                                            smpl_asset_dir=smpl_asset_dir, lpips=lpips,
+                                            seed=seed, device=device)
+    else:
+        scene = load_cap4d_dataset(source_paths, n_max_val_images=n_max_val_images)
+        dump_cameras_json(scene.train_cameras, model_path / "cameras.json")
+        trainer = AvatarTrainer.create(scene, model_params, opt_params,
+                                       flame_asset_dir=flame_asset_dir, lpips=lpips, seed=seed,
+                                       device=device)
 
     first_iter = 0
     if load_existing_checkpoint:

@@ -6,7 +6,8 @@ and cap4d_gaussian_model.py:381-441 (optimizer groups, exponential learning
 rates; torch Adam with eps 1e-15, SparseAdam for the per-frame neck rows).
 
 An iteration runs eagerly: FLAME ×2, UV resampling, the deform U-Net, face
-frames, world gaussians, the 3DGS render (kernels K4/K5 on the card), the
+frames (for the SMPL body: one SMPL forward, UV resampling, face frames),
+world gaussians, the 3DGS render (kernels K4/K5 on the card), the
 losses, one ``torch.autograd.grad`` and the Adam updates in place. The JAX
 package's compile machinery has no counterpart here: ``step_compiler.py``
 (asynchronous ahead-of-time compiles), the chunked-scan dispatch, the eval
@@ -18,7 +19,7 @@ compositor covers every tile of every splat, so nothing truncates.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +41,11 @@ from cap4d_torch.avatar.losses import l1_loss, ssim
 from cap4d_torch.avatar.lpips import LPIPS
 from cap4d_torch.flame.compute import load_cap4d_flame_model
 from cap4d_torch.ops.gsplat_tiles import rasterize_gaussians
+from cap4d_torch.smpl.avatar import SMPLVariant, build_smpl_variant, load_smpl_template
+from cap4d_torch.smpl.model import build_smpl_model, load_smpl_pkl
 from cap4d_torch.utils.device import resolve_device
+
+Variant = Union[FlameVariant, SMPLVariant]
 
 
 def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0, max_steps=1_000_000):
@@ -68,9 +73,10 @@ def adam_update(p, g, m, v, step, lr, eps=1e-15, b1=0.9, b2=0.999, wd=0.0):
 
 
 class AvatarTrainer:
-    """Fit state: gaussian store, deform net, neck rows, FLAME bank, Adam moments."""
+    """Fit state: gaussian store, deform net, neck rows, the variant's
+    parameter bank (FLAME or SMPL), Adam moments."""
 
-    def __init__(self, variant: FlameVariant, config: FlameAvatarConfig, opt: Dict[str, Any],
+    def __init__(self, variant: Variant, config: FlameAvatarConfig, opt: Dict[str, Any],
                  gauss, aux, deform_net: torch.nn.Module, neck_weight: torch.Tensor,
                  flame_bank: Dict[str, torch.Tensor], moments: Dict[str, Any], lpips: LPIPS,
                  spatial_lr_scale: float, device: torch.device):
@@ -91,6 +97,11 @@ class AvatarTrainer:
         self.iteration = 0
 
     @property
+    def shape_key(self) -> str:
+        """The bank's identity key: FLAME's "shape", SMPL's "betas"."""
+        return "shape" if "shape" in self.flame_bank else "betas"
+
+    @property
     def n_active(self) -> int:
         return int(self.gauss["xyz"].shape[0])
 
@@ -98,6 +109,7 @@ class AvatarTrainer:
     def create(cls, scene, model_params: Dict[str, Any], opt_params: Dict[str, Any],
                flame_asset_dir: str | Path = "data/assets/flame", lpips: Optional[LPIPS] = None,
                seed: int = 0, device=None) -> "AvatarTrainer":
+        """The FLAME head avatar."""
         device = resolve_device(device)
         config = FlameAvatarConfig(
             uv_resolution=model_params["uv_resolution"],
@@ -115,23 +127,59 @@ class AvatarTrainer:
                                              device=device)
         tv, tf, tuv, tfuv, deformable = load_avatar_template(flame_asset_dir)
         uv = build_uv_assets(tv, tf, tuv, tfuv, deformable, config.uv_resolution, device=device)
-        variant = FlameVariant(flame_model, uv, config)
-        binding, counts = allocate_gaussians(uv, torch.as_tensor(tv, device=device),
+        return cls._from_variant(FlameVariant(flame_model, uv, config), config, tv, scene,
+                                 opt_params, lpips, seed, device)
+
+    @classmethod
+    def create_smpl(cls, scene, model_params: Dict[str, Any], opt_params: Dict[str, Any],
+                    smpl_asset_dir: str | Path = "data/assets/smpl", lpips: Optional[LPIPS] = None,
+                    seed: int = 0, device=None) -> "AvatarTrainer":
+        """The full-body SMPL avatar (SMPLGaussianModel, cap4d_gaussian_model.py:458+):
+        uv resolution 256 unless given, a static neck, no lower jaw, and the
+        deform net built but gated off (its parameters still take Adam's
+        weight decay on zero gradients)."""
+        device = resolve_device(device)
+        config = FlameAvatarConfig(
+            uv_resolution=model_params.get("uv_resolution", 256),
+            n_unet_layers=model_params["n_unet_layers"],
+            use_expr_mask=model_params.get("use_expr_mask", False),
+            static_neck=model_params.get("static_neck", True),
+            use_lower_jaw=False,
+            n_gaussians_init=model_params["n_gaussians_init"],
+            n_points_per_triangle=model_params["n_points_per_triangle"],
+            sh_degree=model_params["sh_degree"],
+            gaussian_init_type=model_params.get("gaussian_init_type", "scaled"),
+        )
+        smpl_model = build_smpl_model(load_smpl_pkl(Path(smpl_asset_dir) / "SMPL_NEUTRAL.pkl"),
+                                      device=device)
+        variant = build_smpl_variant(smpl_model, smpl_asset_dir, config.uv_resolution,
+                                     device=device)
+        tv, *_ = load_smpl_template(smpl_asset_dir)
+        return cls._from_variant(variant, config, tv, scene, opt_params, lpips, seed, device)
+
+    @classmethod
+    def _from_variant(cls, variant: Variant, config: FlameAvatarConfig, template_verts, scene,
+                      opt_params, lpips, seed, device) -> "AvatarTrainer":
+        """Gaussians allocated over the variant's UV remesh, the deform net,
+        the parameter bank over the train+test(+target) timesteps
+        (cap4d_gaussian_model.py:167-199), zero neck rows and Adam moments."""
+        uv = variant.uv
+        binding, counts = allocate_gaussians(uv, torch.as_tensor(template_verts, device=device),
                                              config.n_gaussians_init, config.n_points_per_triangle)
         n_faces = uv.remesh_faces.shape[0]
         gauss, aux = G.init_gaussians(
             binding, n_faces, sh_degree=config.sh_degree,
             gaussian_counts=counts if config.gaussian_init_type == "scaled" else None,
             rng=np.random.default_rng(seed), device=device)
-        print(f"Avatar init: {len(binding)} gaussians over {n_faces} remesh faces")
+        label = "SMPL avatar" if variant.name == "smpl" else "Avatar"
+        print(f"{label} init: {len(binding)} gaussians over {n_faces} remesh faces")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             deform_net = make_deform_net(config)
         deform_net.to(device)
 
-        # FLAME bank over train+test(+target) timesteps (cap4d_gaussian_model.py:167-199)
         meshes = scene.train_meshes + scene.test_meshes
-        base_rot = scene.tgt_meshes[0]["rot"] if scene.tgt_meshes else meshes[0]["rot"]
+        base_rot = (scene.tgt_meshes or meshes)[0].get("rot", np.zeros(3, np.float32))
         meshes = meshes + scene.tgt_meshes
         bank = variant.build_bank(meshes, base_rot, device=device)
         neck = torch.zeros((len(meshes), 3), device=device)
@@ -348,7 +396,7 @@ class AvatarTrainer:
         np_ = lambda d: {k: v.detach().cpu().numpy() for k, v in d.items()}
         bank = np_(self.flame_bank)
         return {
-            "shape": bank["shape"], "base_rot": bank["base_rot"], "bank": bank,
+            "shape": bank[self.shape_key], "base_rot": bank["base_rot"], "bank": bank,
             "deform_net": np_(self.deform_net.state_dict()),
             "gaussians": {
                 "active_sh_degree": self.active_sh_degree,
@@ -364,7 +412,8 @@ class AvatarTrainer:
         t = lambda a: torch.as_tensor(np.asarray(a), device=self.device)
         g = chkpt["gaussians"]
         self.flame_bank = {k: t(v) for k, v in chkpt["bank"].items()}
-        self.flame_bank["shape"], self.flame_bank["base_rot"] = t(chkpt["shape"]), t(chkpt["base_rot"])
+        self.flame_bank[self.shape_key] = t(chkpt["shape"])
+        self.flame_bank["base_rot"] = t(chkpt["base_rot"])
         self.deform_net.load_state_dict({k: torch.as_tensor(v) for k, v in chkpt["deform_net"].items()})
         self.active_sh_degree = int(g["active_sh_degree"])
         self.gauss = {k: t(v) for k, v in g["params"].items()}

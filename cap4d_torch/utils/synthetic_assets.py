@@ -1,6 +1,7 @@
 """A synthetic CAP4D input tree — FLAME-sized assets, a reference subject, a
-generation bank and configs — so stage 1 runs end to end without the
-user-downloaded FLAME pkl and MMDM weights.
+generation bank and configs, SMPL-sized body assets and a full-body capture —
+so the pipeline runs end to end without the user-downloaded FLAME and SMPL
+pkls and MMDM weights.
 
 Draws the same arrays from the same seeds as the JAX package's test helper
 (``tests/synthetic_assets.py``), but writes PNGs and YAML with the port's
@@ -10,6 +11,7 @@ own writers, so it needs neither cv2 nor yaml.
 from __future__ import annotations
 
 import json
+import pickle
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -17,6 +19,7 @@ import numpy as np
 
 from cap4d_torch.flame.io import make_synthetic_flame, save_flame_pkl
 from cap4d_torch.flame.skinner import generate_uv_half_sphere
+from cap4d_torch.smpl.model import SMPL_PARENTS
 from cap4d_torch.utils.config import dump_yaml
 from cap4d_torch.utils.png import write_png
 
@@ -201,6 +204,136 @@ def write_gen_config(root: Path, ckpt_dir: Path, gen_data_path: Path, n_samples:
     path = Path(root) / "gen_config.yaml"
     dump_yaml(cfg, path)
     return path
+
+
+SMPL_JOINTS = np.array([   # rest joint targets (m), y up, facing +z, pelvis at the origin
+    [0, 0, 0], [0.09, -0.08, 0], [-0.09, -0.08, 0], [0, 0.1, 0], [0.1, -0.45, 0],
+    [-0.1, -0.45, 0], [0, 0.22, 0], [0.1, -0.78, 0], [-0.1, -0.78, 0], [0, 0.3, 0],
+    [0.1, -0.83, 0.05], [-0.1, -0.83, 0.05], [0, 0.5, 0], [0.08, 0.42, 0], [-0.08, 0.42, 0],
+    [0, 0.62, 0], [0.2, 0.4, 0], [-0.2, 0.4, 0], [0.24, 0.15, 0], [-0.24, 0.15, 0],
+    [0.25, -0.05, 0], [-0.25, -0.05, 0], [0.25, -0.12, 0], [-0.25, -0.12, 0]], np.float32)
+
+
+def make_smpl_asset_dir(root: Path, seed: int = 0, n_rings: int = 82, n_segments: int = 84) -> Path:
+    """``assets/smpl`` at SMPL's published sizes: with the defaults 6,890
+    vertices and 13,776 faces (a closed genus-0 surface: F = 2V − 4), 24
+    joints on SMPL's kintree, 10 betas, 207 pose directions.
+
+    The template is a body-sized (1.7 m, y up, facing +z) surface of
+    revolution, ``n_rings`` latitude rings of ``n_segments`` vertices plus
+    two poles, with a lat-long UV chart (the seam and the pole fans get their
+    own ``vt`` entries, so the chart has no wrapping face). Joints are the
+    centroids of the 40 template vertices nearest to targets on a human
+    skeleton; skinning weights fall off as exp(−d²/(2·0.06²)) from the
+    joints, so a vertex follows its nearest joint and a posed body keeps its
+    shape. Blend shapes are small random directions. ``deformable_verts.txt``
+    lists every vertex."""
+    rng = np.random.default_rng(seed)
+    d = Path(root) / "assets" / "smpl"
+    d.mkdir(parents=True, exist_ok=True)
+    theta = np.linspace(0, np.pi, n_rings + 2)[1:-1]              # ring polar angles
+    phi = np.arange(n_segments) * 2 * np.pi / n_segments
+    y = 0.85 * np.cos(theta)                                       # 1.7 m tall
+    width = (0.07 + 0.2 * np.exp(-((y - 0.25) / 0.3) ** 2) + 0.12 * np.exp(-((y + 0.4) / 0.35) ** 2)
+             + 0.04 * np.exp(-((y - 0.65) / 0.12) ** 2))
+    s = np.sin(theta)[:, None]
+    verts = np.stack([width[:, None] * s * np.cos(phi)[None],
+                      np.repeat(y[:, None], n_segments, 1),
+                      0.6 * width[:, None] * s * np.sin(phi)[None]], -1).reshape(-1, 3)
+    top, bottom = len(verts), len(verts) + 1
+    verts = np.concatenate([verts, [[0, 0.85, 0], [0, -0.85, 0]]]).astype(np.float32)
+    # faces (vertex ids) and their UV corners (vt ids): the ring grid with a
+    # duplicated seam column in the chart, then one pole vt per fan triangle
+    ring = lambda r, c: r * n_segments + c % n_segments
+    vt_grid = lambda r, c: r * (n_segments + 1) + c
+    faces, faces_uv = [], []
+    for r in range(n_rings - 1):
+        for c in range(n_segments):
+            faces += [[ring(r, c), ring(r + 1, c), ring(r + 1, c + 1)],
+                      [ring(r, c), ring(r + 1, c + 1), ring(r, c + 1)]]
+            faces_uv += [[vt_grid(r, c), vt_grid(r + 1, c), vt_grid(r + 1, c + 1)],
+                         [vt_grid(r, c), vt_grid(r + 1, c + 1), vt_grid(r, c + 1)]]
+    n_grid_vt = n_rings * (n_segments + 1)
+    last = n_rings - 1
+    for c in range(n_segments):
+        faces += [[top, ring(0, c + 1), ring(0, c)], [bottom, ring(last, c), ring(last, c + 1)]]
+        faces_uv += [[n_grid_vt + c, vt_grid(0, c + 1), vt_grid(0, c)],
+                     [n_grid_vt + n_segments + c, vt_grid(last, c), vt_grid(last, c + 1)]]
+    u_of = lambda c: 0.02 + 0.96 * c / n_segments
+    v_of = lambda t: 0.9 - 0.8 * t / np.pi
+    uvs = [[u_of(c), v_of(t)] for t in theta for c in range(n_segments + 1)]
+    uvs += [[u_of(c + 0.5), v_of(0.0)] for c in range(n_segments)]
+    uvs += [[u_of(c + 0.5), v_of(np.pi)] for c in range(n_segments)]
+    lines = [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in verts]
+    lines += [f"vt {u:.6f} {w:.6f}" for u, w in uvs]
+    lines += [f"f {a+1}/{ta+1} {b+1}/{tb+1} {c+1}/{tc+1}"
+              for (a, b, c), (ta, tb, tc) in zip(faces, faces_uv)]
+    (d / "smpl_template.obj").write_text("\n".join(lines) + "\n")
+    np.savetxt(d / "deformable_verts.txt", np.arange(len(verts)), fmt="%d")
+
+    n = len(verts)
+    dist = np.linalg.norm(verts[:, None] - SMPL_JOINTS[None], axis=-1)      # (V, 24)
+    jr = np.zeros((24, n), np.float32)
+    for j in range(24):
+        jr[j, np.argsort(dist[:, j])[:40]] = 1.0 / 40
+    w = np.exp(-(dist - dist.min(axis=1, keepdims=True)) ** 2 / (2 * 0.06 ** 2))
+    w = (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+    parents = np.array(SMPL_PARENTS, np.int64)
+    smpl = {
+        "v_template": verts,
+        "shapedirs": rng.normal(scale=0.003, size=(n, 3, 10)).astype(np.float32),
+        "posedirs": rng.normal(scale=0.001, size=(n, 3, 207)).astype(np.float32),
+        "J_regressor": jr,
+        "weights": w,
+        "kintree_table": np.stack([parents, np.arange(24)]),
+        "f": np.asarray(faces, np.int32),
+    }
+    with open(d / "SMPL_NEUTRAL.pkl", "wb") as fh:
+        pickle.dump(smpl, fh)
+    return d
+
+
+def look_at_extrinsics(yaw: float, distance: float, height: float = 0.0) -> np.ndarray:
+    """World → camera (OpenCV: x right, y down, z forward) for a camera at
+    ``distance`` from the y axis, ``yaw`` radians around it from +z, looking
+    at (0, height, 0)."""
+    c = np.array([distance * np.sin(yaw), height, distance * np.cos(yaw)])
+    f = np.array([0.0, height, 0.0]) - c
+    f /= np.linalg.norm(f)
+    down = np.array([0.0, -1.0, 0.0])
+    right = np.cross(down, f)
+    right /= np.linalg.norm(right)
+    down = np.cross(f, right)
+    extr = np.eye(4, dtype=np.float32)
+    extr[:3, :3] = np.stack([right, down, f])
+    extr[:3, 3] = -extr[:3, :3] @ c
+    return extr
+
+
+def make_smpl_dataset(root: Path, n_views: int = 16, width: int = 540, height: int = 960,
+                      distance: float = 3.0, focal: float = 1300.0, seed: int = 5) -> Path:
+    """A full-body capture in the SMPL reader's layout: ``smpl/*.npz`` (fx,
+    fy, cx, cy, R, T, betas, body_pose, global_orient) + ``images/*.png``,
+    ``n_views`` cameras evenly around the body at ``distance``, all facing
+    it; smooth synthetic images."""
+    rng = np.random.default_rng(seed)
+    out = Path(root) / "smpl_capture"
+    (out / "smpl").mkdir(parents=True, exist_ok=True)
+    (out / "images").mkdir(parents=True, exist_ok=True)
+    betas = rng.normal(scale=0.3, size=10).astype(np.float32)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    for i in range(n_views):
+        extr = look_at_extrinsics(2 * np.pi * i / n_views, distance)
+        np.savez(out / "smpl" / f"{i:05d}.npz",
+                 betas=betas, body_pose=rng.normal(scale=0.05, size=69).astype(np.float32),
+                 global_orient=np.zeros(3, np.float32), R=extr[:3, :3], T=extr[:3, 3],
+                 fx=np.float32(focal), fy=np.float32(focal),
+                 cx=np.float32(width / 2), cy=np.float32(height / 2))
+        ph = rng.uniform(0, 2 * np.pi, size=3)
+        img = np.stack([128 + 100 * np.sin(xx / 37.0 + ph[k]) * np.cos(yy / 53.0 + ph[k])
+                        for k in range(3)], -1)
+        write_png(out / "images" / f"{i:05d}.png", img.astype(np.uint8))
+    return out
 
 
 def make_driving_sequence(root: Path, n_frames: int = 48, resolution: int = 512,

@@ -486,33 +486,28 @@ def pair_pixel_counts(packed, pair_gauss, bounds, n_done, tiles_x):
     return evals, kept
 
 
-def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
-    """K4/K5 against the plain compositor on a freshly initialised avatar."""
+def gsplat_kernels_vs_plain(trainer, cam, sh_degree: int, label: str):
+    """K4/K5 against the plain compositor on ``trainer``'s avatar seen from
+    ``cam``: outputs and the gradients of a fixed loss, for the avatar's own
+    opacities and for opacities U[0.05, 1). Returns (max forward error, max
+    gradient error, the world splats, the second case's opacities, the
+    generator)."""
     import torch
 
     from cap4d_torch.avatar import gaussians as G
-    from cap4d_torch.avatar.scene import load_cap4d_dataset
-    from cap4d_torch.avatar.trainer import AvatarTrainer
     from cap4d_torch.ops import gsplat_tiles as gt
-    from cap4d_torch.utils import synthetic_assets as sa
 
-    model, opt = avatar_params()
-    flame_dir = sa.make_asset_dir(work / "avatar_assets", sphere_radius=0.09)
-    scene = load_cap4d_dataset([str(stage1_out / "reference_images"),
-                                str(stage1_out / "generated_images")])
-    trainer = AvatarTrainer.create(scene, model, opt, flame_asset_dir=flame_dir)
-    cam = scene.train_cameras[0]
     ct = trainer.camera_tensors(cam)
     mesh = trainer.mesh_at_timestep(cam.timestep)
     world = {k: v.detach() for k, v in G.world_gaussians(trainer.gauss, trainer.aux,
                                                            mesh.face_pack).items()}
     gen = torch.Generator(device="cuda").manual_seed(7)
     target = torch.rand((cam.height, cam.width, 3), generator=gen, device="cuda")
-    cases = [("fresh avatar", world["opacities"]),
-             ("opacities U[0.05, 1)", 0.05 + 0.95 * torch.rand(world["opacities"].shape,
-                                                                generator=gen, device="cuda"))]
+    cases = [(f"{label}, fresh avatar", world["opacities"]),
+             (f"{label}, opacities U[0.05, 1)",
+              0.05 + 0.95 * torch.rand(world["opacities"].shape, generator=gen, device="cuda"))]
     err = gerr = 0.0
-    for label, opac in cases:
+    for case, opac in cases:
         leaves = [world["means3d"], world["quats"], world["scales"], opac, world["sh"],
                   torch.zeros((trainer.n_active, 2), device="cuda")]
         names = ["means3d", "quats", "scales", "opacities", "sh", "means2d_offset"]
@@ -520,7 +515,7 @@ def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
         for plain in (False, True):
             xs = [x.clone().requires_grad_(True) for x in leaves]
             out = gt.rasterize_gaussians(xs[0], xs[1], xs[2], xs[3], xs[4], ct["rt"], ct["K"],
-                                         cam.width, cam.height, sh_degree=model["sh_degree"],
+                                         cam.width, cam.height, sh_degree=sh_degree,
                                          render_depth=True, means2d_offset=xs[5], plain=plain)
             loss = (((out["render"] - target) ** 2).mean() + 0.1 * out["alpha"].mean()
                     + 0.01 * (out["depth"] * out["alpha"]).mean())
@@ -533,11 +528,11 @@ def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
         # -> 2e-4 absolute on render/alpha (the stop rule's own bound is
         # 1e-4 of a colour); depth = Σw·d / alpha where alpha > 1e-2, 2e-4 of
         # the largest depth
-        err = max(err, check_close(f"K4 {label} render", ok_["render"], op_["render"], 0.0, 2e-4),
-                  check_close(f"K4 {label} alpha", ok_["alpha"], op_["alpha"], 0.0, 2e-4))
+        err = max(err, check_close(f"K4 {case} render", ok_["render"], op_["render"], 0.0, 2e-4),
+                  check_close(f"K4 {case} alpha", ok_["alpha"], op_["alpha"], 0.0, 2e-4))
         cov = op_["alpha"] > 1e-2
         dmax = float(op_["depth"][cov].abs().max()) if bool(cov.any()) else 1.0
-        check_close(f"K4 {label} depth", ok_["depth"][cov], op_["depth"][cov], 0.0, 2e-4 * dmax)
+        check_close(f"K4 {case} depth", ok_["depth"][cov], op_["depth"][cov], 0.0, 2e-4 * dmax)
         # backward: atomics in run-dependent order plus the forward's
         # rounding -> 1e-3 of the largest gradient of each input, floored at
         # 1e-6 of the largest gradient of all inputs (an input whose gradient
@@ -546,9 +541,30 @@ def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
         top = max(float(b.abs().max()) for b in gp)
         for name, a, b in zip(names, gk, gp):
             scale = max(float(b.abs().max()), 1e-3 * top)
-            check_close(f"K5 {label} d{name}", a, b, 0.0, 1e-3 * scale)
+            check_close(f"K5 {case} d{name}", a, b, 0.0, 1e-3 * scale)
             gerr = max(gerr, float((a - b).abs().max()))
-        log(f"[K4/K5] {label}: {ok_['n_pairs']} pairs, loss kernel {lk:.7f} plain {lp:.7f}")
+        log(f"[K4/K5] {case}: {ok_['n_pairs']} pairs, loss kernel {lk:.7f} plain {lp:.7f}")
+    return err, gerr, world, opac, gen
+
+
+def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
+    """K4/K5 against the plain compositor on a freshly initialised avatar."""
+    import torch
+
+    from cap4d_torch.avatar.scene import load_cap4d_dataset
+    from cap4d_torch.avatar.trainer import AvatarTrainer
+    from cap4d_torch.ops import gsplat_tiles as gt
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    model, opt = avatar_params()
+    flame_dir = sa.make_asset_dir(work / "avatar_assets", sphere_radius=0.09)
+    scene = load_cap4d_dataset([str(stage1_out / "reference_images"),
+                                str(stage1_out / "generated_images")])
+    trainer = AvatarTrainer.create(scene, model, opt, flame_asset_dir=flame_dir)
+    cam = scene.train_cameras[0]
+    ct = trainer.camera_tensors(cam)
+    err, gerr, world, opac, gen = gsplat_kernels_vs_plain(trainer, cam, model["sh_degree"],
+                                                          "head")
 
     # timings of the compositor alone at these shapes (the second case)
     with torch.no_grad():
@@ -1011,8 +1027,217 @@ def phase_train(work: Path, kernels, card: str):
     return launches
 
 
+# --------------------------------------------- slice 4: K7 and the SMPL body ----
+
+MATMUL_CASES = ("acc_matmul3", "acc_matmul2", "tri_matmul2", "tri_blocked", "tri_blocked4")
+
+
+def bf16_rn_numpy(a):
+    """float32 → bfloat16 (round to nearest even) → float32, on the bits."""
+    import numpy as np
+
+    u = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def op_mix_term_numpy(x, acc, case):
+    """The extra term of one body application, in float64 numpy: scan8's
+    exclusive lane prefix product, the acc_matmul cases' split-bf16 (PX, CH)
+    @ (CH, 5) product with cmat = [x0, x1, x2, 1, x3]."""
+    import numpy as np
+
+    if case == "scan8":
+        return np.concatenate([np.ones((acc.shape[0], 1)),
+                               np.cumprod(acc.astype(np.float64), axis=1)[:, :-1]], axis=1)
+    cmat = np.concatenate([x[0:3], np.ones((1, x.shape[1]), np.float32), x[3:4]], axis=0)
+    a_hi = bf16_rn_numpy(acc)
+    a_lo = bf16_rn_numpy(acc - a_hi)
+    b_hi = bf16_rn_numpy(cmat)
+    b_lo = bf16_rn_numpy(cmat - b_hi)
+    f = lambda a, b: a.astype(np.float64) @ b.astype(np.float64).T
+    out = f(a_hi, b_hi) + f(a_lo, b_hi)
+    return out + f(a_hi, b_lo) if case == "acc_matmul3" else out
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def phase_op_mix(entry: Entry, kernels, card: str):
+    """K7 against its plain version for all 15 cases at NITER 1 and 64, the
+    extra terms against numpy, the SASS of each case's loop; then the tool's
+    run at NITER 262,144 (the main path of this kernel)."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.ops import op_mix as om
+    from cap4d_torch.tools import bench_ops
+
+    x = bench_ops.make_input("cuda")
+    for case in om.CASES:
+        for niter in (1, 64):
+            out = om.op_mix(x, case, niter)
+            ref = om.op_mix(x, case, niter, plain=True)
+            torch.cuda.synchronize()
+            # the test's tolerances: one or two ulps of the transcendentals,
+            # fp32 sums of bf16 products in another order for the matmul cases
+            atol = 1e-5 if case in MATMUL_CASES else 1e-6
+            err = check_close(f"K7 {case} NITER={niter}", out, ref, 1e-5, atol)
+            entry.d["max_abs_err"] = max(entry.d["max_abs_err"], err)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    xn = x.cpu().numpy()
+    for case in om.TERM_CASES:
+        # acc near 1 keeps scan8's 255-long products normal floats
+        lo, hi = (0.97, 1.03) if case == "scan8" else (0.1, 0.5)
+        acc = lo + (hi - lo) * torch.rand(x.shape, generator=gen, device="cuda")
+        term = om.op_mix_term(x, acc, case)
+        ref = torch.as_tensor(op_mix_term_numpy(xn, acc.cpu().numpy(), case), dtype=torch.float32)
+        check_close(f"K7 {case} term vs numpy", term.cpu(), ref, 1e-5, 0.0)
+    sass = bench_ops.sass_loop_histograms(om.KERNEL.so_path())
+    for case in om.CASES:
+        h = sass.get(case)
+        assert h, f"no loop found in the SASS of {case}"
+        log(f"[K7 sass] {case}: {sum(h.values())} instructions per iteration: " + ", ".join(
+            f"{op} {n}" for op, n in h.most_common(10)))
+
+    niter = bench_ops.NITER
+    for k in kernels:
+        k.launches = 0
+    res = bench_ops.run_bench(niter)
+    launches = {k.name: k.launches for k in kernels}
+    for case, r in res.items():
+        assert bool(torch.isfinite(r["out"]).all()), f"K7 {case}: non-finite output at NITER {niter}"
+    log(f"[K7] bench_ops at NITER {niter}, K {om.K} on {card}:\n" + bench_ops.format_table(res, niter))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    for case, r in res.items():
+        plain_ms = time_ms(lambda: om.op_mix(x, case, 64, plain=True), iters=3, warmup=1)
+        b_ms, pipe = bench_ops.bound_ms(case, niter, n_sm, clock)
+        byte_ms = 2.0 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        entry.add(0.0, r["ms"], plain_ms, b_ms, byte_ms)
+        log(f"[K7] {case}: kernel {r['ms']:.3f} ms at NITER {niter} | plain {plain_ms:.3f} ms at "
+            f"NITER 64 | bound {b_ms:.3f} ms ({pipe}; {n_sm} SMs at {clock / 1e6:.0f} MHz) | "
+            f"{r['ms'] / b_ms:.1f}x the bound")
+    log(f"[K7] launches {launches}")
+    assert launches["op_mix"] == 4 * len(om.CASES), launches
+    return launches
+
+
+SMPL_VIEW = (540, 960)   # (W, H): half of generate_animation_camerahmr's 1080 x 1920 portrait
+
+
+def phase_smpl(work: Path, kernels, card: str):
+    """The full-body main path at full width on synthetic SMPL-sized assets:
+    K4/K5 against the plain compositor at one full-body view of a fresh
+    avatar, ``train_fullbody`` (300 iterations), ``render_sequence_smpl``
+    of its checkpoint on the 48-frame wave; returns both runs' launches."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from cap4d_torch.avatar.animate_smpl import load_trained_smpl_avatar, render_sequence_smpl
+    from cap4d_torch.avatar.train_fullbody import SMPL_DISABLED_REGULARIZERS, train_fullbody
+    from cap4d_torch.avatar.trainer import AvatarTrainer
+    from cap4d_torch.smpl.scene import load_smpl_dataset
+    from cap4d_torch.tools.generate_animation import make_wave_animation
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.config import dump_yaml
+    from cap4d_torch.utils.plyio import read_ply
+
+    root = work / "smpl"
+    smpl_dir = sa.make_smpl_asset_dir(root)
+    data = sa.make_smpl_dataset(root, n_views=16, width=SMPL_VIEW[0], height=SMPL_VIEW[1])
+    model, opt = avatar_params()
+    log(f"[smpl] cuts: views {SMPL_VIEW[0]}x{SMPL_VIEW[1]} (half of 1080x1920), 16 synthetic "
+        f"views around the body, configs/avatar/debug.yaml opt_params to 300 iterations; "
+        f"model_params of configs/avatar/default.yaml as shipped")
+
+    # K4/K5 at one full-body view of a fresh avatar; every training view sees it
+    scene = load_smpl_dataset([str(data)])
+    trainer = AvatarTrainer.create_smpl(scene, model, dict(opt, **SMPL_DISABLED_REGULARIZERS),
+                                        smpl_asset_dir=smpl_dir)
+    with torch.no_grad():
+        pairs = [int(trainer.render_camera(c, c.timestep)["n_pairs"]) for c in scene.train_cameras]
+    log(f"[smpl] {trainer.n_active} splats over {trainer.uv.remesh_faces.shape[0]} remesh faces "
+        f"(uv {trainer.uv.resolution}) | pairs per training view: {pairs}")
+    assert all(p > 0 for p in pairs), f"training views that render no pair: {pairs}"
+    cam = scene.train_cameras[0]
+    gsplat_kernels_vs_plain(trainer, cam, model["sh_degree"], f"smpl {cam.width}x{cam.height}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = root / "fullbody.yaml"
+    dump_yaml({"model_params": model, "opt_params": opt}, cfg)
+    model_path = root / "avatar"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_fullbody([str(data)], model_path, cfg, interval=300, smpl_asset_dir=smpl_dir)
+    wall = time.perf_counter() - t0
+    fit_launches = {k.name: k.launches for k in kernels}
+    lines = [_json.loads(l) for l in open(model_path / "metrics.jsonl")]
+    steps = {l["iter"]: l for l in lines if "loss" in l}
+    evals = [l for l in lines if "val/psnr" in l or "test/psnr" in l]
+    assert all(math.isfinite(l["loss"]) for l in steps.values()), "non-finite fit loss"
+    assert (model_path / "chkpnt300.pth").exists() and evals, "no checkpoint / evaluation"
+    assert steps[190]["n_active"] != steps[210]["n_active"], "densification changed nothing"
+    s_per_it = (steps[300]["elapsed_s"] - steps[20]["elapsed_s"]) / 280
+    n_eval = len(scene.val_cameras[:10]) + len(scene.test_cameras[:10])
+    log(f"[smpl fit] 300 iterations, wall {wall:.1f} s | {s_per_it:.4f} s per iteration over "
+        f"iterations 20-300 ({1 / s_per_it:.2f} it/s) | splats {steps[20]['n_active']} -> "
+        f"{steps[300]['n_active']} | loss {steps[10]['loss']:.4f} -> {steps[300]['loss']:.4f} | "
+        f"{evals} | on {card}")
+    log(f"[smpl fit] launches {fit_launches} (300 iterations + {n_eval} evaluation renders)")
+    assert fit_launches["gsplat_bwd"] == 300, fit_launches
+    assert fit_launches["gsplat_fwd"] == 300 + n_eval, fit_launches
+    assert fit_launches["rasterize"] == 1, fit_launches      # the template's UV layout
+    assert all(math.isfinite(l.get("val/psnr", 0.0)) for l in evals), evals
+    cam = scene.train_cameras[0]
+    profile_breakdown(lambda: trainer.train_step(cam, 301, 301), "smpl fit iteration profile")
+    del trainer
+    torch.cuda.empty_cache()
+
+    anim = root / "wave.npz"
+    np.savez(anim, **make_wave_animation(48, (1080, 1080)))
+    out = root / "animation"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = render_sequence_smpl(model_path, anim, out, smpl_asset_dir=smpl_dir, compress_ply=True)
+    wall = time.perf_counter() - t0
+    anim_launches = {k.name: k.launches for k in kernels}
+    frames = sorted((out / "frames").glob("*.png"))
+    assert res["frames"] == 48 and len(frames) == 48, (res, len(frames))
+    ply = read_ply(out / "exported_animation.ply")
+    assert "delta_vertex_00047" in ply, sorted(ply)[:5]
+    mp4 = out / "renders.mp4"
+    log(f"[smpl animate] 48 frames at 1080x1080: render loop {res['render_s']:.2f} s = "
+        f"{48 / res['render_s']:.2f} FPS (PNG writes and PLY vertex capture included) | wall "
+        f"{wall:.1f} s | mp4 {mp4.stat().st_size if mp4.exists() else 'not written'} bytes "
+        f"(ffmpeg {'found' if shutil.which('ffmpeg') else 'absent'}) | on {card}")
+    log(f"[smpl animate] launches {anim_launches}")
+    assert anim_launches["gsplat_fwd"] == 48 and anim_launches["rasterize"] == 1, anim_launches
+    scene_a = load_smpl_dataset(None, target_animation_path=str(anim))
+    tr = load_trained_smpl_avatar(model_path, smpl_dir, scene_a)
+    cam = scene_a.tgt_cameras[24]
+    with torch.no_grad():
+        img = tr.render_camera(cam, cam.timestep, clip=True)
+        log(f"[smpl animate] frame 24: alpha > 0.5 on {int((img['alpha'] > 0.5).sum())} pixels, "
+            f"{int(img['n_pairs'])} pairs")
+        assert bool(img["render"].isfinite().all()) and float(img["alpha"].max()) > 0.5
+        profile_breakdown(lambda: tr.render_camera(cam, cam.timestep, clip=True)["render"].cpu(),
+                          "smpl frame profile")
+    del tr
+    torch.cuda.empty_cache()
+    return fit_launches, anim_launches
+
+
 PHASES = ("attention", "attention_bwd", "group_norm", "rasterize", "unet", "unet_grad",
-          "generate", "gsplat", "fit", "animate", "train")
+          "generate", "gsplat", "fit", "animate", "train", "op_mix", "smpl")
 
 
 def main() -> int:
@@ -1033,13 +1258,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, rasterize
+    from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, op_mix, rasterize
 
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
         f"nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     kernels = [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL,
-               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD, flash_attention.KERNEL_BWD]
+               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD, flash_attention.KERNEL_BWD,
+               op_mix.KERNEL]
     phase_build(kernels)
 
     work = REPO / ".chip_smoke_work"
@@ -1058,6 +1284,8 @@ def main() -> int:
               "cap4d_tpu/ops/gsplat_pallas.py:266", gsplat_tiles.KERNEL_BWD, library=False),
         Entry("flash_attention_bwd", "cuda", "cap4d_torch/csrc/flash_attention_bwd.cu",
               "cap4d_tpu/ops/attention.py:42", flash_attention.KERNEL_BWD, library=True),
+        Entry("op_mix", "cuda", "cap4d_torch/csrc/op_mix.cu", "tools/bench_vpu_ops.py:37",
+              op_mix.KERNEL, library=False),
     ]
     main_paths = []   # launch counts of each main path run
     if "attention" in phases:
@@ -1084,6 +1312,10 @@ def main() -> int:
                     main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
     if "train" in phases:
         main_paths.append(phase_train(work, kernels, card))
+    if "op_mix" in phases:
+        main_paths.append(phase_op_mix(entries[6], kernels, card))
+    if "smpl" in phases:
+        main_paths.extend(phase_smpl(work, kernels, card))
     shutil.rmtree(work, ignore_errors=True)
     if phases != list(PHASES):
         log(f"[done] phases {phases} passed; no result lines for a partial run")

@@ -1,9 +1,10 @@
 """The port's boundaries: no module of cap4d_torch (nor chip_smoke.py) imports
-JAX, flax, optax, cap4d_tpu or the host libraries the card machine lacks
-(yaml, cv2, PIL); entry points (stage-1 generation, the avatar fit and
-animation, MMDM training) refuse to run without CUDA unless asked for the
-CPU; the kernel wrappers (K1-K6) take their plain versions on CPU tensors,
-forward and backward, building and launching nothing."""
+JAX, flax, optax, cap4d_tpu, the repository's tools/ or the host libraries
+the card machine lacks (yaml, cv2, PIL); entry points (stage-1 generation,
+the avatar fit and animation, the SMPL fit and animation, MMDM training, the
+op-mix benchmark) refuse to run without CUDA unless asked for the CPU; the
+kernel wrappers (K1-K7) take their plain versions on CPU tensors, forward
+and backward, building and launching nothing."""
 
 import ast
 from pathlib import Path
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cap4d_tpu", "yaml", "cv2", "PIL"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cap4d_tpu", "tools", "yaml", "cv2", "PIL"}
 SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "cap4d_torch").rglob("*.py")) + [
     "chip_smoke.py"]
 
@@ -73,6 +74,43 @@ def test_training_entry_points_refuse_to_run_without_cuda(tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main()
     assert not (tmp_path / "out").exists()
+
+
+def test_smpl_and_benchmark_entry_points_refuse_to_run_without_cuda(tmp_path, monkeypatch):
+    from cap4d_torch.avatar.animate_smpl import render_sequence_smpl
+    from cap4d_torch.avatar.train import training
+    from cap4d_torch.avatar.train_fullbody import train_fullbody
+    from cap4d_torch.avatar.trainer import AvatarTrainer
+    from cap4d_torch.tools import bench_ops
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_fullbody([str(tmp_path)], tmp_path / "avatar", tmp_path / "missing.yaml")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        training([str(tmp_path)], tmp_path / "avatar", {}, {}, [], [], variant="smpl")
+    assert not (tmp_path / "avatar").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_sequence_smpl(tmp_path, tmp_path / "wave.npz", tmp_path / "anim")
+    assert not (tmp_path / "anim").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AvatarTrainer.create_smpl(None, {}, {}, smpl_asset_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_ops.run_bench(2)
+    monkeypatch.setattr("sys.argv", ["bench_ops", "--niter", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_ops.main()
+    res = bench_ops.run_bench(1, device="cpu", repeats=1)
+    assert list(res) == list(bench_ops.om.CASES)
+
+
+def test_op_mix_takes_its_plain_version_only_on_cpu_tensors():
+    from cap4d_torch.ops import op_mix
+
+    before = op_mix.KERNEL.launches
+    x = torch.rand(256, 256) * 0.8 + 0.1
+    out = op_mix.op_mix(x, "scan8", 2)
+    torch.testing.assert_close(out, op_mix.op_mix_plain(x, "scan8", 2), rtol=0, atol=0)
+    op_mix.op_mix_term(x, x, "acc_matmul3")
+    assert op_mix.KERNEL.launches == before and op_mix.KERNEL._lib is None
 
 
 def test_kernel_wrappers_use_plain_versions_on_cpu():
