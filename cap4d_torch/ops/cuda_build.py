@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled on first use
 with ``nvcc`` for ``sm_90a`` into a shared library under ``cap4d_torch/_build``
-(ignored by git), named by a hash of its source and flags so that an edited
-source is rebuilt, and loaded with ``ctypes``. ``build_all`` starts one
+(ignored by git), named by a hash of its source, the ``csrc`` headers it
+includes and its flags, so that an edited source or header is rebuilt, and
+loaded with ``ctypes``. ``build_all`` starts one
 ``nvcc`` per source at once. Every C entry point returns
 ``cudaGetLastError()``; the wrapper raises when it is not 0, so a refused
 launch never passes silently.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,6 +34,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path() -> str:
@@ -63,8 +66,23 @@ class CudaKernel:
     def flags(self) -> List[str]:
         return ARCH_FLAGS + BASE_FLAGS + self.extra_flags
 
+    def sources(self) -> List[Path]:
+        """The source and every ``csrc`` header it includes, directly or not."""
+        out, todo = [], [self.source]
+        while todo:
+            path = todo.pop()
+            if path in out:
+                continue
+            out.append(path)
+            for name in _INCLUDE.findall(path.read_text()):
+                if (CSRC / name).is_file():
+                    todo.append(CSRC / name)
+        return out
+
     def so_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in self.sources():
+            h.update(path.read_bytes())
         h.update(" ".join(self.flags()).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

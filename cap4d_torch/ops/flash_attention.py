@@ -3,13 +3,16 @@
 
 ``flash_attention`` runs the ``FlashAttention`` autograd Function. On CUDA
 tensors its forward launches kernel K1 (``csrc/flash_attention.cu``: bf16,
-head dim 64, any S), which also writes the rows' base-2 log-sum-exp when a
-gradient is needed, and its backward launches kernel K6
-(``csrc/flash_attention_bwd.cu``: dQ, dK, dV from Q, K, V, O, dO and that
-log-sum-exp). On CPU tensors the same Function runs the plain versions
-``attention_plain`` (fp32 softmax, as ``cap4d_tpu/ops/attention.py:32``) and
-``attention_backward_plain`` (the backward's explicit formula in fp32). Both
-kernels raise on inputs they do not take; nothing falls back.
+head dim 64, any S; wgmma, TMA and warp specialisation), which also writes
+the rows' base-2 log-sum-exp when a gradient is needed, and its backward
+launches kernel K6 (``csrc/flash_attention_bwd.cu``: dQ, dK, dV from Q, K,
+V, O, dO and that log-sum-exp in one pass over the key blocks). The kernels
+read Q, K, V, O and dO through TMA tensor maps over the caller's strides,
+so ``_check_layout`` holds what a tensor map needs. On CPU tensors the same
+Function runs the plain versions ``attention_plain`` (fp32 softmax, as
+``cap4d_tpu/ops/attention.py:32``) and ``attention_backward_plain`` (the
+backward's explicit formula in fp32). Both kernels raise on inputs they do
+not take; nothing falls back.
 
 ``plain=True`` skips the Function and differentiates ``attention_plain``
 with autograd: the independent reference that comparisons hold the kernels
@@ -31,7 +34,7 @@ KERNEL = CudaKernel(
 )
 KERNEL_BWD = CudaKernel(
     "flash_attention_bwd.cu",
-    {"c4d_flash_attention_bwd": [P] * 10 + [I, I, I] + [L] * 18 + [F, P]},
+    {"c4d_flash_attention_bwd": [P] * 12 + [I, I, I] + [L] * 18 + [F, P]},
 )
 HEAD_DIM = 64
 LOG2E = 1.0 / math.log(2.0)
@@ -91,9 +94,11 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError(f"q, k, v must share one (B, S, H, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
+    if S < 1:
+        raise ValueError("flash attention kernel takes a sequence of at least one row")
     if D != HEAD_DIM:
         raise ValueError(f"flash attention kernel takes head dim {HEAD_DIM}, got {D}")
-    if B * H > 65535:  # one grid row per (batch, head)
+    if B * H > 65535:  # one grid row per (batch, head) in K1 and K6
         raise ValueError(f"flash attention kernel takes at most 65535 batch x heads, got {B * H}")
     _check_layout(q=q, k=k, v=v)
 
@@ -132,13 +137,19 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse):
         do = do.contiguous()   # an upstream gradient may come in any layout
     _check_layout(o=o)
     lse = lse.contiguous()
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # workspace: lse2 and D in rows padded to a multiple of 64, and the fp32
+    # dQ accumulator that the key blocks' partials are reduce-added into
+    s_pad = -(-S // 64) * 64
+    lse_pad, dsum_pad = (torch.empty((B * H, s_pad), dtype=torch.float32, device=q.device)
+                         for _ in range(2))
+    dq_acc = torch.empty((B * H, s_pad, D), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     KERNEL_BWD.call("c4d_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    o.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H,
-                    *_strides(q, k, v, o, do, dq), float(D ** -0.5), ctypes.c_void_p(stream))
+                    o.data_ptr(), do.data_ptr(), lse.data_ptr(), lse_pad.data_ptr(),
+                    dsum_pad.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), B, S, H, *_strides(q, k, v, o, do, dq), float(D ** -0.5),
+                    ctypes.c_void_p(stream))
     return dq, dk, dv
 
 

@@ -8,11 +8,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (each must pass; any failure raises and the exit code is non-zero):
   1. device: the card's name and power limit; build every kernel from
      ``cap4d_torch/csrc`` (one nvcc per source, all started together);
-  2. K1 flash attention against its plain version at the main path's shapes
-     (bf16, d=64) plus a ragged S; then, at the four attention shapes of MMDM
-     training and a ragged S, K1's output with and without its log-sum-exp
-     (bit-identical), that log-sum-exp against the fp32 one, and K6 (the
-     attention backward) against its plain version;
+  2. K1 and K6 (flash attention forward and backward): the SASS of their
+     main kernels holds wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
+     (HMMA), and ptxas reports no spills; K1 against its plain version at the
+     main path's shapes (bf16, d=64), a ragged S and the edge shapes S = 1,
+     64, 127, 129; then, at the four attention shapes of MMDM training, a
+     ragged S and the edge shapes, K1's output with and without its
+     log-sum-exp (bit-identical), that log-sum-exp against the fp32 one, and
+     K6 against its plain version, run twice (dK, dV bit-identical). Each
+     kernel's yardstick is the fastest SDPA backend (flash, cuDNN,
+     memory-efficient) that takes the inputs; K6's is SDPA's backward alone,
+     timed on a retained forward graph;
   3. K2 GroupNorm(+SiLU) against its plain version at main-path shapes;
   4. K3 rasterizer against its plain version on 32 synthetic FLAME frames at
      128²;
@@ -57,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +102,26 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, keys, iters: int = 20) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``keys``, from torch.profiler over ``iters`` calls: what a call costs
+    the card, without the host time that bounds ``time_ms`` at small
+    shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.key for k in keys))
+    return us / iters / 1e3
+
+
 def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
     """Elementwise |out - ref| <= rtol·|ref| + atol; logs and returns the max
     abs error."""
@@ -109,6 +136,42 @@ def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
     assert not bool(bad.any()), (f"{name}: {int(bad.sum())} elements outside "
                                  f"rtol {rtol} atol {atol:.3g}; max abs err {max_err:.3g}")
     return max_err
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_fastest(make_fn):
+    """The yardstick: the fastest SDPA backend that accepts the inputs, as
+    (ms, backend name). ``make_fn()`` returns the call to time and runs under
+    ``sdpa_kernel`` of one backend at a time; a backend that refuses the
+    inputs raises and is skipped. The port never calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best = None
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                fn = make_fn()
+                ms = time_ms(fn)
+        except RuntimeError:
+            continue
+        if best is None or ms < best[0]:
+            best = (ms, name.split("_")[0].lower())
+    assert best is not None, "no SDPA backend accepts the attention inputs"
+    return best
+
+
+def attention_inputs(gen, B, S, H, spread: float = 1.5):
+    """bf16 (B, S, H, 64) q, k, v, dO; q and k scaled by ``spread`` so the
+    logits q·k/8 have a std of ~2 (softmax rows neither flat nor one-hot)."""
+    import torch
+
+    q, k = ((spread * torch.randn((B, S, H, 64), generator=gen, device="cuda"))
+            .to(torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn((B, S, H, 64), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    return q, k, v, do
 
 
 class Entry:
@@ -148,6 +211,68 @@ def phase_build(kernels):
                 log(f"[build] {k.source.name}: {line.strip()}")
 
 
+EDGE_S = (1, 64, 127, 129)   # S below one tile, at a tile and one either side (B=2, H=4)
+
+
+def ptxas_report(kernel) -> dict:
+    """{function: (registers, spill store bytes, spill load bytes)} from
+    ptxas's report of ``kernel``'s build; a library built before this run is
+    compiled once more for the report alone."""
+    import tempfile
+
+    text = kernel.build_log
+    if not text:
+        with tempfile.TemporaryDirectory() as tmp:
+            text = subprocess.run(kernel.build_command(Path(tmp) / "report.so"),
+                                  capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = [0, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return out
+
+
+def sass_functions(so_path: Path) -> dict:
+    """{function: SASS text} of a built library, from ``cuobjdump -sass``."""
+    from cap4d_torch.ops.cuda_build import nvcc_path
+
+    cuobjdump = str(Path(nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(so_path)], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def phase_attention_sass():
+    """K1's and K6's main kernels issue wgmma (HGMMA) and TMA loads
+    (UTMALDG), no mma.sync (HMMA), and spill nothing."""
+    from cap4d_torch.ops import flash_attention as fa
+
+    for kernel, main in ((fa.KERNEL, "flash_fwd_kernel"), (fa.KERNEL_BWD, "bwd_main_kernel")):
+        sass = sass_functions(kernel.so_path())
+        report = ptxas_report(kernel)
+        for fn, text in sass.items():
+            counts = {op: len(re.findall(rf"\b{op}\b", text))
+                      for op in ("HGMMA", "UTMALDG", "UTMASTG", "UBLKRED", "HMMA", "MUFU")}
+            regs, st, ld = report.get(fn, (None,) * 3)
+            log(f"[sass] {kernel.source.name}: {fn}: " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()) + f" | ptxas: {regs} registers, "
+                f"spill stores {st} B, spill loads {ld} B")
+            assert counts["HMMA"] == 0, f"{fn} issues mma.sync (HMMA)"
+            if main in fn:
+                assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, \
+                    f"{fn}: no wgmma or no TMA load in the SASS: {counts}"
+                assert st == 0 and ld == 0, f"{fn} spills: {st} B stored, {ld} B loaded"
+        assert any(main in fn for fn in sass), f"{main} not found in {kernel.so_path()}"
+
+
 def phase_attention(entry: Entry):
     import torch
     import torch.nn.functional as F
@@ -158,7 +283,7 @@ def phase_attention(entry: Entry):
     shapes = [(16, 4096, 5), (2, 8192, 10), (2, 2048, 20), (2, 512, 20), (2, 1000, 4)]
     d = 64
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, S, H in shapes:
+    for B, S, H in shapes + [(2, s, 4) for s in EDGE_S]:
         q, k, v = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         out = flash_attention(q, k, v)
@@ -168,17 +293,25 @@ def phase_attention(entry: Entry):
         # largest magnitude for entries near zero
         err = check_close(f"K1 B={B} S={S} H={H}", out, ref, 2e-2,
                           2e-2 * float(ref.float().abs().max()))
+        if (B, S, H) not in shapes:
+            entry.d["max_abs_err"] = max(entry.d["max_abs_err"], err)
+            continue   # edge shapes: checked, not timed
         ms = time_ms(lambda: flash_attention(q, k, v))
         plain_ms = time_ms(lambda: flash_attention(q, k, v, plain=True), iters=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        lib_ms, backend = sdpa_fastest(lambda: lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * S * S * d * B * H
         nbytes = 4.0 * B * S * H * d * 2
         flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         entry.add(err, ms, plain_ms, flop_ms, byte_ms, lib_ms)
-        log(f"[K1] B={B} S={S} H={H}: kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa {lib_ms:.3f} ms "
-            f"| bound {max(flop_ms, byte_ms):.3f} ms")
+        dev_ms = device_ms(lambda: flash_attention(q, k, v), ("flash_fwd",))
+        log(f"[K1] B={B} S={S} H={H}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; on the device {dev_ms:.4f} ms, "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa ({backend}) "
+            f"{lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s) | bound "
+            f"{max(flop_ms, byte_ms):.4f} ms")
+    log(f"[K1] 5 shapes summed: kernel {entry.d['ms']:.4f} ms | fastest sdpa "
+        f"{entry.d['library_ms']:.4f} ms | bound {entry.d['bound_ms']:.4f} ms")
 
 
 def phase_group_norm(entry: Entry):
@@ -309,7 +442,7 @@ def profile_breakdown(fn, label: str = "profile") -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"K1 flash_fwd": ("flash_fwd",), "K6 flash bwd": ("bwd_dot", "bwd_dkdv", "bwd_dq"),
+    families = {"K1 flash_fwd": ("flash_fwd",), "K6 flash bwd": ("bwd_prep", "bwd_main", "bwd_dq"),
                 "K2 group norm": ("gn_stats", "gn_apply"),
                 "K3 raster": ("raster",), "K4 gsplat_fwd": ("gsplat_fwd",),
                 "K5 gsplat_bwd": ("gsplat_bwd",), "conv": ("conv", "cudnn", "implicit"),
@@ -748,7 +881,9 @@ TRAIN_ATTENTION = [  # (B, S, H) of the UNet's attentions at V=8, 64², calls pe
 
 def phase_attention_backward(entry: Entry):
     """K1's lse2 output and K6 against their plain versions at the training
-    shapes; K6's numbers summed over one micro-batch's 16 calls."""
+    shapes, a ragged S and the edge shapes; K6 run twice on the same inputs
+    (dK and dV bit-identical, dQ's spread printed); K6's numbers summed over
+    one micro-batch's 16 calls, beside SDPA's backward alone."""
     import torch
     import torch.nn.functional as F
 
@@ -756,12 +891,9 @@ def phase_attention_backward(entry: Entry):
 
     d = 64
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for (B, S, H), calls in TRAIN_ATTENTION + [((1, 1000, 4), 0)]:
-        # logits q·k/8 with a spread of ~2 (std): softmax rows neither flat nor one-hot
-        q = (1.5 * torch.randn((B, S, H, d), generator=gen, device="cuda")).to(torch.bfloat16)
-        k = (1.5 * torch.randn((B, S, H, d), generator=gen, device="cuda")).to(torch.bfloat16)
-        v, do = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
-                 for _ in range(2))
+    cases = TRAIN_ATTENTION + [((1, 1000, 4), 0)] + [((2, s, 4), 0) for s in EDGE_S]
+    for (B, S, H), calls in cases:
+        q, k, v, do = attention_inputs(gen, B, S, H)
         o_no_lse, _ = fa.flash_attention_fwd_cuda(q, k, v)
         o, lse = fa.flash_attention_fwd_cuda(q, k, v, with_lse=True)
         torch.cuda.synchronize()
@@ -770,20 +902,31 @@ def phase_attention_backward(entry: Entry):
         # fp32 row sums of S ex2.approx terms: 1e-3 in log2 is 0.07 % of a probability
         check_close(f"K1 lse2 B={B} S={S} H={H}", lse, lse_ref, 0.0, 1e-3)
         grads = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
         refs = fa.attention_backward_plain(q.float(), k.float(), v.float(), o.float(),
                                            do.float(), lse)
         torch.cuda.synchronize()
+        # dK and dV are deterministic; dQ sums the key blocks' partials with
+        # atomic reductions in run-dependent order
+        assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]), \
+            "K6 dK/dV differ between two runs on the same inputs"
+        dq_spread = float((grads[0].float() - again[0].float()).abs().max())
+        log(f"[K6] B={B} S={S} H={H}: two runs: dK, dV bit-identical, max |dQ1 - dQ2| "
+            f"{dq_spread:.3g}")
         err = 0.0
         for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
             # P and dS are rounded to bf16 before their products (as the
             # forward rounds P), and the outputs are bf16: 2e-2 of each
-            # output's largest |grad|
-            scale = float(r.abs().max())
+            # output's largest |grad|. At S = 1 a softmax over one key is
+            # constant: dQ and dK are 0 up to rounding on both sides, and are
+            # held at 2e-2 of dV's largest, the gradient's own units.
+            scale = float((r if S > 1 else refs[2]).abs().max())
             e = check_close(f"K6 {name} B={B} S={S} H={H}", a, r, 0.0, 2e-2 * scale)
             log(f"[K6] {name} B={B} S={S} H={H}: max |kernel - plain| / max |plain| = "
-                f"{e / scale:.3g}")
+                f"{e / max(scale, 1e-30):.3g}")
             err = max(err, e)
-        del refs
+        del refs, again
+        entry.d["max_abs_err"] = max(entry.d["max_abs_err"], err)
         if not calls:
             continue
         ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse))
@@ -792,22 +935,29 @@ def phase_attention_backward(entry: Entry):
         fwd_lse_ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, with_lse=True))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         dot = do.transpose(1, 2)
-        sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        sdpa_fb = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt),
-                                                      (qt, kt, vt), dot))
-        lib_ms = sdpa_fb - sdpa_f
+
+        def sdpa_backward():
+            # the forward runs once under the chosen backend; the timed call
+            # is its backward alone, on the retained graph
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+        lib_ms, backend = sdpa_fastest(sdpa_backward)
         flops = 10.0 * S * S * d * B * H
         nbytes = 8.0 * B * S * H * d * 2 + B * H * S * 4   # q k v o dO in, dq dk dv out, lse2
         flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        entry.add(err, calls * ms, calls * plain_ms, calls * flop_ms, calls * byte_ms,
+        entry.add(0.0, calls * ms, calls * plain_ms, calls * flop_ms, calls * byte_ms,
                   calls * lib_ms)
-        log(f"[K6] B={B} S={S} H={H} (x{calls} per micro-batch): kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa fwd+bwd - fwd "
-            f"{lib_ms:.3f} ms ({sdpa_fb:.3f} - {sdpa_f:.3f}) | bound {max(flop_ms, byte_ms):.3f} ms "
-            f"| K1 with lse2 {fwd_lse_ms:.3f} ms")
-    log(f"[K6] per micro-batch (16 calls): kernel {entry.d['ms']:.3f} ms | plain "
-        f"{entry.d['plain_ms']:.3f} ms | sdpa backward {entry.d['library_ms']:.3f} ms | bound "
-        f"{entry.d['bound_ms']:.3f} ms ({entry.d['bound_by']})")
+        dev_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse),
+                           ("bwd_prep", "bwd_main", "bwd_dq"))
+        log(f"[K6] B={B} S={S} H={H} (x{calls} per micro-batch): kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; on the device {dev_ms:.4f} ms, "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa ({backend}) "
+            f"backward {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s) | bound "
+            f"{max(flop_ms, byte_ms):.4f} ms | K1 with lse2 {fwd_lse_ms:.4f} ms")
+    log(f"[K6] per micro-batch (16 calls): kernel {entry.d['ms']:.4f} ms | plain "
+        f"{entry.d['plain_ms']:.3f} ms | fastest sdpa backward {entry.d['library_ms']:.4f} ms | "
+        f"bound {entry.d['bound_ms']:.4f} ms ({entry.d['bound_by']})")
 
 
 def shipped_schedule():
@@ -1267,6 +1417,8 @@ def main() -> int:
                gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD, flash_attention.KERNEL_BWD,
                op_mix.KERNEL]
     phase_build(kernels)
+    if "attention" in phases or "attention_bwd" in phases:
+        phase_attention_sass()
 
     work = REPO / ".chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
