@@ -14,91 +14,134 @@
 // pixel has ln T < ln(1e-4); n_done[t] records the batches it ran, so the
 // backward (K5) replays exactly those.
 //
-// What bounds it on an H100: the pair-pixel evaluations (about 20 fp32
-// operations each, one __expf) -- a few hundred thousand to a few million
-// pairs times 256 pixels at 512^2 -- against 67 TFLOP/s; the bytes (10 floats
-// per gaussian, one int per pair, 24 bytes per pixel out) are small beside
-// that. The design: one block per tile, one thread per pixel; the block
-// stages each batch of 256 pairs in shared memory (structure of arrays, one
-// gather of the packed row per thread), then every thread walks the batch
-// front to back in registers; __syncthreads_count both guards the next
-// batch's shared-memory writes and applies the termination rule. The TPU
-// kernel's MXU prefix-sum trick (split-bf16 triangular matmuls, log2
-// transmittance) has no counterpart: a thread carries its pixel's T serially.
+// What bounds it on an H100: the pair-pixel evaluations (about 11 fp32
+// operations each, 13 more and an __expf where the pair is kept) against
+// 67 TFLOP/s; the bytes (10 floats per gaussian, one int per pair, 24 bytes
+// per pixel out, 24 per pixel and batch of state) are small beside that. What
+// held the first design back was balance, not arithmetic: one block walked a
+// tile's whole segment, so the deepest tile (tens of batches where the mean
+// tile holds one or two) set the time.
+//
+// The design: the work items are (tile, 256-pair batch), 256 being the stop
+// rule's own granularity (gsplat_items.cuh). Whether a pair is kept does not
+// depend on T, so a batch composited from T = 1 gives the tile's sums once
+// scaled by the transmittance in front of it. Three launches:
+//   1. scan: one block enumerates the items from `bounds` on the device;
+//   2. items: one block per item, one thread per pixel, the batch staged in
+//      shared memory, composites front to back from T = 1 and writes its
+//      sums and its ln T into the item's state row. ln T comes from the
+//      running product of (1 - alpha), renormalised by 2^64 when it falls
+//      below 2^-64, and one logf at the end, not a log1pf per kept pair;
+//   3. merge: one block per tile walks its items in order, applies the stop
+//      rule at each batch boundary (__syncthreads_count), accumulates
+//      exp(ln T before) times each batch's sums, and overwrites each item
+//      that ran with what K5 starts from: ln T before the batch and the
+//      prefix of the five sums. Items after the stop were computed by (2)
+//      and are discarded here.
+// State rows: (n_rows, 6, 256) float32, n_rows = n_tiles + M / 256.
 
-#include <cuda_runtime.h>
+#include "gsplat_items.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kBlock = kTile * kTile;  // pixels per tile == pairs per batch
-constexpr int kPacked = 10;            // mean x/y, conic a/b/c, opacity, rgb, depth
-constexpr int kOut = 6;                // sum w rgb, sum w, sum w depth, ln T
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.999f;
-constexpr float kLnTStop = -9.210340371976184f;  // ln(1e-4)
+using namespace gsplat;
+
+__global__ void __launch_bounds__(kScanThreads)
+gsplat_fwd_scan_kernel(const int* __restrict__ bounds, int n_tiles, int* item_start,
+                       int* __restrict__ item_tile) {
+  scan_items(bounds, nullptr, n_tiles, item_start, item_start, item_tile);
+}
 
 __global__ void __launch_bounds__(kBlock)
-gsplat_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ pair_gauss,
-                  const int* __restrict__ bounds, int tiles_x,
-                  float* __restrict__ out, int* __restrict__ n_done) {
-  __shared__ float s_mx[kBlock], s_my[kBlock], s_ca[kBlock], s_cb[kBlock], s_cc[kBlock];
-  __shared__ float s_op[kBlock], s_r[kBlock], s_g[kBlock], s_b[kBlock], s_d[kBlock];
+gsplat_fwd_items_kernel(const float* __restrict__ packed, const int* __restrict__ pair_gauss,
+                        const int* __restrict__ bounds, const int* __restrict__ item_start,
+                        const int* __restrict__ item_tile, int n_tiles, int tiles_x,
+                        float* __restrict__ state) {
+  __shared__ Pair s_pair[kBlock];
 
+  const int item = blockIdx.x;
+  if (item >= item_start[n_tiles]) return;
+  int tile, batch;
+  const int n = stage_item(packed, pair_gauss, bounds, item_start, item_tile, item, s_pair,
+                           nullptr, tile, batch);
+  __syncthreads();
+  const float px = pixel_x(tile, tiles_x);
+  const float py = pixel_y(tile, tiles_x);
+  float wr = 0.f, wg = 0.f, wb = 0.f, wsum = 0.f, dsum = 0.f, T = 1.f;
+  float tn = 1.f, ln_scale = 0.f;  // ln T = ln(tn) + ln_scale
+  for (int k = 0; k < n; ++k) {
+    const float4 A = s_pair[k].a;
+    const float4 B = s_pair[k].b;
+    const float dx = px - A.x;
+    const float dy = py - A.y;
+    const float sigma = 0.5f * (A.z * dx * dx + B.x * dy * dy) + A.w * dx * dy;
+    if (sigma < 0.f) continue;
+    const float raw = B.y * __expf(-sigma);
+    if (raw < kAlphaMin) continue;
+    const float4 C = s_pair[k].c;
+    const float a = fminf(raw, kAlphaMax);
+    const float w = a * T;
+    wr += w * B.z;
+    wg += w * B.w;
+    wb += w * C.x;
+    wsum += w;
+    dsum += w * C.y;
+    T *= 1.f - a;
+    tn *= 1.f - a;
+    if (tn < 0x1p-64f) {
+      tn *= 0x1p64f;
+      ln_scale -= 44.36141955583649f;  // 64 ln 2
+    }
+  }
+  float* st = state + static_cast<size_t>(item) * kState * kBlock + threadIdx.x;
+  st[0] = logf(tn) + ln_scale;
+  st[1 * kBlock] = wr;
+  st[2 * kBlock] = wg;
+  st[3 * kBlock] = wb;
+  st[4 * kBlock] = wsum;
+  st[5 * kBlock] = dsum;
+}
+
+__global__ void __launch_bounds__(kBlock)
+gsplat_fwd_merge_kernel(const int* __restrict__ item_start, float* __restrict__ state,
+                        float* __restrict__ out, int* __restrict__ n_done) {
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int start = bounds[t];
-  const int len = bounds[t + 1] - start;
-  const float px = static_cast<float>((t % tiles_x) * kTile + tid % kTile) + 0.5f;
-  const float py = static_cast<float>((t / tiles_x) * kTile + tid / kTile) + 0.5f;
+  const int i0 = item_start[t];
+  const int n = item_start[t + 1] - i0;
+  float* base = state + static_cast<size_t>(i0) * kState * kBlock + tid;
 
-  float r = 0.f, g = 0.f, b = 0.f, wsum = 0.f, dsum = 0.f, ln_t = 0.f, T = 1.f;
-  const int n_batches = (len + kBlock - 1) / kBlock;
+  float p[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float ln_t = 0.f;
+  float nxt[kState];
+  if (n > 0) {
+#pragma unroll
+    for (int c = 0; c < kState; ++c) nxt[c] = base[c * kBlock];
+  }
   int done = 0;
-  for (int j = 0; j < n_batches; ++j) {
-    const int k0 = j * kBlock;
-    if (k0 + tid < len) {
-      const float* row = packed + static_cast<size_t>(pair_gauss[start + k0 + tid]) * kPacked;
-      s_mx[tid] = row[0];
-      s_my[tid] = row[1];
-      s_ca[tid] = row[2];
-      s_cb[tid] = row[3];
-      s_cc[tid] = row[4];
-      s_op[tid] = row[5];
-      s_r[tid] = row[6];
-      s_g[tid] = row[7];
-      s_b[tid] = row[8];
-      s_d[tid] = row[9];
+  for (int j = 0; j < n; ++j) {
+    // a batch after the first runs only while some pixel has T >= 1e-4
+    if (j > 0 && __syncthreads_count(ln_t >= kLnTStop) == 0) break;
+    float cur[kState];
+#pragma unroll
+    for (int c = 0; c < kState; ++c) cur[c] = nxt[c];
+    float* st = base + static_cast<size_t>(j) * kState * kBlock;
+    if (j + 1 < n) {
+#pragma unroll
+      for (int c = 0; c < kState; ++c) nxt[c] = st[(kState + c) * kBlock];
     }
-    __syncthreads();
-    const int cnt = min(kBlock, len - k0);
-    for (int k = 0; k < cnt; ++k) {
-      const float dx = px - s_mx[k];
-      const float dy = py - s_my[k];
-      const float sigma = 0.5f * (s_ca[k] * dx * dx + s_cc[k] * dy * dy) + s_cb[k] * dx * dy;
-      if (sigma < 0.f) continue;
-      const float raw = s_op[k] * __expf(-sigma);
-      if (raw < kAlphaMin) continue;
-      const float a = fminf(raw, kAlphaMax);
-      const float w = a * T;
-      r += w * s_r[k];
-      g += w * s_g[k];
-      b += w * s_b[k];
-      wsum += w;
-      dsum += w * s_d[k];
-      ln_t += log1pf(-a);
-      T *= 1.f - a;
-    }
+    st[0] = ln_t;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) st[(1 + c) * kBlock] = p[c];
+    const float tb = expf(ln_t);
+#pragma unroll
+    for (int c = 0; c < 5; ++c) p[c] += tb * cur[1 + c];
+    ln_t += cur[0];
     done = j + 1;
-    // a barrier as well: no thread refills shared memory while another reads it
-    if (__syncthreads_count(ln_t >= kLnTStop) == 0) break;
   }
   float* o = out + (static_cast<size_t>(t) * kBlock + tid) * kOut;
-  o[0] = r;
-  o[1] = g;
-  o[2] = b;
-  o[3] = wsum;
-  o[4] = dsum;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) o[c] = p[c];
   o[5] = ln_t;
   if (tid == 0) n_done[t] = done;
 }
@@ -108,14 +151,25 @@ gsplat_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ pair
 extern "C" {
 
 // packed (N, 10) float32; pair_gauss (M,) int32 gaussian of each sorted pair;
-// bounds (n_tiles + 1,) int32 segment starts. Outputs out (n_tiles, 256, 6)
-// float32 and n_done (n_tiles,) int32. Returns cudaGetLastError().
+// bounds (n_tiles + 1,) int32 segment starts; n_rows = n_tiles + M / 256;
+// workspace (n_tiles + 1 + n_rows,) int32 scratch. Outputs out (n_tiles, 256,
+// 6) float32, n_done (n_tiles,) int32 and state (n_rows, 6, 256) float32
+// (rows of items that did not run are left undefined). Returns
+// cudaGetLastError().
 int c4d_gsplat_fwd(const void* packed, const void* pair_gauss, const void* bounds,
-                   int n_tiles, int tiles_x, void* out, void* n_done, void* stream) {
+                   int n_tiles, int tiles_x, int n_rows, void* workspace, void* out,
+                   void* n_done, void* state, void* stream) {
   if (n_tiles > 0) {
-    gsplat_fwd_kernel<<<n_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(packed), static_cast<const int*>(pair_gauss),
-        static_cast<const int*>(bounds), tiles_x, static_cast<float*>(out),
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int* item_start = static_cast<int*>(workspace);
+    int* item_tile = item_start + n_tiles + 1;
+    const int* bd = static_cast<const int*>(bounds);
+    gsplat_fwd_scan_kernel<<<1, kScanThreads, 0, s>>>(bd, n_tiles, item_start, item_tile);
+    gsplat_fwd_items_kernel<<<n_rows, kBlock, 0, s>>>(
+        static_cast<const float*>(packed), static_cast<const int*>(pair_gauss), bd, item_start,
+        item_tile, n_tiles, tiles_x, static_cast<float*>(state));
+    gsplat_fwd_merge_kernel<<<n_tiles, kBlock, 0, s>>>(
+        item_start, static_cast<float*>(state), static_cast<float*>(out),
         static_cast<int*>(n_done));
   }
   return static_cast<int>(cudaGetLastError());

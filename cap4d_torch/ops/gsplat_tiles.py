@@ -14,7 +14,13 @@ Pipeline, all differentiable where the JAX package's is:
 * compositing through :class:`Composite`: kernel K4 (``csrc/gsplat_fwd.cu``)
   forward and kernel K5 (``csrc/gsplat_bwd.cu``) backward on CUDA tensors,
   the plain compositor ``ops/gsplat.py::rasterize_gaussians_plain`` (with
-  autograd for the backward) on CPU tensors or with ``plain=True``.
+  autograd for the backward) on CPU tensors or with ``plain=True``. Both
+  kernels work on (tile, 256-pair batch) items: K4 composites each batch
+  from T = 1 and merges a tile's batches in order under the stop rule,
+  saving each batch's starting state (ln T before it, the prefix of its
+  sums), from which K5 replays one batch per block.
+  :func:`composite_fwd_plain` and :func:`composite_bwd_plain` compute that
+  split at the kernels' interfaces in tensor ops, for comparisons and tests.
 
 Gradients reach means3d, quats, scales, opacities, SH and ``means2d_offset``
 through the projection's autograd; the densify statistics read the
@@ -30,17 +36,27 @@ import torch
 
 from cap4d_torch.ops.cuda_build import CudaKernel, I, P
 from cap4d_torch.ops.gsplat import (
+    ALPHA_MAX,
     ALPHA_MIN,
+    BATCH,
+    LN_T_STOP,
     N_OUT,
     N_PACKED,
     TILE,
     eval_sh_ch,
     project_gaussians_ch,
     rasterize_gaussians_plain,
+    tile_pixel_centres,
 )
 
-KERNEL_FWD = CudaKernel("gsplat_fwd.cu", {"c4d_gsplat_fwd": [P, P, P, I, I, P, P, P]})
-KERNEL_BWD = CudaKernel("gsplat_bwd.cu", {"c4d_gsplat_bwd": [P, P, P, P, P, P, I, I, P, P]})
+# K4's state per (item, pixel): ln T before the batch, then the prefix of
+# Σw·r, Σw·g, Σw·b, Σw, Σw·depth
+N_STATE = 6
+
+KERNEL_FWD = CudaKernel("gsplat_fwd.cu",
+                        {"c4d_gsplat_fwd": [P, P, P, I, I, I, P, P, P, P, P]})
+KERNEL_BWD = CudaKernel("gsplat_bwd.cu",
+                        {"c4d_gsplat_bwd": [P, P, P, P, P, P, P, I, I, I, P, P, P]})
 
 
 def tile_pairs(mean_x, mean_y, conic_a, conic_b, conic_c, opacity, radius, valid, depth,
@@ -100,34 +116,179 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def state_rows(n_tiles: int, n_pairs: int) -> int:
+    """Rows of the compositor's state: an upper bound on the work items,
+    Σ_t ⌈len_t / 256⌉ ≤ n_tiles + M // 256, known without reading the
+    device."""
+    return n_tiles + n_pairs // BATCH
+
+
 def composite_fwd_cuda(packed, pair_gauss, bounds, tiles_x: int):
-    """K4: (n_tiles, 256, 6) outputs and the batches each tile ran."""
+    """K4: (n_tiles, 256, 6) outputs, the batches each tile ran and the state
+    K5 starts from, (state_rows, 6, 256): for each (tile, batch) item that
+    ran, ln T before the batch and the prefix of Σw·rgb, Σw, Σw·depth."""
     n_tiles = bounds.shape[0] - 1
     _check("packed", packed, torch.float32, (packed.shape[0], N_PACKED))
     _check("pair_gauss", pair_gauss, torch.int32, (pair_gauss.shape[0],))
     _check("bounds", bounds, torch.int32, (n_tiles + 1,))
-    out = torch.empty((n_tiles, TILE * TILE, N_OUT), dtype=torch.float32, device=packed.device)
-    n_done = torch.empty((n_tiles,), dtype=torch.int32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    dev = packed.device
+    n_rows = state_rows(n_tiles, pair_gauss.shape[0])
+    out = torch.empty((n_tiles, TILE * TILE, N_OUT), dtype=torch.float32, device=dev)
+    n_done = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    state = torch.empty((n_rows, N_STATE, TILE * TILE), dtype=torch.float32, device=dev)
+    work = torch.empty((n_tiles + 1 + n_rows,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL_FWD.call("c4d_gsplat_fwd", packed.data_ptr(), pair_gauss.data_ptr(),
-                    bounds.data_ptr(), n_tiles, tiles_x, out.data_ptr(), n_done.data_ptr(),
+                    bounds.data_ptr(), n_tiles, tiles_x, n_rows, work.data_ptr(),
+                    out.data_ptr(), n_done.data_ptr(), state.data_ptr(),
                     ctypes.c_void_p(stream))
-    return out, n_done
+    return out, n_done, state
 
 
-def composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, grad_out, tiles_x: int):
+def composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, state, grad_out, tiles_x: int):
     """K5: per-gaussian gradient (N, 10) of the packed rows."""
     n_tiles = bounds.shape[0] - 1
+    n_rows = state_rows(n_tiles, pair_gauss.shape[0])
     grad_out = grad_out.contiguous()
     _check("out", out, torch.float32, (n_tiles, TILE * TILE, N_OUT))
     _check("grad_out", grad_out, torch.float32, (n_tiles, TILE * TILE, N_OUT))
     _check("n_done", n_done, torch.int32, (n_tiles,))
+    _check("state", state, torch.float32, (n_rows, N_STATE, TILE * TILE))
     dpacked = torch.zeros_like(packed)
+    work = torch.empty((2 * n_tiles + 2 + n_rows,), dtype=torch.int32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     KERNEL_BWD.call("c4d_gsplat_bwd", packed.data_ptr(), pair_gauss.data_ptr(),
-                    bounds.data_ptr(), out.data_ptr(), n_done.data_ptr(),
-                    grad_out.data_ptr(), n_tiles, tiles_x, dpacked.data_ptr(),
-                    ctypes.c_void_p(stream))
+                    bounds.data_ptr(), out.data_ptr(), n_done.data_ptr(), state.data_ptr(),
+                    grad_out.data_ptr(), n_tiles, tiles_x, n_rows, work.data_ptr(),
+                    dpacked.data_ptr(), ctypes.c_void_p(stream))
+    return dpacked
+
+
+def work_items(bounds: torch.Tensor):
+    """The (tile, batch) items of the pairs: per tile the first state row
+    (n_tiles + 1,), and per item its tile and batch index (n_items,)."""
+    n_tiles = bounds.shape[0] - 1
+    lens = (bounds[1:] - bounds[:-1]).long()
+    counts = (lens + BATCH - 1) // BATCH
+    row_start = torch.zeros(n_tiles + 1, dtype=torch.int64, device=bounds.device)
+    row_start[1:] = torch.cumsum(counts, 0)
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=bounds.device), counts)
+    batch = torch.arange(tile.shape[0], device=bounds.device) - row_start[tile]
+    return row_start, tile, batch
+
+
+def _batch_terms(packed, pair_gauss, bounds, tiles_x, tile, batch):
+    """The pair-pixel terms of items (tile, batch), C of them: the gathered
+    rows d (C, 256, 10), the gaussians (C, 256) (0 past the batch's end),
+    dx, dy, σ, e^-σ, the clamped α, the keep mask (C, 256 pairs, 256 px)
+    and whether each pair slot holds a pair (C, 256)."""
+    starts = bounds[tile].long() + batch * BATCH
+    slot = starts[:, None] + torch.arange(BATCH, device=packed.device)
+    inseg = slot < bounds[tile + 1].long()[:, None]
+    gidx = torch.where(inseg, pair_gauss[slot.clamp(max=max(pair_gauss.shape[0] - 1, 0))].long(),
+                       torch.zeros_like(slot))
+    d = packed[gidx]
+    px, py = tile_pixel_centres(tile, tiles_x)
+    dx = px[:, None, :] - d[..., 0:1]
+    dy = py[:, None, :] - d[..., 1:2]
+    sigma = 0.5 * (d[..., 2:3] * dx * dx + d[..., 4:5] * dy * dy) + d[..., 3:4] * dx * dy
+    expneg = torch.exp(-sigma.clamp(min=0.0))
+    raw = d[..., 5:6] * expneg
+    keep = (sigma >= 0) & (raw >= ALPHA_MIN) & inseg[..., None]
+    alpha = torch.where(keep, raw.clamp(max=ALPHA_MAX), torch.zeros_like(raw))
+    return d, gidx, dx, dy, expneg, raw, alpha, keep, inseg
+
+
+# items per chunk of the interface-level plain versions: 256 items × 256
+# pairs × 256 pixels bound their intermediates, as the plain compositor's
+# chunks are bounded
+_ITEMS_PER_CHUNK = 256
+
+
+def composite_fwd_plain(packed, pair_gauss, bounds, tiles_x: int):
+    """The split's algebra in plain tensor ops, at K4's interface: every
+    (tile, batch) item composited from T = 1, then per tile a merge over its
+    items in order with the stop rule at each batch boundary. Returns
+    ``(out, n_done, state)`` as :func:`composite_fwd_cuda` does; state rows of
+    items that did not run are 0. For comparisons and tests only."""
+    n_tiles = bounds.shape[0] - 1
+    px_n = TILE * TILE
+    row_start, tile, batch = work_items(bounds)
+    n_items = tile.shape[0]
+    local = packed.new_zeros((n_items, N_STATE, px_n))
+    for i in range(0, n_items, _ITEMS_PER_CHUNK):
+        tc, bc = tile[i:i + _ITEMS_PER_CHUNK], batch[i:i + _ITEMS_PER_CHUNK]
+        d, _, _, _, _, _, alpha, _, _ = _batch_terms(packed, pair_gauss, bounds, tiles_x, tc, bc)
+        l = torch.log1p(-alpha)
+        w = alpha * torch.exp(torch.cumsum(l, dim=1) - l)          # (C, 256 pairs, P)
+        local[i:i + len(tc), 0] = l.sum(dim=1)
+        local[i:i + len(tc), 1:4] = torch.einsum("cbp,cbr->crp", w, d[..., 6:9])
+        local[i:i + len(tc), 4] = w.sum(dim=1)
+        local[i:i + len(tc), 5] = torch.einsum("cbp,cb->cp", w, d[..., 9])
+
+    state = packed.new_zeros((state_rows(n_tiles, pair_gauss.shape[0]), N_STATE, px_n))
+    sums = packed.new_zeros((n_tiles, 5, px_n))
+    ln_t = packed.new_zeros((n_tiles, px_n))
+    n_done = torch.zeros(n_tiles, dtype=torch.int32, device=packed.device)
+    counts = row_start[1:] - row_start[:-1]
+    for j in range(int(counts.max()) if n_tiles else 0):
+        run = (counts > j) & (n_done == j)
+        if j > 0:
+            run &= ln_t.amax(dim=1) >= LN_T_STOP
+        rows = row_start[:-1][run] + j
+        state[rows, 0] = ln_t[run]
+        state[rows, 1:] = sums[run]
+        sums[run] += torch.exp(ln_t[run])[:, None] * local[rows, 1:]
+        ln_t[run] += local[rows, 0]
+        n_done += run.to(torch.int32)
+    out = torch.cat([sums.transpose(1, 2), ln_t[..., None]], dim=-1)
+    return out, n_done, state
+
+
+def composite_bwd_plain(packed, pair_gauss, bounds, out, n_done, state, grad_out,
+                        tiles_x: int):
+    """The per-batch backward in plain tensor ops, at K5's interface: each
+    item that ran starts from its state row (T = exp(ln T before), the prefix
+    of w·q from the prefix sums) and applies K5's per-pair formula; the
+    per-pair sums over pixels go to their gaussians by ``index_add_``.
+    Returns dpacked (N, 10). For comparisons and tests only."""
+    row_start, tile, batch = work_items(bounds)
+    ran = batch < n_done.long()[tile]
+    rows = (row_start[:-1][tile] + batch)[ran]
+    tile, batch = tile[ran], batch[ran]
+    dpacked = torch.zeros_like(packed)
+    for i in range(0, tile.shape[0], _ITEMS_PER_CHUNK):
+        sl = slice(i, i + _ITEMS_PER_CHUNK)
+        tc = tile[sl]
+        d, gidx, dx, dy, expneg, raw, alpha, keep, inseg = _batch_terms(
+            packed, pair_gauss, bounds, tiles_x, tc, batch[sl])
+        g = grad_out[tc].transpose(1, 2)                             # (C, 6, P)
+        s_total = (out[tc][..., :5].transpose(1, 2) * g[:, :5]).sum(dim=1)
+        st = state[rows[sl]]
+        prefix0 = (st[:, 1:] * g[:, :5]).sum(dim=1)                  # (C, P)
+        l = torch.log1p(-alpha)
+        T = torch.exp(st[:, None, 0] + torch.cumsum(l, dim=1) - l)   # before each pair
+        w = alpha * T
+        q = (torch.einsum("cbr,crp->cbp", d[..., 6:9], g[:, 0:3]) + g[:, None, 3]
+             + d[..., 9:10] * g[:, None, 4])
+        suffix = s_total[:, None] - (prefix0[:, None] + torch.cumsum(w * q, dim=1))
+        d_alpha = T * q - (suffix + g[:, None, 5]) / (1.0 - alpha)
+        d_pre = torch.where(keep & (raw < ALPHA_MAX), d_alpha, torch.zeros_like(d_alpha))
+        d_sigma = -d_pre * alpha
+        ca, cb, cc = d[..., 2:3], d[..., 3:4], d[..., 4:5]
+        per_pair = torch.stack([
+            (-d_sigma * (ca * dx + cb * dy)).sum(-1),
+            (-d_sigma * (cc * dy + cb * dx)).sum(-1),
+            (d_sigma * 0.5 * dx * dx).sum(-1),
+            (d_sigma * dx * dy).sum(-1),
+            (d_sigma * 0.5 * dy * dy).sum(-1),
+            (d_pre * expneg).sum(-1),
+            torch.einsum("cbp,cp->cb", w, g[:, 0]),
+            torch.einsum("cbp,cp->cb", w, g[:, 1]),
+            torch.einsum("cbp,cp->cb", w, g[:, 2]),
+            torch.einsum("cbp,cp->cb", w, g[:, 4]),
+        ], dim=-1)                                                   # (C, 256, 10)
+        dpacked.index_add_(0, gidx[inseg], per_pair[inseg])
     return dpacked
 
 
@@ -137,16 +298,16 @@ class Composite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, packed, pair_gauss, bounds, tiles_x):
         packed = packed.contiguous()
-        out, n_done = composite_fwd_cuda(packed, pair_gauss, bounds, tiles_x)
-        ctx.save_for_backward(packed, pair_gauss, bounds, out, n_done)
+        out, n_done, state = composite_fwd_cuda(packed, pair_gauss, bounds, tiles_x)
+        ctx.save_for_backward(packed, pair_gauss, bounds, out, n_done, state)
         ctx.tiles_x = tiles_x
         ctx.mark_non_differentiable(n_done)
         return out, n_done
 
     @staticmethod
     def backward(ctx, grad_out, _grad_n_done):
-        packed, pair_gauss, bounds, out, n_done = ctx.saved_tensors
-        dpacked = composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, grad_out,
+        packed, pair_gauss, bounds, out, n_done, state = ctx.saved_tensors
+        dpacked = composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, state, grad_out,
                                      ctx.tiles_x)
         return dpacked, None, None, None
 

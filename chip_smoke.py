@@ -33,8 +33,12 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
   7. K4/K5 (3DGS tile compositing forward/backward) against the plain
      compositor at the fit's shapes: a freshly initialised full-width avatar
      (``configs/avatar/default.yaml`` model_params, head-sized sphere
-     template) rendered at 512² from a stage-1 camera, outputs and the
-     gradients of a fixed loss;
+     template) rendered at 512² from stage 1's reference camera, outputs and
+     the gradients of a fixed loss; K4's outputs, batches run and state and
+     K5's gradient against the plain versions at the kernels' interfaces;
+     then the same on single deep tiles of ~1,200 and ~12,000 pairs. Run
+     alone (``--phases gsplat``) it writes stage 1's reference camera
+     without the MMDM;
   8. the stage-2 main path: ``training()`` on phase 6's 28 + 1 images with
      default model_params and debug opt_params cut to 300 iterations
      (densification, opacity reset, SH warmup, evaluation, checkpoint);
@@ -102,24 +106,43 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, keys, iters: int = 20) -> float:
+def device_ms(fn, keys, iters: int = 20):
     """Device time per call of the kernels whose names contain one of
     ``keys``, from torch.profiler over ``iters`` calls: what a call costs
     the card, without the host time that bounds ``time_ms`` at small
-    shapes."""
+    shapes. The profiler does not record the card's kernels in every run;
+    where two tries saw none of them this returns None, and the caller
+    prints "not measured" beside the CUDA events' time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.key for k in keys))
-    return us / iters / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(k in e.key for k in keys))
+        if us > 0:
+            return us / iters / 1e3
+    return None
+
+
+def shown(ms, unit: str = " ms") -> str:
+    """``ms`` to four places, or "not measured" where it is None."""
+    return "not measured" if ms is None else f"{ms:.4f}{unit}"
+
+
+def tflops(flops: float, ms) -> str:
+    return "not measured" if ms is None else f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
+def ratio(a, b) -> str:
+    """a / b to two places, or "not measured" where either is None."""
+    return "not measured" if a is None or b is None else f"{a / b:.2f}x"
 
 
 def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
@@ -306,8 +329,8 @@ def phase_attention(entry: Entry):
         entry.add(err, ms, plain_ms, flop_ms, byte_ms, lib_ms)
         dev_ms = device_ms(lambda: flash_attention(q, k, v), ("flash_fwd",))
         log(f"[K1] B={B} S={S} H={H}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s; on the device {dev_ms:.4f} ms, "
-            f"{flops / dev_ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa ({backend}) "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; on the device {shown(dev_ms)}, "
+            f"{tflops(flops, dev_ms)}) | plain {plain_ms:.3f} ms | sdpa ({backend}) "
             f"{lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s) | bound "
             f"{max(flop_ms, byte_ms):.4f} ms")
     log(f"[K1] 5 shapes summed: kernel {entry.d['ms']:.4f} ms | fastest sdpa "
@@ -451,9 +474,11 @@ def profile_breakdown(fn, label: str = "profile") -> None:
                 "AdamW (foreach)": ("multi_tensor_apply",),
                 "index/scatter": ("index", "scatter", "gather")}
     totals = dict.fromkeys(list(families) + ["other"], 0.0)
+    n_kernels = 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue   # CPU-side ops: their kernels are counted as CUDA events
+        n_kernels += evt.count
         us = evt.self_device_time_total
         name = evt.key.lower()
         fam = next((f for f, keys in families.items() if any(k in name for k in keys)), "other")
@@ -469,7 +494,8 @@ def profile_breakdown(fn, label: str = "profile") -> None:
         f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ({e.count})" for e in cpu))
     log(f"[{label}] device ms by family: " + ", ".join(
         f"{f} {ms:.2f} ({100 * ms / busy:.0f}%)" for f, ms in totals.items() if ms)
-        + f"; busy {busy:.2f} ms of {wall_ms:.2f} ms wall ({100 * busy / wall_ms:.0f}% busy)")
+        + f"; busy {busy:.2f} ms of {wall_ms:.2f} ms wall ({100 * busy / wall_ms:.0f}% busy); "
+        f"{n_kernels} device kernels")
 
 
 def build_shipped_unet():
@@ -619,16 +645,62 @@ def pair_pixel_counts(packed, pair_gauss, bounds, n_done, tiles_x):
     return evals, kept
 
 
+def render_vs_plain(case: str, leaves, rt, K, width: int, height: int, sh_degree: int,
+                    target):
+    """``rasterize_gaussians`` through K4/K5 against ``plain=True`` on the
+    leaves (means3d, quats, scales, opacities, sh, means2d_offset): the
+    render, alpha and depth, and the gradients of a fixed loss. Returns (max
+    forward error, max gradient error)."""
+    import torch
+
+    from cap4d_torch.ops import gsplat_tiles as gt
+
+    names = ["means3d", "quats", "scales", "opacities", "sh", "means2d_offset"]
+    res = {}
+    for plain in (False, True):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        out = gt.rasterize_gaussians(xs[0], xs[1], xs[2], xs[3], xs[4], rt, K, width, height,
+                                     sh_degree=sh_degree, render_depth=True,
+                                     means2d_offset=xs[5], plain=plain)
+        loss = (((out["render"] - target) ** 2).mean() + 0.1 * out["alpha"].mean()
+                + 0.01 * (out["depth"] * out["alpha"]).mean())
+        grads = torch.autograd.grad(loss, xs)
+        torch.cuda.synchronize()
+        res[plain] = (out, grads, float(loss.detach()))
+    (ok_, gk, lk), (op_, gp, lp) = res[False], res[True]
+    # forward: fp32 sums in another order, __expf, and a tile's stop
+    # decision at a batch boundary (the plain version sums ln T by cumsum)
+    # -> 2e-4 absolute on render/alpha (the stop rule's own bound is
+    # 1e-4 of a colour); depth = Σw·d / alpha where alpha > 1e-2, 2e-4 of
+    # the largest depth
+    err = max(check_close(f"K4 {case} render", ok_["render"], op_["render"], 0.0, 2e-4),
+              check_close(f"K4 {case} alpha", ok_["alpha"], op_["alpha"], 0.0, 2e-4))
+    cov = op_["alpha"] > 1e-2
+    dmax = float(op_["depth"][cov].abs().max()) if bool(cov.any()) else 1.0
+    check_close(f"K4 {case} depth", ok_["depth"][cov], op_["depth"][cov], 0.0, 2e-4 * dmax)
+    # backward: atomics in run-dependent order plus the forward's
+    # rounding -> 1e-3 of the largest gradient of each input, floored at
+    # 1e-6 of the largest gradient of all inputs (an input whose gradient
+    # vanishes, as the quats of isotropic splats do, carries rounding
+    # noise only)
+    top = max(float(b.abs().max()) for b in gp)
+    gerr = 0.0
+    for name, a, b in zip(names, gk, gp):
+        scale = max(float(b.abs().max()), 1e-3 * top)
+        check_close(f"K5 {case} d{name}", a, b, 0.0, 1e-3 * scale)
+        gerr = max(gerr, float((a - b).abs().max()))
+    log(f"[K4/K5] {case}: {ok_['n_pairs']} pairs, loss kernel {lk:.7f} plain {lp:.7f}")
+    return err, gerr
+
+
 def gsplat_kernels_vs_plain(trainer, cam, sh_degree: int, label: str):
     """K4/K5 against the plain compositor on ``trainer``'s avatar seen from
-    ``cam``: outputs and the gradients of a fixed loss, for the avatar's own
-    opacities and for opacities U[0.05, 1). Returns (max forward error, max
-    gradient error, the world splats, the second case's opacities, the
-    generator)."""
+    ``cam`` (:func:`render_vs_plain`), for the avatar's own opacities and
+    for opacities U[0.05, 1). Returns (max forward error, max gradient error,
+    the world splats, the second case's opacities, the generator)."""
     import torch
 
     from cap4d_torch.avatar import gaussians as G
-    from cap4d_torch.ops import gsplat_tiles as gt
 
     ct = trainer.camera_tensors(cam)
     mesh = trainer.mesh_at_timestep(cam.timestep)
@@ -643,45 +715,245 @@ def gsplat_kernels_vs_plain(trainer, cam, sh_degree: int, label: str):
     for case, opac in cases:
         leaves = [world["means3d"], world["quats"], world["scales"], opac, world["sh"],
                   torch.zeros((trainer.n_active, 2), device="cuda")]
-        names = ["means3d", "quats", "scales", "opacities", "sh", "means2d_offset"]
-        res = {}
-        for plain in (False, True):
-            xs = [x.clone().requires_grad_(True) for x in leaves]
-            out = gt.rasterize_gaussians(xs[0], xs[1], xs[2], xs[3], xs[4], ct["rt"], ct["K"],
-                                         cam.width, cam.height, sh_degree=sh_degree,
-                                         render_depth=True, means2d_offset=xs[5], plain=plain)
-            loss = (((out["render"] - target) ** 2).mean() + 0.1 * out["alpha"].mean()
-                    + 0.01 * (out["depth"] * out["alpha"]).mean())
-            grads = torch.autograd.grad(loss, xs)
-            torch.cuda.synchronize()
-            res[plain] = (out, grads, float(loss.detach()))
-        (ok_, gk, lk), (op_, gp, lp) = res[False], res[True]
-        # forward: fp32 sums in another order, __expf, and a tile's stop
-        # decision at a batch boundary (the plain version sums ln T by cumsum)
-        # -> 2e-4 absolute on render/alpha (the stop rule's own bound is
-        # 1e-4 of a colour); depth = Σw·d / alpha where alpha > 1e-2, 2e-4 of
-        # the largest depth
-        err = max(err, check_close(f"K4 {case} render", ok_["render"], op_["render"], 0.0, 2e-4),
-                  check_close(f"K4 {case} alpha", ok_["alpha"], op_["alpha"], 0.0, 2e-4))
-        cov = op_["alpha"] > 1e-2
-        dmax = float(op_["depth"][cov].abs().max()) if bool(cov.any()) else 1.0
-        check_close(f"K4 {case} depth", ok_["depth"][cov], op_["depth"][cov], 0.0, 2e-4 * dmax)
-        # backward: atomics in run-dependent order plus the forward's
-        # rounding -> 1e-3 of the largest gradient of each input, floored at
-        # 1e-6 of the largest gradient of all inputs (an input whose gradient
-        # vanishes, as the quats of isotropic splats do, carries rounding
-        # noise only)
-        top = max(float(b.abs().max()) for b in gp)
-        for name, a, b in zip(names, gk, gp):
-            scale = max(float(b.abs().max()), 1e-3 * top)
-            check_close(f"K5 {case} d{name}", a, b, 0.0, 1e-3 * scale)
-            gerr = max(gerr, float((a - b).abs().max()))
-        log(f"[K4/K5] {case}: {ok_['n_pairs']} pairs, loss kernel {lk:.7f} plain {lp:.7f}")
+        e, g = render_vs_plain(case, leaves, ct["rt"], ct["K"], cam.width, cam.height,
+                               sh_degree, target)
+        err, gerr = max(err, e), max(gerr, g)
     return err, gerr, world, opac, gen
 
 
-def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
-    """K4/K5 against the plain compositor on a freshly initialised avatar."""
+def split_vs_plain(label: str, packed, pg, bd, tiles_x: int, gen):
+    """K4's out, n_done and state and K5's dpacked against the plain versions
+    at the kernels' interfaces (``composite_fwd_plain``,
+    ``composite_bwd_plain``, K5 on K4's own outputs), within the render's
+    tolerances. Returns (forward error, gradient error, out, n_done, state,
+    the cotangent)."""
+    import torch
+
+    from cap4d_torch.ops import gsplat_tiles as gt
+    from cap4d_torch.ops.gsplat import LN_T_STOP
+
+    out, n_done, state = gt.composite_fwd_cuda(packed, pg, bd, tiles_x)
+    out_p, n_done_p, state_p = gt.composite_fwd_plain(packed, pg, bd, tiles_x)
+    torch.cuda.synchronize()
+    rows, tile, batch = gt.work_items(bd)
+    # a tile may run one batch more or less than the plain version only where
+    # its deciding pixel's ln T lies at ln 1e-4, within fp32 sums in another order
+    differ = torch.nonzero(n_done != n_done_p)[:, 0].tolist()
+    for t in differ:
+        j = min(int(n_done[t]), int(n_done_p[t]))
+        ran = state if int(n_done[t]) > j else state_p
+        edge = float(ran[int(rows[t]) + j, 0].max())
+        assert abs(edge - LN_T_STOP) < 1e-4, (label, t, int(n_done[t]), int(n_done_p[t]), edge)
+    same = n_done == n_done_p
+    log(f"[K4 {label}] n_done: {len(differ)} of {same.shape[0]} tiles differ from the plain "
+        f"version (each at the stop threshold)")
+    # the render's tolerances (render_vs_plain): 2e-4 absolute on Σw·rgb, Σw
+    # and T = exp(ln T), 2e-4 of the largest depth on Σw·depth
+    dmax = float(packed[pg.long(), 9].abs().max()) if pg.numel() else 1.0
+    tol = [2e-4] * 4 + [2e-4 * dmax]
+    o, op_ = out[same], out_p[same]
+    err = max(check_close(f"K4 {label} out[{c}]", o[..., c], op_[..., c], 0.0, tol[c])
+              for c in range(5))
+    err = max(err, check_close(f"K4 {label} exp(out ln T)", o[..., 5].exp(), op_[..., 5].exp(),
+                               0.0, 2e-4))
+    ran_item = (batch < n_done.long()[tile]) & same[tile]
+    r = (rows[:-1][tile] + batch)[ran_item]
+    s, sp = state[r], state_p[r]
+    err = max(err, check_close(f"K4 {label} state exp(ln T before)", s[:, 0].exp(),
+                               sp[:, 0].exp(), 0.0, 2e-4))
+    for c in range(5):
+        err = max(err, check_close(f"K4 {label} state prefix[{c}]", s[:, 1 + c], sp[:, 1 + c],
+                                   0.0, tol[c]))
+    go = torch.randn(out.shape, generator=gen, device="cuda")
+    dk = gt.composite_bwd_cuda(packed, pg, bd, out, n_done, state, go, tiles_x)
+    dp = gt.composite_bwd_plain(packed, pg, bd, out, n_done, state, go, tiles_x)
+    torch.cuda.synchronize()
+    # atomics in run-dependent order: 1e-3 of each column's largest gradient,
+    # floored at 1e-3 of the largest of all
+    top = float(dp.abs().max())
+    gerr = 0.0
+    for c in range(dp.shape[1]):
+        scale = max(float(dp[:, c].abs().max()), 1e-3 * top)
+        gerr = max(gerr, check_close(f"K5 {label} dpacked[:, {c}]", dk[:, c], dp[:, c], 0.0,
+                                     1e-3 * scale))
+    return err, gerr, out, n_done, state, go
+
+
+def time_split(label: str, packed, pg, bd, tiles_x: int, out, n_done, state, go):
+    """K4 and K5 alone: ms by CUDA events and on the device (torch.profiler),
+    and the work items. Returns (K4 ms, K5 ms, K4 device ms, K5 device ms,
+    items that ran)."""
+    from cap4d_torch.ops import gsplat_tiles as gt
+    from cap4d_torch.ops.gsplat import BATCH
+
+    def fwd():
+        gt.composite_fwd_cuda(packed, pg, bd, tiles_x)
+
+    def bwd():
+        gt.composite_bwd_cuda(packed, pg, bd, out, n_done, state, go, tiles_x)
+
+    ms_f, ms_b = time_ms(fwd, iters=20), time_ms(bwd, iters=20)
+    dev_f, dev_b = device_ms(fwd, ("gsplat_fwd",)), device_ms(bwd, ("gsplat_bwd",))
+    items = (bd[1:] - bd[:-1] + BATCH - 1) // BATCH
+    n_items, ran = int(items.sum()), int(n_done.sum())
+    log(f"[K4/K5 {label}] {pg.shape[0]} pairs, {bd.shape[0] - 1} tiles | {n_items} items, "
+        f"{ran} run, {n_items - ran} discarded after their tile's stop, at most "
+        f"{int(items.max())} in a tile | K4 {ms_f:.4f} ms (device {shown(dev_f, '')}) | K5 "
+        f"{ms_b:.4f} ms (device {shown(dev_b, '')})")
+    return ms_f, ms_b, dev_f, dev_b, ran
+
+
+def view_inputs(world, opac, cols, ct, width: int, height: int):
+    """The compositor's inputs for one view of the splats ``world`` with
+    opacities ``opac`` and colours ``cols`` (N, 3): packed rows, pairs,
+    bounds and tiles_x."""
+    import torch
+
+    from cap4d_torch.ops import gsplat_tiles as gt
+
+    ch = gt.project_gaussians_ch(world["means3d"], world["quats"], world["scales"],
+                                 ct["rt"], ct["K"], width, height)
+    packed = torch.stack([ch["mean_x"], ch["mean_y"], ch["conic_a"], ch["conic_b"],
+                          ch["conic_c"], opac, cols[:, 0], cols[:, 1], cols[:, 2],
+                          ch["depth"]], dim=-1).contiguous()
+    pg, bd = gt.tile_pairs(ch["mean_x"], ch["mean_y"], ch["conic_a"], ch["conic_b"],
+                           ch["conic_c"], opac, ch["radius"], ch["valid"], ch["depth"],
+                           width, height)
+    return packed, pg, bd, (width + 15) // 16
+
+
+def gsplat_bounds(packed, pg, bd, n_done, tiles_x):
+    """K4's and K5's bounds on this view, as (ms by operations, ms by bytes)
+    each: operations per pair-pixel of the batches that ran, forward 11 for
+    every evaluation (dx, dy, σ, e^-σ, compares) + 13 for a kept one (α, w,
+    5 accumulations, T), backward the same 11 + 45 for a kept one (q, the
+    suffix, dL/dα, ten gradients and their sums); bytes each input read once
+    and each output (K4's state rows included) written once."""
+    from cap4d_torch.ops.gsplat import BATCH
+
+    evals, kept = pair_pixel_counts(packed, pg, bd, n_done, tiles_x)
+    N, M, n_tiles = packed.shape[0], pg.shape[0], n_done.shape[0]
+    n_items = int(((bd[1:] - bd[:-1] + BATCH - 1) // BATCH).sum())
+    ran = int(n_done.sum())
+    f_bytes = (N * 40 + M * 4 + (n_tiles + 1) * 4 + n_tiles * 256 * 24 + n_tiles * 4
+               + n_items * 256 * 24)
+    b_bytes = (N * 40 + M * 4 + (n_tiles + 1) * 4 + 2 * n_tiles * 256 * 24 + n_tiles * 4
+               + ran * 256 * 24 + N * 40)
+    f = ((11.0 * evals + 13.0 * kept) / FP32_FLOPS * 1e3, f_bytes / HBM_BYTES_PER_S * 1e3)
+    b = ((11.0 * evals + 45.0 * kept) / FP32_FLOPS * 1e3, b_bytes / HBM_BYTES_PER_S * 1e3)
+    return f, b, evals, kept
+
+
+def check_and_time_view(label: str, packed, pg, bd, tiles_x: int, gen):
+    """:func:`split_vs_plain` and :func:`time_split` on one view, with the
+    bounds; returns a dict of the numbers."""
+    err, gerr, out, n_done, state, go = split_vs_plain(label, packed, pg, bd, tiles_x, gen)
+    ms_f, ms_b, dev_f, dev_b, ran = time_split(label, packed, pg, bd, tiles_x, out, n_done,
+                                               state, go)
+    f, b, evals, kept = gsplat_bounds(packed, pg, bd, n_done, tiles_x)
+    log(f"[K4/K5 {label}] {evals} pair-pixel evaluations ({kept} kept) | bound K4 "
+        f"{max(f):.4f} ms ({f[0]:.4f} ops, {f[1]:.4f} bytes), K5 {max(b):.4f} ms ({b[0]:.4f} "
+        f"ops, {b[1]:.4f} bytes)")
+    return dict(err=err, gerr=gerr, ms_f=ms_f, ms_b=ms_b, dev_f=dev_f, dev_b=dev_b, f=f, b=b,
+                out=out, n_done=n_done, state=state, go=go)
+
+
+def gsplat_ptxas():
+    """ptxas's registers and spills of every K4/K5 function."""
+    from cap4d_torch.ops import gsplat_tiles as gt
+
+    for kernel in (gt.KERNEL_FWD, gt.KERNEL_BWD):
+        for fn, (regs, st, ld) in ptxas_report(kernel).items():
+            log(f"[ptxas] {kernel.source.name} {fn}: {regs} registers, {st} bytes spill "
+                f"stores, {ld} bytes spill loads")
+
+
+def reference_stage1(work: Path) -> Path:
+    """Stage 1's reference_images (FLAME npz and images) for phase 6's
+    synthetic subject and reference camera, without the MMDM: what the
+    gsplat phase needs when it runs without the generate phase."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.data.datasets import build_frame_set, load_reference_items
+    from cap4d_torch.flame.compute import load_cap4d_flame_model
+    from cap4d_torch.inference.generate_images import save_flame_params, save_images
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.config import load_yaml
+
+    res = load_yaml(REPO / "configs" / "generation" / "debug.yaml")["resolution"]
+    root = work / "main"
+    flame_dir = sa.make_asset_dir(root)
+    flame = load_cap4d_flame_model(flame_dir, n_shape_params=150, n_expr_params=65,
+                                   add_mouth=True, device=torch.device("cuda"))
+    items, extr = load_reference_items(sa.make_reference_dir(root, resolution=res))
+    head_ids = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
+    ref = build_frame_set(flame, items, head_ids, extr, res, is_reference=True)
+    out = root / "output"
+    save_flame_params(ref.flame_items, out / "reference_images")
+    save_images(((ref.images + 1.0) * 127.5).clip(0, 255).astype(np.uint8),
+                out / "reference_images")
+    return out
+
+
+def deep_tile_leaves(n: int, gen):
+    """One 16×16 tile holding ``n`` near-transparent splats (opacity
+    U[0.0045, 0.008), 2-D σ of 1.5-4 px, depths 2-4) in front of a camera of
+    focal 40 px: every pair is kept at few pixels, so no pixel's T falls
+    below 1e-4 and no batch is skipped. Returns (leaves, viewmat, K)."""
+    import torch
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+
+    f = 40.0
+    z = u(2.0, 4.0, n)
+    means = torch.stack([(u(0.0, 16.0, n) - 8.0) * z / f, (u(0.0, 16.0, n) - 8.0) * z / f, z], -1)
+    quats = torch.nn.functional.normalize(torch.randn((n, 4), generator=gen, device="cuda"), dim=-1)
+    scales = (u(1.5, 4.0, n) * z / f)[:, None].expand(n, 3).contiguous()
+    sh = u(-0.5, 0.5, n, 1, 3)
+    leaves = [means, quats, scales, u(0.0045, 0.008, n), sh, torch.zeros((n, 2), device="cuda")]
+    viewmat = torch.eye(4, device="cuda")
+    K = torch.tensor([[f, 0.0, 8.0], [0.0, f, 8.0], [0.0, 0.0, 1.0]], device="cuda")
+    return leaves, viewmat, K
+
+
+def phase_deep_tile(gen):
+    """K4/K5 on a single deep tile of ~1,200 and ~12,000 pairs: the render
+    and gradients against ``plain=True``, the kernels against their plain
+    versions, and the time of the deep tile against the shallow one."""
+    import torch
+
+    from cap4d_torch.ops import gsplat_tiles as gt
+    from cap4d_torch.ops.gsplat import BATCH
+
+    numbers = {}
+    for n in (1200, 12000):
+        leaves, viewmat, K = deep_tile_leaves(n, gen)
+        target = torch.rand((16, 16, 3), generator=gen, device="cuda")
+        render_vs_plain(f"deep tile {n}", leaves, viewmat, K, 16, 16, 0, target)
+        with torch.no_grad():
+            ct = {"rt": viewmat, "K": K}
+            cols = torch.rand((n, 3), generator=gen, device="cuda")
+            packed, pg, bd, tiles_x = view_inputs(
+                {"means3d": leaves[0], "quats": leaves[1], "scales": leaves[2]}, leaves[3],
+                cols, ct, 16, 16)
+            num = check_and_time_view(f"deep tile {n}", packed, pg, bd, tiles_x, gen)
+        n_items = int((bd[-1] + BATCH - 1) // BATCH)
+        assert int(num["n_done"][0]) == n_items, ("the deep tile stopped early", n_items,
+                                                  int(num["n_done"][0]))
+        numbers[n] = num
+    a, b = numbers[1200], numbers[12000]
+    log(f"[K4/K5 deep tile] 12,000 pairs against 1,200: K4 {b['ms_f'] / a['ms_f']:.2f}x "
+        f"(device {ratio(b['dev_f'], a['dev_f'])}), K5 {b['ms_b'] / a['ms_b']:.2f}x (device "
+        f"{ratio(b['dev_b'], a['dev_b'])}); the target is within 3x")
+
+
+def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out):
+    """K4/K5 against the plain compositor on a freshly initialised avatar at
+    the head's reference view (stage 1's, or phase 6's reference camera
+    alone where the generate phase did not run), then on single deep tiles.
+    Returns the FLAME asset dir and the stage-1 output dir."""
     import torch
 
     from cap4d_torch.avatar.scene import load_cap4d_dataset
@@ -689,60 +961,43 @@ def phase_gsplat(e_fwd: Entry, e_bwd: Entry, work: Path, stage1_out: Path):
     from cap4d_torch.ops import gsplat_tiles as gt
     from cap4d_torch.utils import synthetic_assets as sa
 
+    gsplat_ptxas()
+    if stage1_out is None:
+        stage1_out = reference_stage1(work)
     model, opt = avatar_params()
     flame_dir = sa.make_asset_dir(work / "avatar_assets", sphere_radius=0.09)
-    scene = load_cap4d_dataset([str(stage1_out / "reference_images"),
-                                str(stage1_out / "generated_images")])
+    sources = [stage1_out / d for d in ("reference_images", "generated_images")]
+    scene = load_cap4d_dataset([str(d) for d in sources if d.exists()])
     trainer = AvatarTrainer.create(scene, model, opt, flame_asset_dir=flame_dir)
     cam = scene.train_cameras[0]
     ct = trainer.camera_tensors(cam)
     err, gerr, world, opac, gen = gsplat_kernels_vs_plain(trainer, cam, model["sh_degree"],
                                                           "head")
 
-    # timings of the compositor alone at these shapes (the second case)
+    # the kernels alone at these shapes (the second case's opacities)
     with torch.no_grad():
-        ch = gt.project_gaussians_ch(world["means3d"], world["quats"], world["scales"],
-                                     ct["rt"], ct["K"], cam.width, cam.height)
         cols = torch.rand((trainer.n_active, 3), generator=gen, device="cuda")
-        packed = torch.stack([ch["mean_x"], ch["mean_y"], ch["conic_a"], ch["conic_b"],
-                              ch["conic_c"], opac, cols[:, 0], cols[:, 1], cols[:, 2],
-                              ch["depth"]], dim=-1).contiguous()
-        pg, bd = gt.tile_pairs(ch["mean_x"], ch["mean_y"], ch["conic_a"], ch["conic_b"],
-                               ch["conic_c"], opac, ch["radius"], ch["valid"], ch["depth"],
-                               cam.width, cam.height)
-        tiles_x = (cam.width + 15) // 16
-        fwd, n_done = gt.composite_fwd_cuda(packed, pg, bd, tiles_x)
-        go = torch.randn(fwd.shape, generator=gen, device="cuda")
-        ms_f = time_ms(lambda: gt.composite_fwd_cuda(packed, pg, bd, tiles_x), iters=20)
-        ms_b = time_ms(lambda: gt.composite_bwd_cuda(packed, pg, bd, fwd, n_done, go, tiles_x),
-                       iters=20)
+        packed, pg, bd, tiles_x = view_inputs(world, opac, cols, ct, cam.width, cam.height)
+        num = check_and_time_view("head", packed, pg, bd, tiles_x, gen)
         plain_f = time_ms(lambda: gt.rasterize_gaussians_plain(packed, pg, bd, tiles_x),
                           iters=3, warmup=1)
-        evals, kept = pair_pixel_counts(packed, pg, bd, n_done, tiles_x)
     pk = packed.clone().requires_grad_(True)
     plain_out = gt.rasterize_gaussians_plain(pk, pg, bd, tiles_x)
-    plain_b = time_ms(lambda: torch.autograd.grad(plain_out, pk, go, retain_graph=True),
+    plain_b = time_ms(lambda: torch.autograd.grad(plain_out, pk, num["go"], retain_graph=True),
                       iters=3, warmup=1)
-    N, M, n_tiles = packed.shape[0], pg.shape[0], n_done.shape[0]
-    # operations per pair-pixel: forward 11 for every evaluation (dx, dy,
-    # σ, e^-σ, compares) + 13 for a kept one (α, w, 5 accumulations, log1p,
-    # T); backward the same 11 + 45 for a kept one (q, the suffix, dL/dα,
-    # ten gradients and their warp-level sums)
-    f_flops, b_flops = 11.0 * evals + 13.0 * kept, 11.0 * evals + 45.0 * kept
-    f_bytes = N * 40 + M * 4 + (n_tiles + 1) * 4 + n_tiles * 256 * 24 + n_tiles * 4
-    b_bytes = N * 40 + M * 4 + (n_tiles + 1) * 4 + 2 * n_tiles * 256 * 24 + n_tiles * 4 + N * 40
-    for e, ms, pms, fl, by in ((e_fwd, ms_f, plain_f, f_flops, f_bytes),
-                               (e_bwd, ms_b, plain_b, b_flops, b_bytes)):
-        flop_ms, byte_ms = fl / FP32_FLOPS * 1e3, by / HBM_BYTES_PER_S * 1e3
-        e.add(err if e is e_fwd else gerr, ms, pms, flop_ms, byte_ms)
-        log(f"[{e.d['name']}] {N} gaussians, {M} pairs, {n_tiles} tiles, {evals} pair-pixel "
-            f"evaluations ({kept} kept): kernel {ms:.3f} ms | plain {pms:.3f} ms | bound "
-            f"{max(flop_ms, byte_ms):.4f} ms ({flop_ms:.4f} ms ops, {byte_ms:.4f} ms bytes)")
-    log(f"[K4/K5] tiles that stopped early: {int((n_done.long() * 256 < (bd[1:] - bd[:-1])).sum())}"
+    for e, ms, pms, (flop_ms, byte_ms), ke, ce in (
+            (e_fwd, num["ms_f"], plain_f, num["f"], err, num["err"]),
+            (e_bwd, num["ms_b"], plain_b, num["b"], gerr, num["gerr"])):
+        e.add(max(ke, ce), ms, pms, flop_ms, byte_ms)
+        log(f"[{e.d['name']}] head: kernel {ms:.4f} ms | plain {pms:.3f} ms | bound "
+            f"{max(flop_ms, byte_ms):.4f} ms")
+    log(f"[K4/K5] tiles that stopped early: "
+        f"{int((num['n_done'].long() * 256 < (bd[1:] - bd[:-1])).sum())}"
         f" | max segment {int((bd[1:] - bd[:-1]).max())} pairs")
-    del trainer, plain_out
+    del trainer, plain_out, num
     torch.cuda.empty_cache()
-    return flame_dir
+    phase_deep_tile(gen)
+    return flame_dir, stage1_out
 
 
 def check_eval_renders(trainer, scene, evals):
@@ -951,8 +1206,8 @@ def phase_attention_backward(entry: Entry):
         dev_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse),
                            ("bwd_prep", "bwd_main", "bwd_dq"))
         log(f"[K6] B={B} S={S} H={H} (x{calls} per micro-batch): kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s; on the device {dev_ms:.4f} ms, "
-            f"{flops / dev_ms / 1e9:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa ({backend}) "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; on the device {shown(dev_ms)}, "
+            f"{tflops(flops, dev_ms)}) | plain {plain_ms:.3f} ms | sdpa ({backend}) "
             f"backward {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s) | bound "
             f"{max(flop_ms, byte_ms):.4f} ms | K1 with lse2 {fwd_lse_ms:.4f} ms")
     log(f"[K6] per micro-batch (16 calls): kernel {entry.d['ms']:.4f} ms | plain "
@@ -1316,8 +1571,13 @@ def phase_smpl(work: Path, kernels, card: str):
         f"(uv {trainer.uv.resolution}) | pairs per training view: {pairs}")
     assert all(p > 0 for p in pairs), f"training views that render no pair: {pairs}"
     cam = scene.train_cameras[0]
-    gsplat_kernels_vs_plain(trainer, cam, model["sh_degree"], f"smpl {cam.width}x{cam.height}")
-    del trainer
+    label = f"smpl {cam.width}x{cam.height}"
+    _, _, world, opac, gen = gsplat_kernels_vs_plain(trainer, cam, model["sh_degree"], label)
+    with torch.no_grad():
+        cols = torch.rand((trainer.n_active, 3), generator=gen, device="cuda")
+        view = view_inputs(world, opac, cols, trainer.camera_tensors(cam), cam.width, cam.height)
+        check_and_time_view(label, *view, gen)
+    del trainer, world, view
     torch.cuda.empty_cache()
 
     cfg = root / "fullbody.yaml"
@@ -1404,6 +1664,10 @@ def main() -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     phases = parser.parse_args().phases.split(",")
     assert set(phases) <= set(PHASES), phases
+    # the fit trains on stage 1's images from the gsplat phase's assets; the
+    # animation drives the fit's checkpoint
+    assert "fit" not in phases or {"generate", "gsplat"} <= set(phases), phases
+    assert "animate" not in phases or "fit" in phases, phases
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1435,7 +1699,7 @@ def main() -> int:
         Entry("gsplat_bwd", "cuda", "cap4d_torch/csrc/gsplat_bwd.cu",
               "cap4d_tpu/ops/gsplat_pallas.py:266", gsplat_tiles.KERNEL_BWD, library=False),
         Entry("flash_attention_bwd", "cuda", "cap4d_torch/csrc/flash_attention_bwd.cu",
-              "cap4d_tpu/ops/attention.py:42", flash_attention.KERNEL_BWD, library=True),
+              "cap4d_tpu/ops/attention.py:43", flash_attention.KERNEL_BWD, library=True),
         Entry("op_mix", "cuda", "cap4d_torch/csrc/op_mix.cu", "tools/bench_vpu_ops.py:37",
               op_mix.KERNEL, library=False),
     ]
@@ -1452,16 +1716,17 @@ def main() -> int:
         phase_unet()
     if "unet_grad" in phases:
         phase_unet_grad()
+    stage1_out = None
     if "generate" in phases:
         gen_launches, stage1_out = phase_main_path(work, kernels, card)
         main_paths.append(gen_launches)
-        if "gsplat" in phases:
-            flame_dir = phase_gsplat(entries[3], entries[4], work, stage1_out)
-            if "fit" in phases:
-                model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
-                main_paths.append(fit_launches)
-                if "animate" in phases:
-                    main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
+    if "gsplat" in phases:
+        flame_dir, stage1_out = phase_gsplat(entries[3], entries[4], work, stage1_out)
+    if "fit" in phases:
+        model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
+        main_paths.append(fit_launches)
+    if "animate" in phases:
+        main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
     if "train" in phases:
         main_paths.append(phase_train(work, kernels, card))
     if "op_mix" in phases:
