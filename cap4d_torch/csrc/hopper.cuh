@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels K1
-// (flash_attention.cu) and K6 (flash_attention_bwd.cu): mbarriers, TMA
-// loads and bulk reduce-adds, wgmma shared-memory descriptors and the
-// wgmma instructions themselves, named barriers, register reallocation, and
-// the host-side encoding of TMA tensor maps over a (B, S, H, 64) bf16 view.
+// (flash_attention.cu) and K6 (flash_attention_bwd.cu) and the GroupNorm
+// kernel K2 (group_norm.cu): mbarriers, TMA loads and bulk reduce-adds,
+// 16-byte cp.async, thread-block cluster barriers and distributed shared
+// memory, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, named barriers, register reallocation, and the host-side
+// encoding of TMA tensor maps over a (B, S, H, 64) bf16 view.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 bytes) written by TMA with the
 // 128-byte swizzle: inside each 1024-byte group of 8 rows, the 16-byte chunk
@@ -148,6 +150,58 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+
+// ---------------------------------------------------------------- cp.async, clusters
+
+// 16 bytes global -> shared, bypassing L1; completes at cp_async_wait
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every committed cp.async group of this thread but the newest kPending
+// has landed and is visible to this thread
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives (release: this
+// thread's shared-memory writes become visible to the cluster) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits for all the others (acquire)
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at `p` in the shared memory of block `rank` of this cluster
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)),
+               "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -27,7 +27,12 @@ KERNEL = CudaKernel(
 
 LANES = 256    # CH: the lane axis every roll, scan and contraction runs along
 K = 4          # extra-op repetitions of the elementwise cases
+UNROLL = 4     # iterations of the kernel's timed loop per pass (csrc/op_mix.cu kUnroll)
 TERM_CASES = ("scan8", "acc_matmul3", "acc_matmul2")
+# the cases whose kernel runs one row a warp (csrc/op_mix.cu row_per_warp);
+# the others run one element a thread
+ROW_PER_WARP = ("roll_sel_mul", "scan8", "acc_matmul3", "acc_matmul2", "tri_matmul2",
+                "tri_blocked", "tri_blocked4")
 
 
 def _tail(acc):

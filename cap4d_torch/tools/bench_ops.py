@@ -126,7 +126,8 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 def sass_loop_histograms(so_path: Path, cuobjdump: Optional[str] = None) -> Dict[str, Counter]:
     """Opcodes of one iteration of each case's timed loop: the instructions
     between the target of the kernel's widest backward branch and that
-    branch, from ``cuobjdump -sass`` of the built library."""
+    branch, from ``cuobjdump -sass`` of the built library, divided by the
+    loop's unroll (``op_mix.UNROLL`` iterations a pass)."""
     if cuobjdump is None:
         from cap4d_torch.ops.cuda_build import nvcc_path
 
@@ -172,7 +173,7 @@ def sass_loop_histograms(so_path: Path, cuobjdump: Optional[str] = None) -> Dict
                     op = re.sub(r"^@!?U?P[T\d]+\s+", "", text_).split()[0].split(".")[0]
                     if op != "NOP":
                         hist[op] += 1
-        out[names[int(m.group(1))]] = hist
+        out[names[int(m.group(1))]] = Counter({op: n / om.UNROLL for op, n in hist.items()})
     return out
 
 

@@ -19,7 +19,10 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      kernel's yardstick is the fastest SDPA backend (flash, cuDNN,
      memory-efficient) that takes the inputs; K6's is SDPA's backward alone,
      timed on a retained forward graph;
-  3. K2 GroupNorm(+SiLU) against its plain version at main-path shapes;
+  3. K2 GroupNorm(+SiLU): ptxas's registers and spills (none), then against
+     its plain version at main-path shapes (stage 1's, training's largest,
+     and one whose slab fits no cluster), with times by CUDA events and
+     torch.profiler;
   4. K3 rasterizer against its plain version on 32 synthetic FLAME frames at
      128²;
   5. one full-width UNet forward (shipped config, V=8, 64² latents, CFG
@@ -247,7 +250,8 @@ def ptxas_report(kernel) -> dict:
     if not text:
         with tempfile.TemporaryDirectory() as tmp:
             text = subprocess.run(kernel.build_command(Path(tmp) / "report.so"),
-                                  capture_output=True, text=True, check=True).stdout
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  check=True).stdout
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -337,18 +341,39 @@ def phase_attention(entry: Entry):
         f"{entry.d['library_ms']:.4f} ms | bound {entry.d['bound_ms']:.4f} ms")
 
 
+def kernel_ptxas(kernel, tag: str) -> None:
+    """ptxas's registers and spills of every function of ``kernel``; asserts
+    that none spills."""
+    report = ptxas_report(kernel)
+    assert report, f"no ptxas report for {kernel.source.name}"
+    for fn, (regs, st, ld) in report.items():
+        log(f"[{tag} ptxas] {kernel.source.name} {fn}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
+        assert st == 0 and ld == 0, f"{fn} spills: {st} B stored, {ld} B loaded"
+
+
+GN_SHAPES = [(16, 64, 64, 320), (16, 32, 32, 960), (16, 8, 8, 2560)]   # the table's six
+# checked and timed on their own lines: the decoder's widest slab at stage 1,
+# the largest shape of training's micro-batch, and a slab too large for any
+# cluster's shared memory (the kernel's second path: rows read twice)
+GN_EXTRA_SHAPES = [(16, 64, 64, 960), (8, 64, 64, 320), (2, 256, 256, 640)]
+
+
 def phase_group_norm(entry: Entry):
     import torch
     import torch.nn.functional as F
 
-    from cap4d_torch.ops.norms import group_norm_silu
+    from cap4d_torch.ops.norms import group_norm_silu, plan_group_norm
 
+    kernel_ptxas(entry.kernel, "K2")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for shape in [(16, 64, 64, 320), (16, 32, 32, 960), (16, 8, 8, 2560)]:
+    dev_sum = 0.0   # the table's six shapes on the device; None once one is not measured
+    for shape in GN_SHAPES + GN_EXTRA_SHAPES:
         C = shape[-1]
         x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(torch.bfloat16)
         scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
         bias = 0.1 * torch.randn(C, generator=gen, device="cuda")
+        plan = plan_group_norm(shape, x.dtype, 32)
         for silu, eps in ((True, 1e-5), (False, 1e-6)):
             out = group_norm_silu(x, scale, bias, 32, eps, silu)
             ref = group_norm_silu(x, scale, bias, 32, eps, silu, plain=True)
@@ -356,17 +381,27 @@ def phase_group_norm(entry: Entry):
             # bf16 output: a 1-2 ulp difference from the folded affine
             err = check_close(f"K2 {shape} silu={silu}", out, ref, 1e-2, 1e-3)
             ms = time_ms(lambda: group_norm_silu(x, scale, bias, 32, eps, silu))
+            dev_ms = device_ms(lambda: group_norm_silu(x, scale, bias, 32, eps, silu),
+                               ("gn_silu_kernel",))
             plain_ms = time_ms(lambda: group_norm_silu(x, scale, bias, 32, eps, silu, plain=True))
             xn, sb, bb = x.permute(0, 3, 1, 2), scale.to(x.dtype), bias.to(x.dtype)
             lib_ms = time_ms(lambda: F.group_norm(xn, 32, sb, bb, eps))
             nbytes = 2.0 * x.numel() * x.element_size()     # read x once, write y once
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             flop_ms = 8.0 * x.numel() / FP32_FLOPS * 1e3
-            entry.add(err, ms, plain_ms, flop_ms, byte_ms, lib_ms)
-            log(f"[K2] {shape} silu={silu} eps={eps}: kernel {ms:.3f} ms "
+            if shape in GN_SHAPES:
+                entry.add(err, ms, plain_ms, flop_ms, byte_ms, lib_ms)
+                dev_sum = None if dev_sum is None or dev_ms is None else dev_sum + dev_ms
+            log(f"[K2{'' if shape in GN_SHAPES else ' extra'}] {shape} silu={silu} eps={eps}: "
+                f"kernel {ms:.4f} ms, device {shown(dev_ms)} "
                 f"({nbytes / ms / 1e6:.0f} GB/s moved once) | plain {plain_ms:.3f} ms | "
-                f"F.group_norm {lib_ms:.3f} ms | bound {byte_ms:.4f} ms "
-                f"(two-pass floor {1.5 * byte_ms:.4f} ms)")
+                f"F.group_norm {lib_ms:.3f} ms | bound {byte_ms:.4f} ms | plan: "
+                f"{plan.slab_groups} groups a slab, clusters of {plan.cluster}, "
+                f"{'resident' if plan.resident else 'rows read twice'}, {plan.blocks} blocks, "
+                f"{plan.smem_bytes} B shared")
+    log(f"[K2] {len(GN_SHAPES) * 2} shapes summed: kernel {entry.d['ms']:.4f} ms, device "
+        f"{shown(dev_sum)} | bound {entry.d['bound_ms']:.4f} ms | F.group_norm "
+        f"{entry.d['library_ms']:.4f} ms")
 
 
 def synthetic_frames(work: Path, n: int):
@@ -466,7 +501,7 @@ def profile_breakdown(fn, label: str = "profile") -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"K1 flash_fwd": ("flash_fwd",), "K6 flash bwd": ("bwd_prep", "bwd_main", "bwd_dq"),
-                "K2 group norm": ("gn_stats", "gn_apply"),
+                "K2 group norm": ("gn_silu",),
                 "K3 raster": ("raster",), "K4 gsplat_fwd": ("gsplat_fwd",),
                 "K5 gsplat_bwd": ("gsplat_bwd",), "conv": ("conv", "cudnn", "implicit"),
                 "gemm": ("gemm", "cutlass", "sm90_xmma", "nvjet"),
@@ -1472,9 +1507,10 @@ def sm_clock_hz() -> float:
 
 
 def phase_op_mix(entry: Entry, kernels, card: str):
-    """K7 against its plain version for all 15 cases at NITER 1 and 64, the
-    extra terms against numpy, the SASS of each case's loop; then the tool's
-    run at NITER 262,144 (the main path of this kernel)."""
+    """K7 against its plain version for all 15 cases at NITER 1, 7 and 64, the
+    extra terms against numpy, ptxas's spills (none) and the SASS of each
+    case's loop (no BAR in the one-row-a-warp cases); then the tool's run at
+    NITER 262,144 (the main path of this kernel)."""
     import numpy as np
     import torch
 
@@ -1483,7 +1519,7 @@ def phase_op_mix(entry: Entry, kernels, card: str):
 
     x = bench_ops.make_input("cuda")
     for case in om.CASES:
-        for niter in (1, 64):
+        for niter in (1, 7, 64):   # the remainder loop, both loops, the unrolled loop
             out = om.op_mix(x, case, niter)
             ref = om.op_mix(x, case, niter, plain=True)
             torch.cuda.synchronize()
@@ -1501,12 +1537,16 @@ def phase_op_mix(entry: Entry, kernels, card: str):
         term = om.op_mix_term(x, acc, case)
         ref = torch.as_tensor(op_mix_term_numpy(xn, acc.cpu().numpy(), case), dtype=torch.float32)
         check_close(f"K7 {case} term vs numpy", term.cpu(), ref, 1e-5, 0.0)
+    kernel_ptxas(om.KERNEL, "K7")
     sass = bench_ops.sass_loop_histograms(om.KERNEL.so_path())
     for case in om.CASES:
         h = sass.get(case)
         assert h, f"no loop found in the SASS of {case}"
-        log(f"[K7 sass] {case}: {sum(h.values())} instructions per iteration: " + ", ".join(
-            f"{op} {n}" for op, n in h.most_common(10)))
+        log(f"[K7 sass] {case}: {sum(h.values()):g} instructions per iteration (loop unrolled "
+            f"x{om.UNROLL}, divided out): " + ", ".join(f"{op} {n:g}" for op, n in h.most_common(10)))
+        if case in om.ROW_PER_WARP:
+            # one row a warp: shuffles only, no block barrier inside the loop
+            assert h.get("BAR", 0) == 0, f"K7 {case}: BAR inside the loop: {dict(h)}"
 
     niter = bench_ops.NITER
     for k in kernels:

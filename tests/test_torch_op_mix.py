@@ -129,3 +129,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         om.op_mix(torch.zeros(256, 128), "base", 1)
     with pytest.raises(ValueError, match="no extra term"):
         om.op_mix_term(torch.zeros(256, 256), torch.zeros(256, 256), "exp")
+
+
+def test_loop_unroll_and_layouts_match_the_kernel_source():
+    """bench_ops divides the SASS of a loop by ``UNROLL``, and chip_smoke.py
+    holds the one-row-a-warp cases to a loop without block barriers: both
+    must name what ``csrc/op_mix.cu`` compiles."""
+    src = (REPO / "cap4d_torch" / "csrc" / "op_mix.cu").read_text()
+    assert f"constexpr int kUnroll = {om.UNROLL};" in src
+    # enum Case follows CASES; row_per_warp(c) is roll_sel_mul, scan8 and
+    # every case from acc_matmul3 on
+    assert "return c == ROLL_SEL_MUL || c == SCAN8 || c >= ACC_MATMUL3;" in src
+    names = list(om.CASES)
+    expected = tuple(n for i, n in enumerate(names)
+                     if n in ("roll_sel_mul", "scan8") or i >= names.index("acc_matmul3"))
+    assert om.ROW_PER_WARP == expected
