@@ -359,3 +359,131 @@ def make_driving_sequence(root: Path, n_frames: int = 48, resolution: int = 512,
              resolutions=np.array([[resolution, resolution]], np.int64),
              n_timesteps=np.int64(n_frames))
     return path
+
+
+RASTER_TILE = 16   # K3's screen tile (csrc/rasterize.cu kTile): slivers run along its borders
+
+
+def _tri_mesh(tris: np.ndarray):
+    """(B, F, 3, 3) triangles → verts (B, 3F, 3) float32 and faces (F, 3) int32."""
+    B, F = tris.shape[:2]
+    return (np.ascontiguousarray(tris.reshape(B, 3 * F, 3), dtype=np.float32),
+            np.arange(3 * F, dtype=np.int32).reshape(F, 3))
+
+
+def raster_edge_cases(height: int, width: int, n_frames: int = 2, n_large: int = 1200,
+                      seed: int = 0) -> Dict[str, Any]:
+    """Meshes that probe the rasterizer's edge cases at an image size, as
+    {name: (verts (n_frames, V, 3) float32 NDC, faces (F, 3) int32)}:
+
+    - ``straddle_z0``: camera-space triangles with vertices on both sides of
+      z = 0, projected as x / z (huge coordinates, flipped signs);
+    - ``extreme``: ordinary triangles with one vertex, or two of opposite
+      signs, moved to ±1e20, ±1e30, ±inf, or a NaN in x or y (never NaN in z
+      alone), and triangles whose area overflows while their edge functions
+      stay finite (every pixel passes, at z = ±0);
+    - ``zero_area``: repeated and exactly collinear vertices;
+    - ``slivers``: triangles 1e-7 to 1e-3 wide along screen-tile borders and
+      through rows and columns of pixel centres;
+    - ``whole``: one triangle covering the whole image;
+    - ``ties``: one triangle at z = 0 spanning several tiles, repeated at
+      face indices in different chunks of 64 and rounds of 1,024, beside a
+      second z = 0 triangle (equal z, ±0), among faces off the image;
+    - ``random``: ``n_large`` triangles spanning the image and as many small
+      ones, so that tiles keep more faces than a round holds.
+
+    Ordinary faces have z in [-3, -0.5], so the overflowing ones (z = +-0
+    wherever they pass) lose to them.
+    """
+    rng = np.random.default_rng(seed)
+    B = n_frames
+    cx = (1.0 - (2.0 * np.arange(width, dtype=np.float32) + 1.0) / np.float32(width)).astype(np.float32)
+    cy = (1.0 - (2.0 * np.arange(height, dtype=np.float32) + 1.0) / np.float32(height)).astype(np.float32)
+
+    def ordinary(n, lo=-1.2, hi=1.2, size=None):
+        t = np.empty((B, n, 3, 3))
+        t[..., :2] = rng.uniform(lo, hi, (B, n, 3, 2))
+        if size is not None:   # local: within ``size`` of a random centre
+            t[..., :2] = rng.uniform(lo, hi, (B, n, 1, 2)) + rng.uniform(-size, size, (B, n, 3, 2))
+        t[..., 2] = rng.uniform(-3.0, -0.5, (B, n, 3))   # negative, as in the generation frames
+        return t
+
+    cases = {}
+    cam = rng.uniform(-0.6, 0.6, (B, 64, 3, 3))
+    cam[..., 2] = rng.uniform(-0.4, 0.4, (B, 64, 3))
+    cases["straddle_z0"] = _tri_mesh(np.stack(
+        [-cam[..., 0] / cam[..., 2], -cam[..., 1] / cam[..., 2], cam[..., 2]], -1))
+
+    values = [1e20, -1e20, 1e30, -1e30, np.inf, -np.inf, np.nan]
+    t = ordinary(2 * 2 * len(values) * 3)
+    i = 0
+    for value in values:
+        for axis in (0, 1):
+            for k in range(3):
+                t[:, i, k, axis] = value                      # one vertex
+                t[:, i + 1, k, axis] = value                  # two vertices, opposite signs
+                t[:, i + 1, (k + 1) % 3, axis] = -value
+                i += 2
+    # right triangles with legs of 2a, a ~ 1e19: the area 4a² overflows to inf
+    # (1/area = 0) while every edge product, at most 2a(a + 1), stays finite
+    a = rng.uniform(0.95e19, 1.15e19, (B, t.shape[1] - i, 1, 1))
+    corner = np.array([[-1.0, -1.0], [1.0, -1.0], [-1.0, 1.0]])
+    flip = rng.choice([-1.0, 1.0], (B, t.shape[1] - i, 1, 2))
+    t[:, i:, :, :2] = a * corner * flip
+    cases["extreme"] = _tri_mesh(t)
+
+    t = ordinary(32)
+    t[:, :16, 1] = t[:, :16, 0]                               # a repeated vertex
+    s = rng.uniform(0.1, 0.9, (B, 16))[..., None]
+    t[:, 16:, 2, :2] = t[:, 16:, 0, :2] + 2.0 * (t[:, 16:, 1, :2] - t[:, 16:, 0, :2]) * s
+    t[:, 16:, 2, 0] = t[:, 16:, 0, 0]                         # collinear on a vertical line
+    t[:, 16:, 1, 0] = t[:, 16:, 0, 0]
+    cases["zero_area"] = _tri_mesh(t)
+
+    slivers = []
+    widths = [1e-7, -1e-6, 1e-5, 1e-3]
+    for k in range(1, max(2, width // RASTER_TILE + 1)):
+        xb = np.float32(1.0 - 2.0 * RASTER_TILE * k / width)  # between columns 16k - 1 and 16k
+        for d in widths:
+            slivers.append([[xb, -0.9, 1.0], [xb, 0.8, 1.5], [xb + d, 0.1, 2.0]])
+    for k in range(1, max(2, height // RASTER_TILE + 1)):
+        yb = np.float32(1.0 - 2.0 * RASTER_TILE * k / height)
+        for d in widths:
+            slivers.append([[-0.95, yb, 1.0], [0.9, yb, 1.5], [0.2, yb + d, 2.0]])
+    for r in range(0, height, max(1, height // 5)):
+        for d in widths:
+            slivers.append([[-0.7, cy[r], 1.0], [0.95, cy[r], 1.2], [0.1, cy[r] + d, 1.4]])
+    for c in range(0, width, max(1, width // 5)):
+        for d in widths:
+            slivers.append([[cx[c], 0.9, 1.0], [cx[c], -0.85, 1.2], [cx[c] + d, 0.0, 1.4]])
+    cases["slivers"] = _tri_mesh(np.tile(np.asarray(slivers)[None], (B, 1, 1, 1)))
+
+    cases["whole"] = _tri_mesh(np.tile(np.array(
+        [[[[-4.0, -4.0, 5.0], [4.0, -4.0, 5.0], [0.0, 6.0, 5.0]]]]), (B, 1, 1, 1)))
+
+    t = ordinary(2200, lo=2.5, hi=3.5, size=0.05)             # off the image: empty boxes
+    tie = np.array([[-0.8, -0.7, 0.0], [0.75, -0.6, 0.0], [0.1, 0.85, 0.0]])
+    for i in (5, 70, 1030, 2100):
+        t[:, i] = tie
+    t[:, 40] = [[-0.9, 0.9, 0.0], [0.9, 0.6, 0.0], [-0.2, -0.9, 0.0]]
+    cases["ties"] = _tri_mesh(t)
+
+    cases["random"] = _tri_mesh(np.concatenate(
+        [ordinary(n_large, -1.5, 1.5), ordinary(n_large, size=0.05)], axis=1))
+    return cases
+
+
+def raster_edge_set(height: int, width: int, seed: int = 0):
+    """All of ``raster_edge_cases`` as one mesh of two frames a case: in a
+    case's own two frames its faces are as drawn, elsewhere every vertex of
+    the case sits at (10, 10, 0) (zero area), so no case hides another."""
+    cases = list(raster_edge_cases(height, width, seed=seed).values())
+    n = len(cases)
+    verts, faces, offset = [], [], 0
+    for i, (v, f) in enumerate(cases):
+        full = np.tile(np.array([10.0, 10.0, 0.0], np.float32), (2 * n, v.shape[1], 1))
+        full[2 * i : 2 * i + 2] = v
+        verts.append(full)
+        faces.append(f + offset)
+        offset += v.shape[1]
+    return np.concatenate(verts, axis=1), np.concatenate(faces, axis=0)

@@ -23,8 +23,17 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      its plain version at main-path shapes (stage 1's, training's largest,
      and one whose slab fits no cluster), with times by CUDA events and
      torch.profiler;
-  4. K3 rasterizer against its plain version on 32 synthetic FLAME frames at
-     128²;
+  4. K3 rasterizer: ptxas's registers and spills (none); against its plain
+     version (and its first step, the face records and pixel boxes, against
+     ``face_setup_plain`` bit for bit) on five sets: 32 synthetic FLAME
+     frames at 128² (the fan-triangulated conditioning template, unchanged
+     so its times compare with the brute-force kernel's), 32 frames at 128²
+     of a 10k-face head hull (local faces), the head avatar's and the SMPL
+     body's UV layouts at 256², and edge cases at 120×200 (z = 0 straddled,
+     ±1e30, ±inf, NaN x or y, zero area, slivers on tile borders and pixel
+     centres, a whole-image face, equal-z duplicates); times by CUDA events
+     and torch.profiler per step, box tests and what the tile kernel sweeps
+     and keeps;
   5. one full-width UNet forward (shipped config, V=8, 64² latents, CFG
      batch 2, bf16) with nonzero norm scales, kernels against plain versions;
      then one training loss and its gradients at full width (fp32 parameters,
@@ -444,42 +453,166 @@ def box_pixel_tests(verts, faces, size) -> int:
     return int((counts[0] * counts[1]).sum())
 
 
+def hull_frames(n: int, size: int):
+    """NDC verts (n, V, 3) and faces of a head with local faces, as a FLAME
+    mesh has them: the convex hull of the head-sized sphere template of
+    ``make_synthetic_flame`` (its jitter leaves 394 of the 5,023 vertices on
+    the hull, so they are pushed back onto the sphere first: 10,042 faces of
+    about a pixel at 128²), seen by an orbit of ±60° in front of the head,
+    which fills 60% of the frame."""
+    import numpy as np
+    import torch
+    from scipy.spatial import ConvexHull
+
+    from cap4d_torch.flame.io import make_synthetic_flame
+    from cap4d_torch.ops.rasterize import ndc_transform_verts
+    from cap4d_torch.utils.synthetic_assets import look_at_extrinsics
+
+    radius = 0.09
+    v = make_synthetic_flame(n_verts=5023, sphere_radius=radius)["v_template"]
+    v = (v / np.linalg.norm(v, axis=1, keepdims=True) * radius).astype(np.float32)
+    faces = ConvexHull(v).simplices.astype(np.int32)
+    extr = np.stack([look_at_extrinsics(yaw, 1.0) for yaw in np.linspace(-np.pi / 3, np.pi / 3, n)])
+    f = 0.6 * size / (2 * radius)
+    K = np.tile(np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32), (n, 1, 1))
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    verts = ndc_transform_verts(t(np.tile(v[None], (n, 1, 1))), t(K), t(extr), (size, size))
+    return verts.contiguous(), t(faces)
+
+
+def uv_chart(obj_path: Path):
+    """The template's UV layout as ``build_uv_assets`` rasterizes it: uv in
+    [0, 1] → NDC [-1, 1] with y negated, z = 1; one frame."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.ops.rasterize import load_obj
+
+    _, _, uvs, faces_uv = load_obj(obj_path)
+    uvs = uvs * 2.0 - 1.0
+    uvs[:, 1] = -uvs[:, 1]
+    verts = np.concatenate([uvs, np.ones_like(uvs[:, :1])], axis=-1).astype(np.float32)
+    return (torch.as_tensor(verts, device="cuda")[None],
+            torch.as_tensor(faces_uv.astype(np.int32), device="cuda"))
+
+
+def raster_sets(work: Path) -> dict:
+    """{label: (verts, faces, (H, W))}: the fan set (the conditioning template,
+    unchanged since the brute-force kernel), the hull set, both avatars' UV
+    layouts at 256² and the edge cases at 120×200, a size no tile divides."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    sets = {"fan": (*synthetic_frames(work, 32), (128, 128)),
+            "hull": (*hull_frames(32, 128), (128, 128))}
+    head_dir = sa.make_asset_dir(work / "head_uv", sphere_radius=0.09)
+    sets["head_uv"] = (*uv_chart(head_dir / "cap4d_avatar_template.obj"), (256, 256))
+    smpl_dir = sa.make_smpl_asset_dir(work / "smpl_uv")
+    sets["smpl_uv"] = (*uv_chart(smpl_dir / "smpl_template.obj"), (256, 256))
+    with np.errstate(all="ignore"):
+        v, f = sa.raster_edge_set(120, 200)
+    sets["edge"] = (torch.as_tensor(v, device="cuda"), torch.as_tensor(f, device="cuda"),
+                    (120, 200))
+    return sets
+
+
+def raster_work(setup, size) -> dict:
+    """What K3's tile kernel reads and tests, counted from its plain first
+    step: group boxes swept (every tile reads its frame's), face boxes read
+    (those of the groups whose box overlaps the tile), (tile, face) pairs
+    kept, and lane-tests (32 for each 8×4 warp sub-tile a kept box touches,
+    before the sub-tile rule rules some out)."""
+    import torch
+
+    def cells(b, w, h):
+        b = b.long()
+        live = (b[..., 1] >= b[..., 0]) & (b[..., 3] >= b[..., 2])
+        n = (b[..., 1] // w - b[..., 0] // w + 1) * (b[..., 3] // h - b[..., 2] // h + 1)
+        return torch.where(live, n, torch.zeros_like(n))
+
+    B, F = setup.cls.shape
+    G = setup.groups.shape[1]
+    tiles = B * ((size[0] + 15) // 16) * ((size[1] + 15) // 16)
+    in_group = torch.full((G,), 32, device=setup.groups.device)
+    in_group[-1] = F - 32 * (G - 1)
+    return {"group boxes": tiles * G,
+            "face boxes": int((cells(setup.groups, 16, 16) * in_group).sum()),
+            "kept": int(cells(setup.boxes, 16, 16).sum()),
+            "lane-tests": 32 * int(cells(setup.boxes, 8, 4).sum())}
+
+
+def bits_equal(a, b):
+    """Bitwise equality of two float32 tensors, NaN equal to NaN."""
+    import torch
+
+    nan = torch.isnan(a) & torch.isnan(b)
+    return (a.view(torch.int32) == b.view(torch.int32)) | nan
+
+
 def phase_rasterize(entry: Entry, work: Path):
     import torch
 
-    from cap4d_torch.ops.rasterize import rasterize_meshes
+    from cap4d_torch.ops.rasterize import (BOX, EMPTY, WHOLE, face_setup_cuda, face_setup_plain,
+                                           rasterize_meshes)
 
-    verts, faces = synthetic_frames(work, 32)
-    size = (128, 128)
-    out = rasterize_meshes(verts, faces, size)
-    ref = rasterize_meshes(verts, faces, size, plain=True)
-    torch.cuda.synchronize()
-    agree = float((out.pix_to_face == ref.pix_to_face).float().mean())
-    same = (out.pix_to_face == ref.pix_to_face) & (ref.pix_to_face >= 0)
-    z_err = float((out.zbuf - ref.zbuf)[same].abs().max()) if bool(same.any()) else 0.0
-    b_err = float((out.bary_coords - ref.bary_coords)[same].abs().max()) if bool(same.any()) else 0.0
-    covered = float((ref.pix_to_face >= 0).float().mean())
-    log(f"[K3] {verts.shape[0]} frames x {size[0]}x{size[1]}, {faces.shape[0]} faces, "
-        f"{verts.shape[1]} verts: pix_to_face agreement {agree:.6f} (covered {covered:.3f}) | "
-        f"z max err {z_err:.3g} | bary max err {b_err:.3g}")
-    # rounding is made identical (no FMA contraction), so the tolerance is
-    # 1e-4 of the pixels and 1e-5 on z / barycentrics where the faces agree
-    assert agree >= 1.0 - 1e-4, f"K3 pix_to_face agreement {agree}"
-    assert z_err <= 1e-5 and b_err <= 1e-5, f"K3 z/bary error {z_err} / {b_err}"
-    ms = time_ms(lambda: rasterize_meshes(verts, faces, size))
-    plain_ms = time_ms(lambda: rasterize_meshes(verts, faces, size, plain=True), iters=3, warmup=1)
-    B, V = verts.shape[:2]
-    Fn, P = faces.shape[0], size[0] * size[1]
-    # the work the function needs: each face tested only against the pixels
-    # of its screen box (the kernel itself still tests every face)
-    tests = box_pixel_tests(verts, faces, size)
-    flops = 18.0 * tests               # 3 edge functions + 3 scalings per pixel-face test
-    nbytes = B * V * 12 + Fn * 12 + B * P * 20
-    flop_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    entry.add(max(z_err, b_err), ms, plain_ms, flop_ms, byte_ms)
-    log(f"[K3] kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound {max(flop_ms, byte_ms):.4f} ms "
-        f"({tests} box tests = {tests / (B * P * Fn):.2e} of the {B * P * Fn} brute-force tests "
-        f"the kernel makes; {flop_ms:.4f} ms ops, {byte_ms:.4f} ms bytes)")
+    kernel_ptxas(entry.kernel, "K3")
+    for label, (verts, faces, size) in raster_sets(work).items():
+        out = rasterize_meshes(verts, faces, size)
+        ref = rasterize_meshes(verts, faces, size, plain=True)
+        torch.cuda.synchronize()
+        agree = float((out.pix_to_face == ref.pix_to_face).float().mean())
+        same = (out.pix_to_face == ref.pix_to_face) & (ref.pix_to_face >= 0)
+        z_err = float((out.zbuf - ref.zbuf)[same].abs().max()) if bool(same.any()) else 0.0
+        b_err = (float((out.bary_coords - ref.bary_coords)[same].abs().max())
+                 if bool(same.any()) else 0.0)
+        covered = float((ref.pix_to_face >= 0).float().mean())
+        differ = int((~((out.pix_to_face == ref.pix_to_face) & bits_equal(out.zbuf, ref.zbuf)
+                        & bits_equal(out.bary_coords, ref.bary_coords).all(-1))).sum())
+        B, V = verts.shape[:2]
+        Fn, P = faces.shape[0], size[0] * size[1]
+        log(f"[K3 {label}] {B} frames x {size[0]}x{size[1]}, {Fn} faces, {V} verts: pix_to_face "
+            f"agreement {agree:.6f} (covered {covered:.3f}) | z max err {z_err:.3g} | bary max "
+            f"err {b_err:.3g} | {differ} pixels differ in any bit")
+        # rounding is made identical (no FMA contraction), so the tolerance is
+        # 1e-4 of the pixels and 1e-5 on z / barycentrics where the faces agree
+        assert agree >= 1.0 - 1e-4, f"K3 {label} pix_to_face agreement {agree}"
+        assert z_err <= 1e-5 and b_err <= 1e-5, f"K3 {label} z/bary error {z_err} / {b_err}"
+        # step 1 alone against its plain version: records, boxes and group boxes
+        # bit for bit
+        recs, boxes, groups = face_setup_cuda(verts, faces, size)
+        plain = face_setup_plain(verts, faces, size)
+        torch.cuda.synchronize()
+        assert bool(bits_equal(recs, plain.records).all()), f"K3 {label}: records differ"
+        assert torch.equal(boxes, plain.boxes), f"K3 {label}: boxes differ"
+        assert torch.equal(groups, plain.groups), f"K3 {label}: group boxes differ"
+        classes = {name: int((plain.cls == c).sum()) for name, c in
+                   (("box", BOX), ("empty", EMPTY), ("whole", WHOLE))}
+        log(f"[K3 {label}] step 1 (records, boxes, group boxes) equals face_setup_plain bit "
+            f"for bit; faces by class {classes}")
+        if label == "edge":
+            entry.add(max(z_err, b_err), 0.0, 0.0, 0.0, 0.0)
+            continue
+        call = lambda: rasterize_meshes(verts, faces, size)
+        ms = time_ms(call, iters=100, warmup=5)   # at 256² the host's ~30 µs a call sets it
+        setup_ms = device_ms(call, ("raster_setup",))
+        tile_ms = device_ms(call, ("raster_tile",))
+        plain_ms = time_ms(lambda: rasterize_meshes(verts, faces, size, plain=True),
+                           iters=3, warmup=1)
+        tests = box_pixel_tests(verts, faces, size)
+        sweep = raster_work(plain, size)
+        flops = 18.0 * tests               # 3 edge functions + 3 scalings per pixel-face test
+        nbytes = B * V * 12 + Fn * 12 + B * P * 20
+        flop_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        entry.add(max(z_err, b_err), ms, plain_ms, flop_ms, byte_ms)
+        log(f"[K3 {label}] kernel {ms:.4f} ms (device: setup {shown(setup_ms)}, tiles "
+            f"{shown(tile_ms)}) | plain {plain_ms:.3f} ms | bound {max(flop_ms, byte_ms):.4f} ms "
+            f"({flop_ms:.4f} ms ops, {byte_ms:.4f} ms bytes) | {tests} box tests | swept: "
+            + ", ".join(f"{v} {k}" for k, v in sweep.items())
+            + f" (brute force: {B * P * Fn} tests)")
+    log(f"[K3] four sets summed: kernel {entry.d['ms']:.4f} ms | plain {entry.d['plain_ms']:.3f} "
+        f"ms | bound {entry.d['bound_ms']:.4f} ms")
 
 
 def shipped_model_section():
@@ -502,7 +635,7 @@ def profile_breakdown(fn, label: str = "profile") -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"K1 flash_fwd": ("flash_fwd",), "K6 flash bwd": ("bwd_prep", "bwd_main", "bwd_dq"),
                 "K2 group norm": ("gn_silu",),
-                "K3 raster": ("raster",), "K4 gsplat_fwd": ("gsplat_fwd",),
+                "K3 rasterize": ("raster_setup", "raster_tile"), "K4 gsplat_fwd": ("gsplat_fwd",),
                 "K5 gsplat_bwd": ("gsplat_bwd",), "conv": ("conv", "cudnn", "implicit"),
                 "gemm": ("gemm", "cutlass", "sm90_xmma", "nvjet"),
                 "sort/scan": ("sort", "radix", "scan"),
