@@ -370,10 +370,12 @@ class AvatarTrainer:
 
     @torch.no_grad()
     def render_camera(self, cam, timestep: int, sh_degree: Optional[int] = None,
-                      compute_depth: bool = False, clip: bool = False) -> Dict[str, torch.Tensor]:
+                      compute_depth: bool = False, clip: bool = False,
+                      plain: bool = False) -> Dict[str, torch.Tensor]:
         """Inference render of one camera (gsplat_renderer.py:20-86). With
         ``clip`` the far plane sits 2.5 cm behind the posed head's centre
-        (animate.py:110-117)."""
+        (animate.py:110-117); ``plain`` renders through the plain PyTorch
+        compositor instead of K4 (an independent ground truth)."""
         ct = self.camera_tensors(cam)
         sh = self.active_sh_degree if sh_degree is None else sh_degree
         mesh = self.mesh_at_timestep(timestep)
@@ -387,7 +389,7 @@ class AvatarTrainer:
         return rasterize_gaussians(world["means3d"], world["quats"], world["scales"],
                                    world["opacities"], world["sh"], ct["rt"], ct["K"],
                                    cam.width, cam.height, sh_degree=sh, far=far,
-                                   render_depth=compute_depth)
+                                   render_depth=compute_depth, plain=plain)
 
     # ------------------------------------------------------------- checkpoints
 

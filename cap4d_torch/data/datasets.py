@@ -3,8 +3,10 @@
 
 All frames' FLAME forwards and projections run as one batched call on the
 FLAME model's device; image I/O, crop boxes and ray maps stay on the host.
-The JAX package's optional native prefetcher is not ported: frames are read
-by the Python path (``data/utils.py``).
+Reference frames go through the native runtime's fused decode → crop →
+resize on a thread pool (``runtime.loader.NativePrefetcher``) when no frame
+has a background directory, as in the JAX package; frames with one take the
+Python path (``data/utils.py``), which composites the background first.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from cap4d_torch.data.utils import (
     verts_to_pytorch3d,
 )
 from cap4d_torch.flame.camera import OPENCV2PYTORCH3D
+from cap4d_torch.runtime.loader import NativePrefetcher
 from cap4d_torch.flame.skinner import FlameModel, flame_forward
 
 
@@ -113,37 +116,61 @@ def build_frame_set(
     out_crop = np.ones((n, 1, latent_res, latent_res), np.float32)
     images = np.zeros((n, resolution, resolution, 3), np.float32) if is_reference else None
 
-    for i, item in enumerate(flame_items):
-        v2d = verts_2d_px[i].copy()
-        crop_box = get_bbox_from_verts(v2d, head_vertex_ids)
-        item["crop_box"] = crop_box
+    # fast path: fused native decode + crop + resize on a worker pool (no
+    # bg-weight compositing, so frames with a bg dir take the Python path)
+    prefetch = None
+    if is_reference and not any("bg_dir_path" in it for it in flame_items):
+        prefetch = NativePrefetcher(n_threads=8)
+    tickets: Dict[int, int] = {}
+    try:
+        for i, item in enumerate(flame_items):
+            v2d = verts_2d_px[i].copy()
+            crop_box = get_bbox_from_verts(v2d, head_vertex_ids)
+            item["crop_box"] = crop_box
 
-        intr = np.eye(3)
-        intr[0, 0] = item["fx"].flatten()[0]
-        intr[1, 1] = item["fy"].flatten()[0]
-        intr[0, 2] = item["cx"].flatten()[0]
-        intr[1, 2] = item["cy"].flatten()[0]
-        extr = np.asarray(item["extr"], np.float32).reshape(4, 4)
+            intr = np.eye(3)
+            intr[0, 0] = item["fx"].flatten()[0]
+            intr[1, 1] = item["fy"].flatten()[0]
+            intr[0, 2] = item["cx"].flatten()[0]
+            intr[1, 2] = item["cy"].flatten()[0]
+            extr = np.asarray(item["extr"], np.float32).reshape(4, 4)
 
-        if is_reference:
-            timestep_id = int(item["timestep_id"])
-            img = load_frame(item.pop("img_dir_path"), timestep_id)
-            if "bg_dir_path" in item:
-                bg = load_frame(item.pop("bg_dir_path"), timestep_id)
-            else:
-                bg = np.ones_like(img) * 255
-            ocm = np.ones_like(img[..., [0]], np.float32)
-            img = apply_bg(img, bg)
-            img = crop_image(img, crop_box, bg_value=255)
-            img = rescale_image(img, resolution)
-            images[i] = ((img / 127.5) - 1.0).astype(np.float32)
-            ocm = crop_image(ocm, crop_box, bg_value=0)
-            out_crop[i, 0] = rescale_image(ocm, latent_res)
+            if is_reference:
+                img_dir = item.pop("img_dir_path")
+                timestep_id = int(item["timestep_id"])
+                frame_path = None
+                if prefetch is not None and Path(img_dir).is_dir():
+                    frames = sorted(Path(img_dir).glob("*.*"))
+                    if timestep_id < len(frames):
+                        frame_path = frames[timestep_id]
+                if frame_path is not None:
+                    tickets[i] = prefetch.submit(frame_path, crop_box, resolution)
+                    res = item["resolutions"].flatten()
+                    ocm = np.ones((int(res[0]), int(res[1]), 1), np.float32)
+                else:
+                    img = load_frame(img_dir, timestep_id)
+                    if "bg_dir_path" in item:
+                        bg = load_frame(item.pop("bg_dir_path"), timestep_id)
+                    else:
+                        bg = np.ones_like(img) * 255
+                    ocm = np.ones_like(img[..., [0]], np.float32)
+                    img = apply_bg(img, bg)
+                    img = crop_image(img, crop_box, bg_value=255)
+                    img = rescale_image(img, resolution)
+                    images[i] = ((img / 127.5) - 1.0).astype(np.float32)
+                ocm = crop_image(ocm, crop_box, bg_value=0)
+                out_crop[i, 0] = rescale_image(ocm, latent_res)
 
-        ray = load_camera_rays(crop_box, intr, extr, latent_res)
-        h = ray.shape[1]
-        rays[i, 0] = (ref_extr[:3, :3] @ ray.reshape(3, -1)).reshape(3, h, -1)
-        verts_out[i, 0] = verts_to_pytorch3d(v2d, crop_box)
+            ray = load_camera_rays(crop_box, intr, extr, latent_res)
+            h = ray.shape[1]
+            rays[i, 0] = (ref_extr[:3, :3] @ ray.reshape(3, -1)).reshape(3, h, -1)
+            verts_out[i, 0] = verts_to_pytorch3d(v2d, crop_box)
+
+        for i, ticket in tickets.items():
+            images[i] = prefetch.wait(ticket, resolution)
+    finally:
+        if prefetch is not None:
+            prefetch.close()
 
     ref_mask = np.full((n, 1, latent_res, latent_res), float(is_reference), np.float32)
     return FrameSet(

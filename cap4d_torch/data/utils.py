@@ -4,7 +4,8 @@ Counterpart of ``cap4d_tpu/data/utils.py``. The card machine has no ``cv2``,
 so ``rescale_image`` carries numpy copies of OpenCV's ``INTER_AREA``
 (fractional-overlap box weights rounded to float32, ``computeResizeAreaTab``)
 and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
-frames are read with the port's own PNG reader.
+frames (PNG or JPEG) are decoded by the port's native runtime
+(``cap4d_torch/runtime``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
-from cap4d_torch.utils.png import read_png
+from cap4d_torch.runtime.loader import decode_image
 
 CROP_MARGIN = 0.2
 
@@ -136,20 +137,20 @@ def load_camera_rays(crop_box, intr, extr, target_resolution: int) -> np.ndarray
 
 
 def load_frame(frame_dir: Path, frame_id: int) -> np.ndarray:
-    """Frame ``frame_id`` (sorted order) of a directory of PNG frames, RGB
-    uint8. Other image or video formats need a decoder the port does not
-    ship and raise ``ValueError``."""
+    """Frame ``frame_id`` (sorted order) of a directory of PNG or JPEG frames,
+    RGB uint8. A video file raises ``ValueError``: the JAX package reads it
+    with cv2's ``VideoCapture``, and the card's machine has no video decoder
+    (no cv2, no ffmpeg)."""
     frame_dir = Path(frame_dir)
     if not frame_dir.is_dir():
-        raise ValueError(f"{frame_dir}: frames must be a directory of PNG images")
+        raise ValueError(f"{frame_dir}: frames must be a directory of PNG or JPEG images; "
+                         "video input needs a video decoder (cv2 or ffmpeg), which the port "
+                         "does not have")
     frames = sorted(frame_dir.glob("*.*"))
     if frame_id >= len(frames):
         print(f"WARNING: Frame {frame_id} out of bounds for video with length {len(frames)}")
         frame_id = len(frames) - 1
-    path = frames[frame_id]
-    if path.suffix.lower() != ".png":
-        raise ValueError(f"{path}: only PNG frames can be decoded without cv2/PIL")
-    return read_png(path)
+    return decode_image(frames[frame_id])
 
 
 def adjust_intrinsics_crop(fx, fy, cx, cy, bbox, target_resolution):

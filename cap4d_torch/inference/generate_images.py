@@ -3,10 +3,16 @@
 
 Same flags, config schema and output layout: ``mmdm_config_dump.yaml`` and
 ``{reference_images,generated_images}/{images/*.png, flame/*.npz,
-condition_vis/*}``. PNGs are written with the port's zlib PNG writer; the
-condition-vis maps are written as ``.png`` (the JAX package writes ``.jpg``
-through cv2; the port has no JPEG encoder). Runs on the card; pass
-``device="cpu"`` (``--device cpu``) to run the plain versions on the CPU.
+condition_vis/*/*.jpg}``. PNGs are written with the port's zlib PNG writer,
+the condition-vis maps as JPEG (quality 95, 4:2:0) by the port's native
+runtime (``cap4d_torch/runtime``). Runs on the card; pass ``device="cpu"``
+(``--device cpu``) to run the plain versions on the CPU.
+
+``--groups_per_device`` sets how many view-groups share one UNet call.
+``--detect_anomaly`` checks the latents, the conditioning banks, every
+round's eps, every DDIM update and the decoded images for non-finite values
+and raises ``FloatingPointError`` naming the stage (``torch.autograd``'s
+anomaly mode does nothing under ``no_grad``); each check is a device sync.
 
   python -m cap4d_torch.inference.generate_images --config_path ... \
       --reference_data_path ... --output_path ... [--allow_random_weights 1]
@@ -26,8 +32,9 @@ import torch
 
 from cap4d_torch.data.datasets import build_frame_set, load_reference_items, make_generation_items
 from cap4d_torch.flame.compute import load_cap4d_flame_model
-from cap4d_torch.mmdm.model import MMDM
+from cap4d_torch.mmdm.model import MMDM, check_finite
 from cap4d_torch.mmdm.sampler import StochasticIOSampler
+from cap4d_torch.runtime.loader import encode_jpeg
 from cap4d_torch.utils.config import load_yaml
 from cap4d_torch.utils.device import resolve_device
 from cap4d_torch.utils.logging import profile_trace
@@ -53,7 +60,7 @@ def save_flame_params(flame_items, out_dir: Path) -> None:
 
 
 def save_condition_vis(model: MMDM, cond_bank: Dict[str, torch.Tensor], out_dir: Path) -> None:
-    """Human-inspectable conditioning maps, ×8 nearest-upsampled PNGs."""
+    """Human-inspectable conditioning maps, ×8 nearest-upsampled JPEGs."""
     base = out_dir / "condition_vis"
     base.mkdir(exist_ok=True, parents=True)
     vis = model.cond_model.get_vis(cond_bank["pos_enc"])
@@ -63,7 +70,7 @@ def save_condition_vis(model: MMDM, cond_bank: Dict[str, torch.Tensor], out_dir:
         v = np.clip(v.cpu().numpy(), -1.0, 1.0)
         v = np.repeat(np.repeat(v, 8, axis=1), 8, axis=2)
         for i, img in enumerate(v):
-            write_png(key_dir / f"{i:05d}.png", (((img + 1.0) / 2.0) * 255).astype(np.uint8))
+            encode_jpeg(key_dir / f"{i:05d}.jpg", (((img + 1.0) / 2.0) * 255).astype(np.uint8))
 
 
 def run_generation(
@@ -78,13 +85,17 @@ def run_generation(
     resume: bool = True,
     device=None,
     init_noise: Optional[Dict[str, np.ndarray]] = None,
+    groups_per_device: int = 1,
+    detect_anomaly: bool = False,
 ) -> Dict[str, object]:
     """Run stage 1 end to end; returns the latents, images and timings.
 
     ``device`` None means the card (raises without CUDA). ``init_noise`` may
     hold "encode" (n_ref, h, w, 4) posterior noise and "x_bank"
     (n_gen, h, w, 4) initial latents; otherwise both are drawn from a
-    ``torch.Generator`` seeded with the config's seed."""
+    ``torch.Generator`` seeded with the config's seed. ``groups_per_device``
+    view-groups share one UNet call; ``detect_anomaly`` raises
+    ``FloatingPointError`` at the first non-finite value (module docstring)."""
     dev = resolve_device(device)
     init_noise = init_noise or {}
     gen_config = load_yaml(config_path)
@@ -141,6 +152,11 @@ def run_generation(
     z_ref = model.encode_images(ref_set.images, noise=init_noise.get("encode"), generator=gen)
     ref_cond = model.prepare_conditioning(ref_set.cond_batch(), z=z_ref)
     gen_cond = model.prepare_conditioning(gen_set.cond_batch())
+    if detect_anomaly:
+        check_finite(z_ref, "after VAE encode of the reference images")
+        for name, bank in (("reference", ref_cond), ("generation", gen_cond)):
+            for key, t in bank.items():
+                check_finite(t, f"in the {name} conditioning bank's {key}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     print(f"Timing: encode + conditioning banks {time.perf_counter() - t_banks:.1f}s")
@@ -152,7 +168,8 @@ def run_generation(
         save_condition_vis(model, gen_cond, out_gen)
 
     # --- sampling ---
-    sampler = StochasticIOSampler(model)
+    sampler = StochasticIOSampler(model, groups_per_device=groups_per_device,
+                                  detect_anomaly=detect_anomaly)
     S = int(gen_config["n_ddim_steps"])
     t_sample = time.perf_counter()
     with profile_trace(profile_dir):
@@ -166,9 +183,10 @@ def run_generation(
 
     t_decode = time.perf_counter()
     print(f"Saving reference images to {out_ref}/images")
-    save_images(model.decode_latents(ref_cond["z_input"], as_uint8=True), out_ref)
+    save_images(model.decode_latents(ref_cond["z_input"], as_uint8=True,
+                                     detect_anomaly=detect_anomaly), out_ref)
     print(f"Saving generated images to {out_gen}/images")
-    imgs = model.decode_latents(z_gen, as_uint8=True)
+    imgs = model.decode_latents(z_gen, as_uint8=True, detect_anomaly=detect_anomaly)
     save_images(imgs, out_gen)
     decode_s = time.perf_counter() - t_decode
     n_ref = ref_cond["pos_enc"].shape[0]
@@ -195,6 +213,12 @@ def main():
                         help="write a torch.profiler trace of the sampling loop")
     parser.add_argument("--no_resume", action="store_true",
                         help="disable mid-run sampler checkpointing")
+    parser.add_argument("--groups_per_device", type=int, default=1,
+                        help="view-groups sampled together in one UNet call")
+    parser.add_argument("--max_dispatch_group_steps", type=int, default=200,
+                        help="kept for CLI parity; no effect (each step is launched eagerly)")
+    parser.add_argument("--detect_anomaly", action="store_true",
+                        help="raise FloatingPointError at the first non-finite value")
     args = parser.parse_args()
     run_generation(
         args.config_path,
@@ -206,6 +230,8 @@ def main():
         profile_dir=args.profile_dir,
         resume=not args.no_resume,
         device=args.device,
+        groups_per_device=args.groups_per_device,
+        detect_anomaly=args.detect_anomaly,
     )
 
 

@@ -56,6 +56,14 @@ def _u8(x: torch.Tensor) -> torch.Tensor:
     return (torch.clamp((x + 1.0) / 2.0, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
+def check_finite(t: torch.Tensor, where: str) -> None:
+    """Raise ``FloatingPointError`` naming ``where`` if ``t`` holds a NaN or
+    an infinity (a device sync)."""
+    if not bool(torch.isfinite(t).all()):
+        n_bad = int((~torch.isfinite(t)).sum())
+        raise FloatingPointError(f"non-finite values ({n_bad} of {t.numel()}) {where}")
+
+
 @dataclass
 class MMDM:
     """The morphable multi-view diffusion model (inference bundle)."""
@@ -189,13 +197,18 @@ class MMDM:
         return torch.cat(outs, dim=0) * self.scale_factor
 
     @torch.no_grad()
-    def decode_latents(self, z, chunk: int = 8, as_uint8: bool = False) -> np.ndarray:
+    def decode_latents(self, z, chunk: int = 8, as_uint8: bool = False,
+                       detect_anomaly: bool = False) -> np.ndarray:
         """Scaled latents (N, h, w, 4) → images (N, H, W, 3) in [-1,1], or
-        uint8 [0,255] with ``as_uint8`` (converted on the device)."""
+        uint8 [0,255] with ``as_uint8`` (converted on the device).
+        ``detect_anomaly`` raises ``FloatingPointError`` on a non-finite
+        decoded value (a device sync a chunk)."""
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
         outs = []
         for i in range(0, z.shape[0], chunk):
             img = self.vae.decode(z[i : i + chunk] / self.scale_factor)
+            if detect_anomaly:
+                check_finite(img, f"after VAE decode of frames {i}..{i + len(img) - 1}")
             outs.append(_u8(img) if as_uint8 else img)
         return torch.cat(outs, dim=0).cpu().numpy()
 

@@ -69,26 +69,19 @@ def test_compute_flame_matches(assets, extras):
 
 @pytest.fixture(scope="module")
 def frame_sets(assets):
-    """Reference + generation frame sets from both packages (JAX on its
-    Python image path, which the port ports)."""
+    """Reference + generation frame sets from both packages (both read the
+    reference frames through their native loaders)."""
     flame_dir, ref_dir, bank = assets
-    from cap4d_tpu.runtime import loader
-
-    saved = loader.native_available
-    loader.native_available = lambda: False
-    try:
-        out = {}
-        for pkg, data, comp in (("jax", jdata, jcompute), ("torch", tdata, tcompute)):
-            fm = comp.load_cap4d_flame_model(flame_dir, 150, 65, add_mouth=True)
-            head = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
-            items, extr = data.load_reference_items(ref_dir)
-            ref = data.build_frame_set(fm, items, head, extr, 64, is_reference=True)
-            gen_items = data.make_generation_items(bank, items[0], n_samples=7,
-                                                   rng=np.random.RandomState(124))
-            gen = data.build_frame_set(fm, gen_items, head, extr, 64)
-            out[pkg] = (ref, gen)
-    finally:
-        loader.native_available = saved
+    out = {}
+    for pkg, data, comp in (("jax", jdata, jcompute), ("torch", tdata, tcompute)):
+        fm = comp.load_cap4d_flame_model(flame_dir, 150, 65, add_mouth=True)
+        head = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
+        items, extr = data.load_reference_items(ref_dir)
+        ref = data.build_frame_set(fm, items, head, extr, 64, is_reference=True)
+        gen_items = data.make_generation_items(bank, items[0], n_samples=7,
+                                               rng=np.random.RandomState(124))
+        gen = data.build_frame_set(fm, gen_items, head, extr, 64)
+        out[pkg] = (ref, gen)
     return out
 
 

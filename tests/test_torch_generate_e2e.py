@@ -1,7 +1,9 @@
 """Miniature stage 1 end to end: cap4d_torch's run_generation against
 cap4d_tpu's on the same synthetic assets, the same checkpoint (written in the
 released format, loaded by both) and the same noise (JAX's posterior and
-initial-bank draws handed to the port)."""
+initial-bank draws handed to the port). Both read the reference frames
+through their native loaders. The port runs again with two view-groups in
+one UNet call (``groups_per_device=2``)."""
 
 from pathlib import Path
 
@@ -15,7 +17,7 @@ from cap4d_torch.mmdm.convert import UNET_PREFIX, VAE_PREFIX
 from cap4d_torch.mmdm.model import MMDM
 from cap4d_torch.utils import synthetic_assets as sa
 
-SEED, N_GEN, LAT = 124, 7, 8
+SEED, N_GEN, LAT = 124, 14, 8   # two groups of G = 7
 
 
 def _write_checkpoint(ckpt_dir: Path, flame_dir: Path) -> None:
@@ -56,21 +58,17 @@ def runs(tmp_path_factory):
     _write_checkpoint(ckpt_dir, flame_dir)
 
     from cap4d_tpu.inference.generate_images import run_generation as jax_run
-    from cap4d_tpu.runtime import loader
 
-    saved = loader.native_available
-    loader.native_available = lambda: False   # the Python image path, which the port ports
-    try:
-        j = jax_run(cfg, ref_dir, root / "jax_out", flame_asset_dir=flame_dir, dtype=np.float32)
-    finally:
-        loader.native_available = saved
+    j = jax_run(cfg, ref_dir, root / "jax_out", flame_asset_dir=flame_dir, dtype=np.float32)
     t = torch_run(cfg, ref_dir, root / "torch_out", flame_asset_dir=flame_dir,
                   dtype=torch.float32, device="cpu", init_noise=_jax_noise())
-    return root, j, t
+    t2 = torch_run(cfg, ref_dir, root / "torch_out_gpd2", flame_asset_dir=flame_dir,
+                   dtype=torch.float32, device="cpu", init_noise=_jax_noise(), groups_per_device=2)
+    return root, j, t, t2
 
 
 def test_latents_match_jax(runs):
-    _, j, t = runs
+    _, j, t, _ = runs
     assert t["z_gen"].shape == j["z_gen"].shape == (N_GEN, LAT, LAT, 4)
     assert np.isfinite(t["z_gen"]).all()
     # fp32 through VAE encode, 2 DDIM steps of the UNet and the CFG combine
@@ -80,18 +78,51 @@ def test_latents_match_jax(runs):
 
 
 def test_output_layout_matches_jax(runs):
-    root, _, _ = runs
+    root, _, _, _ = runs
 
     def files(out):
-        # condition-vis maps are .jpg in the JAX package and .png in the port
-        return sorted(str(p.relative_to(out).with_suffix(""))
+        return sorted(str(p.relative_to(out))
                       for p in out.rglob("*") if p.is_file() and p.name != "sampler_checkpoint.pkl")
 
     assert files(root / "torch_out") == files(root / "jax_out")
     gen = root / "torch_out" / "generated_images"
     assert len(list((gen / "images").glob("*.png"))) == N_GEN
+    assert list((gen / "condition_vis").rglob("*.jpg"))
     for name in sorted((root / "jax_out" / "generated_images" / "flame").glob("*.npz")):
         a, b = np.load(name), np.load(gen / "flame" / name.name)
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_allclose(b[k], a[k], rtol=1e-6, err_msg=k)
+
+
+def test_batched_groups_match_per_group(runs):
+    """Two groups in one UNet call of batch 4 against one group a call."""
+    _, _, t, t2 = runs
+    assert t2["group_steps"] == t["group_steps"]
+    # fp32 on the CPU: the batched convolutions and GEMMs round differently
+    np.testing.assert_allclose(t2["z_gen"], t["z_gen"], atol=1e-5, rtol=1e-5)
+
+
+def test_cli_flags_match_jax(monkeypatch):
+    """The new flags parse to the same values in both CLIs."""
+    from cap4d_torch.inference import generate_images as tgen
+    from cap4d_tpu.inference import generate_images as jgen
+
+    got = {}
+    for name, mod in (("jax", jgen), ("torch", tgen)):
+        monkeypatch.setattr(mod, "run_generation", lambda *a, _n=name, **kw: got.__setitem__(_n, kw))
+    argv = ["generate_images", "--config_path", "c.yaml", "--reference_data_path", "ref",
+            "--output_path", "out"]
+    try:
+        for extra in ([], ["--groups_per_device", "4", "--max_dispatch_group_steps", "50",
+                           "--detect_anomaly"]):
+            for mod in (jgen, tgen):
+                monkeypatch.setattr("sys.argv", argv + extra)
+                mod.main()
+            anomaly = bool(jax.config.jax_debug_nans)
+            assert got["torch"]["groups_per_device"] == got["jax"]["groups_per_device"]
+            assert got["torch"]["detect_anomaly"] == anomaly == bool(extra)
+            jax.config.update("jax_debug_nans", False)
+    finally:
+        jax.config.update("jax_debug_nans", False)
+    assert got["jax"]["max_group_steps_per_dispatch"] == 50

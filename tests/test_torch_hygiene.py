@@ -1,5 +1,6 @@
-"""The port's boundaries: no module of cap4d_torch (nor chip_smoke.py) imports
-JAX, flax, optax, cap4d_tpu, the repository's tools/ or the host libraries
+"""The port's boundaries: no module of cap4d_torch (nor scripts/torch or
+chip_smoke.py) imports JAX, flax, optax, cap4d_tpu, the repository's tools/
+or tests/, or the host libraries
 the card machine lacks (yaml, cv2, PIL); entry points (stage-1 generation,
 the avatar fit and animation, the SMPL fit and animation, MMDM training, the
 op-mix benchmark) refuse to run without CUDA unless asked for the CPU; the
@@ -13,9 +14,11 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cap4d_tpu", "tools", "yaml", "cv2", "PIL"}
-SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "cap4d_torch").rglob("*.py")) + [
-    "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cap4d_tpu", "tools", "tests", "yaml", "cv2",
+             "PIL"}
+SOURCES = sorted(str(p.relative_to(REPO)) for p in [*(REPO / "cap4d_torch").rglob("*.py"),
+                                                    *(REPO / "scripts" / "torch").glob("*.py")]
+                 ) + ["chip_smoke.py"]
 
 
 @pytest.mark.parametrize("rel", SOURCES)
@@ -135,3 +138,12 @@ def test_kernel_wrappers_use_plain_versions_on_cpu():
     assert float(out["alpha"].max()) > 0.5
     assert [k.launches for k in kernels] == before
     assert all(k._lib is None for k in kernels)  # nothing built or loaded
+
+
+def test_quality_tools_refuse_to_run_without_cuda(tmp_path):
+    from cap4d_torch.tools import fit_default_full, fit_holdout_quality, fit_tesla_quality
+
+    for run in (fit_holdout_quality.run, fit_default_full.run, fit_tesla_quality.run):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(out=tmp_path / "out")
+    assert not (tmp_path / "out").exists()

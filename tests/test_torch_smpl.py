@@ -501,15 +501,13 @@ def test_debug_obj_tools_match_jax(tmp_path, monkeypatch):
     _same_obj(tmp_path / "flame.obj", tmp_path / "jax_flame.obj")
 
 
-def test_export_reference_frames_matches_jax(tmp_path, monkeypatch):
-    """The JAX side on its Python image path (the one the port ports), not
-    its native loader, whose resize rounds otherwise."""
+def test_export_reference_frames_matches_jax(tmp_path):
+    """Both packages read the reference frames through their native
+    loaders, which resize to the same floats."""
     from cap4d_torch.tools.export_reference_frames import export_reference_frames
     from cap4d_torch.utils.png import read_png
-    from cap4d_tpu.runtime import loader
     from cap4d_tpu.tools.export_reference_frames import export_reference_frames as jax_export
 
-    monkeypatch.setattr(loader, "native_available", lambda: False)
     flame_dir = sa.make_asset_dir(tmp_path)
     ref = sa.make_reference_dir(tmp_path, resolution=96)
     a = export_reference_frames(ref, tmp_path / "ours", 64, flame_dir)
