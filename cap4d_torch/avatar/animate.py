@@ -5,21 +5,31 @@ Reference: gaussianavatars/animate.py (config_dump.yaml and the newest
 chkpnt, a driving fit.npz and an optional orbit trajectory, per-frame
 renders with optional alpha and depth, threaded PNG writes, ffmpeg mp4
 assembly, the animated PLY export; the single-frame ``render_static``).
-Frames render one after another on one card; the JAX package's
-``--dp_frames`` split of frames over several devices is not ported. Run it
-with ``python -m cap4d_torch.avatar.animate``.
+Run it with ``python -m cap4d_torch.avatar.animate``.
+
+``--dp_frames n`` splits the frames over the first n ranks of the process
+group (0, the default, means every rank; the JAX package's one frame a
+device): frame i is rendered by rank ``i mod n``, and each rank writes its
+own frames' files. Rank 0 builds the animated PLY from every frame's mesh
+(no render needed), and after a barrier assembles the mp4. Without
+``torchrun`` there is one rank:
+
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m cap4d_torch.avatar.animate --model_path ... --animation_path ... --output_path ...
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from cap4d_torch.avatar.convert_ref import (
     load_reference_avatar_checkpoint,
@@ -28,6 +38,7 @@ from cap4d_torch.avatar.convert_ref import (
 from cap4d_torch.avatar.export import PlyWriter
 from cap4d_torch.avatar.scene import load_cap4d_dataset
 from cap4d_torch.avatar.trainer import AvatarTrainer, search_max_iteration
+from cap4d_torch.parallel.mesh import DP, barrier, dp_mesh, gather_object, init_dp, local_dp
 from cap4d_torch.utils.config import load_yaml
 from cap4d_torch.utils.device import resolve_device
 from cap4d_torch.utils.png import write_png
@@ -65,10 +76,13 @@ def load_trained_avatar(model_path: Path, flame_asset_dir: str, scene, device=No
 
 
 def render_frame_loop(trainer: AvatarTrainer, cams, frame_dir: Path, writer=None,
-                      save_alpha: bool = False, save_depth: bool = False) -> float:
-    """Render every camera in turn; PNG and npy writes run on two threads
-    (animate.py:127-164). Returns the loop's wall seconds."""
+                      save_alpha: bool = False, save_depth: bool = False,
+                      frames: Optional[Sequence[int]] = None) -> float:
+    """Render the cameras ``frames`` (all when None) in turn; PNG and npy
+    writes run on two threads (animate.py:127-164). ``writer`` takes every
+    camera's mesh, rendered here or not. Returns the loop's wall seconds."""
     t0 = time.perf_counter()
+    frames = set(range(len(cams)) if frames is None else frames)
     attrs = None
     if writer is not None:
         # gaussian attributes are constant across the sequence: fetch once
@@ -78,16 +92,19 @@ def render_frame_loop(trainer: AvatarTrainer, cams, frame_dir: Path, writer=None
     with ThreadPoolExecutor(max_workers=2) as io_pool:
         futures = []
         for i, cam in enumerate(cams):
-            out = trainer.render_camera(cam, cam.timestep, compute_depth=save_depth, clip=True)
-            img = np.clip(out["render"].cpu().numpy(), 0, 1)
-            futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}.png",
-                                          (img * 255).astype(np.uint8)))
-            if save_alpha:
-                a8 = (out["alpha"].cpu().numpy() * 255).astype(np.uint8)
-                futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}_alpha.png", a8))
-            if save_depth:
-                futures.append(io_pool.submit(np.save, frame_dir / f"{i:05d}_depth.npy",
-                                              out["depth"].cpu().numpy()))
+            if i in frames:
+                out = trainer.render_camera(cam, cam.timestep, compute_depth=save_depth,
+                                            clip=True)
+                img = np.clip(out["render"].cpu().numpy(), 0, 1)
+                futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}.png",
+                                              (img * 255).astype(np.uint8)))
+                if save_alpha:
+                    a8 = (out["alpha"].cpu().numpy() * 255).astype(np.uint8)
+                    futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}_alpha.png",
+                                                  a8))
+                if save_depth:
+                    futures.append(io_pool.submit(np.save, frame_dir / f"{i:05d}_depth.npy",
+                                                  out["depth"].cpu().numpy()))
             if writer is not None:
                 writer.update(trainer.mesh_at_timestep(cam.timestep).verts.cpu().numpy(),
                               remesh_faces, attrs)
@@ -96,6 +113,49 @@ def render_frame_loop(trainer: AvatarTrainer, cams, frame_dir: Path, writer=None
         for f in futures:
             f.result()   # surface any write error
     return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic convolution engines inside the block: its
+    default ones vary the deform net's output by an ulp between calls on the
+    card, which the animated PLY's raw base vertices would show."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def frame_ranks(dp_frames: int, dp: DP) -> int:
+    """How many ranks render frames: ``dp_frames``, or every rank for 0;
+    raises past the world."""
+    if not 0 <= dp_frames <= dp.world:
+        raise ValueError(f"dp_frames must lie in [0, {dp.world}] (0: every rank), got {dp_frames}")
+    return len(dp_mesh(dp_frames or None, dp))
+
+
+def split_frame_loop(trainer: AvatarTrainer, cams, output_path: Path, dp: DP, n: int, fps: int,
+                     writer=None, **render_kw) -> dict:
+    """The frames of ``cams`` split over the first ``n`` ranks, frame i on
+    rank ``i mod n``; rank 0 feeds ``writer`` every frame's mesh, then,
+    after a barrier, writes the PLY and the mp4. Every frame's mesh, and so
+    the PLY, has the same bits in any run (``deterministic_convs``). Returns
+    the frame count, the slowest rank's render seconds and each rank's."""
+    frame_dir = output_path / "frames"
+    mine = range(dp.rank, len(cams), n) if dp.rank < n else range(0)
+    with deterministic_convs():
+        render_s = render_frame_loop(trainer, cams, frame_dir, frames=mine,
+                                     writer=writer if dp.rank == 0 else None, **render_kw)
+    rank_s = gather_object(render_s, dp)
+    barrier(dp)
+    if dp.rank == 0:
+        if writer is not None:
+            writer.save_ply(output_path / "exported_animation.ply")
+            print(f"Wrote {output_path / 'exported_animation.ply'}")
+        frames_to_mp4(frame_dir, output_path / "renders.mp4", fps)
+    return {"frames": len(cams), "render_s": max(rank_s), "rank_render_s": rank_s}
 
 
 def render_sequence(
@@ -111,27 +171,27 @@ def render_sequence(
     compress_ply: bool = False,
     n_max_frames: Optional[int] = None,
     device=None,
+    dp_frames: int = 0,
+    dp: Optional[DP] = None,
 ) -> dict:
-    """Drive the avatar through a target sequence (animate.py:77-171);
-    returns the frame count and the render loop's seconds. Runs on the card
-    unless ``device="cpu"``."""
-    device = resolve_device(device)
+    """Drive the avatar through a target sequence (animate.py:77-171) with
+    its frames split over the first ``dp_frames`` ranks of ``dp`` (module
+    docstring; None: this process alone); returns the frame count and the
+    render loop's seconds (the slowest rank's, and each rank's). Runs on the
+    card unless ``device="cpu"``."""
+    dp = local_dp(dp, device)
+    n_ranks = frame_ranks(dp_frames, dp)
     output_path = Path(output_path)
     frame_dir = output_path / "frames"
     frame_dir.mkdir(parents=True, exist_ok=True)
     scene = load_cap4d_dataset(source_paths=None, target_paths={
         "animation_path": str(animation_path),
         "cam_trajectory_path": str(cam_trajectory_path) if cam_trajectory_path else None})
-    trainer = load_trained_avatar(Path(model_path), flame_asset_dir, scene, device=device)
+    trainer = load_trained_avatar(Path(model_path), flame_asset_dir, scene, device=dp.device)
     writer = PlyWriter(compress=compress_ply) if export_animation else None
     cams = scene.tgt_cameras[:n_max_frames] if n_max_frames else scene.tgt_cameras
-    render_s = render_frame_loop(trainer, cams, frame_dir, writer=writer,
-                                 save_alpha=save_alpha, save_depth=save_depth)
-    if writer is not None:
-        writer.save_ply(output_path / "exported_animation.ply")
-        print(f"Wrote {output_path / 'exported_animation.ply'}")
-    frames_to_mp4(frame_dir, output_path / "renders.mp4", fps)
-    return {"frames": len(cams), "render_s": render_s}
+    return split_frame_loop(trainer, cams, output_path, dp, n_ranks, fps, writer=writer,
+                            save_alpha=save_alpha, save_depth=save_depth)
 
 
 def render_static(model_path: str | Path, animation_path: str | Path, output_path: str | Path,
@@ -166,6 +226,9 @@ def main():
     parser.add_argument("--compress_ply", action="store_true")
     parser.add_argument("--static", type=int, default=None,
                         help="render a single frame at this timestep")
+    parser.add_argument("--dp_frames", type=int, default=0,
+                        help="render the frames over this many ranks, frame i on rank i mod n "
+                             "(0 = every rank, 1 = rank 0 alone)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "versions of the kernels)")
@@ -174,13 +237,18 @@ def main():
         render_static(args.model_path, args.animation_path, args.output_path,
                       timestep=args.static, flame_asset_dir=args.flame_asset_dir,
                       device=args.device)
-    else:
+        return
+    dp = init_dp(args.device)
+    try:
         render_sequence(args.model_path, args.animation_path, args.output_path,
                         cam_trajectory_path=args.cam_trajectory_path,
                         flame_asset_dir=args.flame_asset_dir, fps=args.fps,
                         save_alpha=args.save_alpha, save_depth=args.save_depth,
                         export_animation=not args.no_export_animation,
-                        compress_ply=args.compress_ply, device=args.device)
+                        compress_ply=args.compress_ply, device=args.device,
+                        dp_frames=args.dp_frames, dp=dp)
+    finally:
+        dp.close()
 
 
 if __name__ == "__main__":

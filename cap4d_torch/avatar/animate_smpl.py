@@ -3,9 +3,10 @@
 
 Reference: animate_smpl.py: drive a fitted SMPL avatar with an animation npz
 from ``cap4d_torch.tools.generate_animation`` or the CameraHMR merger, on the
-port's render loop (threaded PNG writes) and PLY export. Frames render one
-after another on one card. Run it with
-``python -m cap4d_torch.avatar.animate_smpl``.
+port's render loop (threaded PNG writes) and PLY export. ``--dp_frames``
+splits the frames over the ranks of a ``torchrun`` process group as
+``cap4d_torch.avatar.animate`` does (0, the default, means every rank). Run
+it with ``python -m cap4d_torch.avatar.animate_smpl``.
 """
 
 from __future__ import annotations
@@ -14,16 +15,16 @@ import argparse
 from pathlib import Path
 from typing import Optional
 
-from cap4d_torch.avatar.animate import frames_to_mp4, render_frame_loop
+from cap4d_torch.avatar.animate import frame_ranks, split_frame_loop
 from cap4d_torch.avatar.convert_ref import (
     load_reference_avatar_checkpoint,
     restore_reference_checkpoint,
 )
 from cap4d_torch.avatar.export import PlyWriter
 from cap4d_torch.avatar.trainer import AvatarTrainer, search_max_iteration
+from cap4d_torch.parallel.mesh import DP, init_dp, local_dp
 from cap4d_torch.smpl.scene import load_smpl_dataset
 from cap4d_torch.utils.config import load_yaml
-from cap4d_torch.utils.device import resolve_device
 
 
 def load_trained_smpl_avatar(model_path: Path, smpl_asset_dir, scene, device=None) -> AvatarTrainer:
@@ -51,27 +52,25 @@ def render_sequence_smpl(
     export_animation: bool = True,
     compress_ply: bool = False,
     n_max_frames: Optional[int] = None,
-    dp_frames: int = 1,
+    dp_frames: int = 0,
     device=None,
+    dp: Optional[DP] = None,
 ) -> dict:
     """Render the animation's frames, its mp4 and (optionally) the animated
-    PLY; returns the frame count and the render loop's seconds. Runs on the
-    card unless ``device="cpu"``."""
-    device = resolve_device(device)
-    if dp_frames != 1:
-        raise ValueError("dp_frames: the port renders the frames on one card (dp_frames=1)")
+    PLY, the frames split over the first ``dp_frames`` ranks of ``dp`` (0:
+    all; None: this process alone); returns the frame count and the render
+    loop's seconds (the slowest rank's, and each rank's). Runs on the card
+    unless ``device="cpu"``."""
+    dp = local_dp(dp, device)
+    n_ranks = frame_ranks(dp_frames, dp)
     model_path, output_path = Path(model_path), Path(output_path)
     frame_dir = output_path / "frames"
     frame_dir.mkdir(parents=True, exist_ok=True)
     scene = load_smpl_dataset(None, target_animation_path=str(animation_path))
-    trainer = load_trained_smpl_avatar(model_path, smpl_asset_dir, scene, device=device)
+    trainer = load_trained_smpl_avatar(model_path, smpl_asset_dir, scene, device=dp.device)
     writer = PlyWriter(compress=compress_ply) if export_animation else None
     cams = scene.tgt_cameras[:n_max_frames] if n_max_frames else scene.tgt_cameras
-    render_s = render_frame_loop(trainer, cams, frame_dir, writer=writer)
-    if writer is not None:
-        writer.save_ply(output_path / "exported_animation.ply")
-    frames_to_mp4(frame_dir, output_path / "renders.mp4", fps)
-    return {"frames": len(cams), "render_s": render_s}
+    return split_frame_loop(trainer, cams, output_path, dp, n_ranks, fps, writer=writer)
 
 
 def main():
@@ -83,17 +82,22 @@ def main():
     parser.add_argument("--fps", type=int, default=24)
     parser.add_argument("--no_export_animation", action="store_true")
     parser.add_argument("--compress_ply", action="store_true")
-    parser.add_argument("--dp_frames", type=int, default=1,
-                        help="frames rendered in parallel, one per card; only 1 (one card)")
+    parser.add_argument("--dp_frames", type=int, default=0,
+                        help="render the frames over this many ranks, frame i on rank i mod n "
+                             "(0 = every rank, 1 = rank 0 alone)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "versions of the kernels)")
     args = parser.parse_args()
-    render_sequence_smpl(args.model_path, args.animation_path, args.output_path,
-                         smpl_asset_dir=args.smpl_asset_dir, fps=args.fps,
-                         export_animation=not args.no_export_animation,
-                         compress_ply=args.compress_ply, dp_frames=args.dp_frames,
-                         device=args.device)
+    dp = init_dp(args.device)
+    try:
+        render_sequence_smpl(args.model_path, args.animation_path, args.output_path,
+                             smpl_asset_dir=args.smpl_asset_dir, fps=args.fps,
+                             export_animation=not args.no_export_animation,
+                             compress_ply=args.compress_ply, dp_frames=args.dp_frames,
+                             device=args.device, dp=dp)
+    finally:
+        dp.close()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,12 @@ the condition-vis maps as JPEG (quality 95, 4:2:0) by the port's native
 runtime (``cap4d_torch/runtime``). Runs on the card; pass ``device="cpu"``
 (``--device cpu``) to run the plain versions on the CPU.
 
-``--groups_per_device`` sets how many view-groups share one UNet call.
+``--groups_per_device`` sets how many view-groups share one UNet call on
+each card. The CLI joins a process group when ``torchrun`` started it, one
+process a card (``cap4d_torch.parallel``): each DDIM step's groups split over
+the ranks (``n_par = world · groups_per_device``), and only rank 0 writes
+files and decodes, as the JAX package decodes on one device. Without
+``torchrun`` it runs on one card.
 ``--detect_anomaly`` checks the latents, the conditioning banks, every
 round's eps, every DDIM update and the decoded images for non-finite values
 and raises ``FloatingPointError`` naming the stage (``torch.autograd``'s
@@ -16,6 +21,8 @@ anomaly mode does nothing under ``no_grad``); each check is a device sync.
 
   python -m cap4d_torch.inference.generate_images --config_path ... \
       --reference_data_path ... --output_path ... [--allow_random_weights 1]
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m cap4d_torch.inference.generate_images --config_path ... (as above)
 """
 
 from __future__ import annotations
@@ -34,9 +41,9 @@ from cap4d_torch.data.datasets import build_frame_set, load_reference_items, mak
 from cap4d_torch.flame.compute import load_cap4d_flame_model
 from cap4d_torch.mmdm.model import MMDM, check_finite
 from cap4d_torch.mmdm.sampler import StochasticIOSampler
+from cap4d_torch.parallel.mesh import DP, init_dp, local_dp
 from cap4d_torch.runtime.loader import encode_jpeg
 from cap4d_torch.utils.config import load_yaml
-from cap4d_torch.utils.device import resolve_device
 from cap4d_torch.utils.logging import profile_trace
 from cap4d_torch.utils.png import write_png
 
@@ -87,6 +94,7 @@ def run_generation(
     init_noise: Optional[Dict[str, np.ndarray]] = None,
     groups_per_device: int = 1,
     detect_anomaly: bool = False,
+    dp: Optional[DP] = None,
 ) -> Dict[str, object]:
     """Run stage 1 end to end; returns the latents, images and timings.
 
@@ -95,16 +103,22 @@ def run_generation(
     (n_gen, h, w, 4) initial latents; otherwise both are drawn from a
     ``torch.Generator`` seeded with the config's seed. ``groups_per_device``
     view-groups share one UNet call; ``detect_anomaly`` raises
-    ``FloatingPointError`` at the first non-finite value (module docstring)."""
-    dev = resolve_device(device)
+    ``FloatingPointError`` at the first non-finite value (module docstring).
+    ``dp``: the process group the groups split over (None: this process
+    alone, on ``device``); ranks other than 0 write nothing and return after
+    sampling, without images."""
+    dp = local_dp(dp, device)
+    dev = dp.device
+    main = dp.rank == 0
     init_noise = init_noise or {}
     gen_config = load_yaml(config_path)
     out = Path(output_path)
     out_ref = out / "reference_images"
     out_gen = out / "generated_images"
-    for p in (out, out_ref, out_gen):
-        p.mkdir(exist_ok=True, parents=True)
-    shutil.copy(config_path, out / "mmdm_config_dump.yaml")
+    if main:
+        for p in (out, out_ref, out_gen):
+            p.mkdir(exist_ok=True, parents=True)
+        shutil.copy(config_path, out / "mmdm_config_dump.yaml")
 
     seed = int(gen_config["seed"])
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -161,25 +175,32 @@ def run_generation(
         torch.cuda.synchronize(dev)
     print(f"Timing: encode + conditioning banks {time.perf_counter() - t_banks:.1f}s")
 
-    save_flame_params(ref_set.flame_items, out_ref)
-    save_flame_params(gen_set.flame_items, out_gen)
-    if visualize_conditioning:
-        save_condition_vis(model, ref_cond, out_ref)
-        save_condition_vis(model, gen_cond, out_gen)
+    if main:
+        save_flame_params(ref_set.flame_items, out_ref)
+        save_flame_params(gen_set.flame_items, out_gen)
+        if visualize_conditioning:
+            save_condition_vis(model, ref_cond, out_ref)
+            save_condition_vis(model, gen_cond, out_gen)
 
     # --- sampling ---
     sampler = StochasticIOSampler(model, groups_per_device=groups_per_device,
-                                  detect_anomaly=detect_anomaly)
+                                  detect_anomaly=detect_anomaly, dp=dp)
     S = int(gen_config["n_ddim_steps"])
     t_sample = time.perf_counter()
-    with profile_trace(profile_dir):
+    with profile_trace(profile_dir if main else None):
         z_gen = sampler.sample(
             S=S, ref_cond=ref_cond, gen_cond=gen_cond, V=int(gen_config["V"]),
             R_max=int(gen_config["R_max"]), cfg_scale=float(gen_config["cfg_scale"]),
-            seed=seed, x_bank=init_noise.get("x_bank"), generator=gen,
+            seed=seed, x_bank=init_noise.get("x_bank"), generator=gen, verbose=main,
             checkpoint_dir=str(out) if resume else None)
         z_gen_host = z_gen.cpu().numpy()  # device → host copy synchronises
     sampler_s = time.perf_counter() - t_sample
+    n_ref = ref_cond["pos_enc"].shape[0]
+    G = int(gen_config["V"]) - min(n_ref, int(gen_config["R_max"]))
+    group_steps = S * (z_gen_host.shape[0] // G)
+    if not main:
+        return {"z_gen": z_gen_host, "images": None, "sampler_s": sampler_s,
+                "decode_s": None, "group_steps": group_steps}
 
     t_decode = time.perf_counter()
     print(f"Saving reference images to {out_ref}/images")
@@ -189,9 +210,6 @@ def run_generation(
     imgs = model.decode_latents(z_gen, as_uint8=True, detect_anomaly=detect_anomaly)
     save_images(imgs, out_gen)
     decode_s = time.perf_counter() - t_decode
-    n_ref = ref_cond["pos_enc"].shape[0]
-    G = int(gen_config["V"]) - min(n_ref, int(gen_config["R_max"]))
-    group_steps = S * (z_gen_host.shape[0] // G)
     print(f"Timing: sampler {sampler_s:.1f}s ({group_steps} group-steps), "
           f"decode+save {decode_s:.1f}s")
     return {"z_gen": z_gen_host, "images": imgs,
@@ -214,25 +232,31 @@ def main():
     parser.add_argument("--no_resume", action="store_true",
                         help="disable mid-run sampler checkpointing")
     parser.add_argument("--groups_per_device", type=int, default=1,
-                        help="view-groups sampled together in one UNet call")
+                        help="view-groups sampled together in one UNet call on each card "
+                             "(a round holds world x groups_per_device groups)")
     parser.add_argument("--max_dispatch_group_steps", type=int, default=200,
                         help="kept for CLI parity; no effect (each step is launched eagerly)")
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="raise FloatingPointError at the first non-finite value")
     args = parser.parse_args()
-    run_generation(
-        args.config_path,
-        args.reference_data_path,
-        args.output_path,
-        visualize_conditioning=bool(args.visualize_conditioning),
-        allow_random_weights=bool(args.allow_random_weights),
-        flame_asset_dir=args.flame_asset_dir,
-        profile_dir=args.profile_dir,
-        resume=not args.no_resume,
-        device=args.device,
-        groups_per_device=args.groups_per_device,
-        detect_anomaly=args.detect_anomaly,
-    )
+    dp = init_dp(args.device)
+    try:
+        run_generation(
+            args.config_path,
+            args.reference_data_path,
+            args.output_path,
+            visualize_conditioning=bool(args.visualize_conditioning),
+            allow_random_weights=bool(args.allow_random_weights),
+            flame_asset_dir=args.flame_asset_dir,
+            profile_dir=args.profile_dir,
+            resume=not args.no_resume,
+            device=args.device,
+            groups_per_device=args.groups_per_device,
+            detect_anomaly=args.detect_anomaly,
+            dp=dp,
+        )
+    finally:
+        dp.close()
 
 
 if __name__ == "__main__":

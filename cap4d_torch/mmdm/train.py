@@ -3,6 +3,8 @@
 
     python -m cap4d_torch.mmdm.train --config_path configs/mmdm/cap4d_mmdm_final.yaml \
         --output_path out/mmdm_train
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m cap4d_torch.mmdm.train --config_path ... --output_path ...
 
 Reference parity: the shipped recipe (per-device batch 1, virtual batch 64,
 AdamW at lr 1e-4, 100k steps, n_ref 4), the MMLDM loss path (per-view
@@ -13,9 +15,17 @@ As in the JAX package, the weights start from the random-weights mode (the
 config's ``init_path`` names SD 2.1 weights that are not in the repository)
 and the data from ``SyntheticMMDMDataset`` unless a dataset is passed.
 
+Several cards: the CLI joins a ``torchrun`` process group, one process a
+card (``cap4d_torch.parallel``). Each optimizer step's micro-batches split
+over the ranks (``shard_slice(accum, rank, world)``), the ranks average their
+gradients in one all-reduce, and every rank takes the same AdamW step: the
+average of the step's micro-batch gradients is the same at any world size.
+That is what the JAX CLI's docstring says of its ``dp_mesh``; its
+``make_accum_train_step`` never reads the mesh, so the JAX CLI trains on one
+device whatever the mesh.
+
 Differences from ``cap4d_tpu``:
 
-- one card: the JAX ``dp_mesh`` batch sharding has no counterpart;
 - the micro-batches of a step run in a Python loop, each with its own
   backward; PyTorch sums their gradients in ``.grad`` and the step divides
   them by the number of micro-batches, as the JAX scan does;
@@ -30,6 +40,7 @@ Differences from ``cap4d_tpu``:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pickle
 import time
@@ -47,9 +58,15 @@ from cap4d_torch.mmdm.convert import (
 )
 from cap4d_torch.mmdm.ddim import ddim_sample
 from cap4d_torch.mmdm.model import MMDM
-from cap4d_torch.mmdm.training import TrainState, init_train_state, mmdm_loss, schedule_consts
+from cap4d_torch.mmdm.training import (
+    TrainState,
+    all_reduce_grads_,
+    init_train_state,
+    mmdm_loss,
+    schedule_consts,
+)
+from cap4d_torch.parallel.mesh import DP, init_dp, local_dp, shard_slice
 from cap4d_torch.utils.config import load_yaml
-from cap4d_torch.utils.device import resolve_device
 from cap4d_torch.utils.logging import save_image_grid
 
 
@@ -80,13 +97,20 @@ class SyntheticMMDMDataset:
 
 
 def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_steps: int,
-                          cfg_probability: float = 0.1):
+                          cfg_probability: float = 0.1, dp: Optional[DP] = None):
     """One optimizer step over ``accum_steps`` micro-batches (virtual
     batching). Returns step(state, z_stack, cond_stack, generator,
     t_stack=None, noise_stack=None) → mean loss; the stacks are (accum, B,
     ...). Each micro-batch draws its unconditional mask, then its timesteps
     and noise, from ``generator`` unless ``t_stack``/``noise_stack`` give
-    them."""
+    them. With ``dp`` rank r runs micro-batches ``shard_slice(accum_steps,
+    r, world)`` of the stacks (``accum_steps`` must divide evenly); the loss
+    is the global mean and every rank takes the same update."""
+    dp = local_dp(dp, model.device)
+    if accum_steps % dp.world:
+        raise ValueError(f"{accum_steps} micro-batches do not split evenly over {dp.world} ranks")
+    mine = shard_slice(accum_steps, dp.rank, dp.world)
+    n_mine = mine.stop - mine.start
     unet = model.unet
     consts = schedule_consts(model.schedule, model.device)
     num_timesteps = model.schedule.num_timesteps
@@ -108,7 +132,7 @@ def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_s
              noise_stack=None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=z_stack.device)
-        for i in range(accum_steps):
+        for i in range(mine.start, mine.stop):
             loss, _ = micro_loss(z_stack[i], {k: v[i] for k, v in cond_stack.items()}, generator,
                                  None if t_stack is None else t_stack[i],
                                  None if noise_stack is None else noise_stack[i])
@@ -116,10 +140,13 @@ def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_s
             loss_sum += loss.detach()
         for p in unet.parameters():
             if p.grad is not None:
-                p.grad.div_(accum_steps)
+                p.grad.div_(n_mine)
+        mean_loss = loss_sum / n_mine
+        # the mean of the ranks' equal-sized means is the step's mean
+        all_reduce_grads_(unet.parameters(), dp, extra=[mean_loss])
         optimizer.step()
         state.step += 1
-        return loss_sum / accum_steps
+        return mean_loss
 
     return step
 
@@ -160,13 +187,24 @@ def train_mmdm(
     dataset=None,
     image_log_every: Optional[int] = None,
     device=None,
+    dp: Optional[DP] = None,
 ) -> TrainState:
     """Train the MMDM UNet on the card (``device="cpu"`` for the plain
-    versions); returns the final ``TrainState``."""
-    dev = resolve_device(device)
+    versions) over the ranks of ``dp`` (None: this process alone); returns
+    the final ``TrainState``.
+
+    Every rank draws each step's micro-batches from the same seeded dataset
+    and runs its share; its masks, timesteps and noise come from a generator
+    seeded with ``rank · 2³² + 0`` (rank 0's is the one-card seed 0). Only
+    rank 0 writes the metrics, the image log and the checkpoints; the
+    logged loss is the global mean."""
+    dp = local_dp(dp, device)
+    dev = dp.device
+    main = dp.rank == 0
     config = load_yaml(config_path)
     out = Path(output_path)
-    out.mkdir(parents=True, exist_ok=True)
+    if main:
+        out.mkdir(parents=True, exist_ok=True)
 
     model = MMDM.from_config(config, flame_asset_dir=flame_asset_dir, dtype=dtype, device=dev,
                              remat=True, trainable=True)
@@ -178,14 +216,14 @@ def train_mmdm(
 
     state = init_train_state(model.unet, lr)
     step_fn = make_accum_train_step(model, state.optimizer, accum,
-                                    cfg_probability=model.cfg_probability)
+                                    cfg_probability=model.cfg_probability, dp=dp)
     if dataset is None:
         dataset = SyntheticMMDMDataset(model, n_views=model.n_frames,
                                        n_ref=int(config.get("n_ref", 4)))
     batches = dataset.batches(batch)
-    generator = torch.Generator(device=dev).manual_seed(0)
+    generator = torch.Generator(device=dev).manual_seed(dp.rank << 32)
 
-    with open(out / "train_metrics.jsonl", "a") as metrics:
+    with open(out / "train_metrics.jsonl", "a") if main else contextlib.nullcontext() as metrics:
         t0 = time.perf_counter()
         for step in range(1, total + 1):
             micro = [next(batches) for _ in range(accum)]
@@ -193,13 +231,13 @@ def train_mmdm(
             cond_stack = {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro]), device=dev)
                           for k in micro[0]["cond"]}
             loss = step_fn(state, z_stack, cond_stack, generator)
-            if step % log_every == 0 or step == 1:
+            if main and (step % log_every == 0 or step == 1):
                 l = float(loss)   # waits for the step's work on the card
                 dt = (time.perf_counter() - t0) / step
                 print(f"[{step}/{total}] loss={l:.5f} {1 / dt:.3f} steps/s", flush=True)
                 metrics.write(json.dumps({"step": step, "loss": l, "steps_per_sec": 1 / dt}) + "\n")
                 metrics.flush()
-            if image_log_every and step % image_log_every == 0:
+            if main and image_log_every and step % image_log_every == 0:
                 # ImageLogger parity (cldm/logger.py): a decoded sample grid
                 cond1 = {k: v[0][:1] for k, v in cond_stack.items()}
                 shape = (1, model.n_frames, model.latent_size, model.latent_size, 4)
@@ -208,7 +246,7 @@ def train_mmdm(
                 imgs = model.decode_latents(z_s.reshape(-1, *z_s.shape[2:]))
                 save_image_grid(imgs.reshape(1, *imgs.shape),
                                 out / "image_log" / f"samples_{step:06d}.png")
-            if step % save_every == 0 or step == total:
+            if main and (step % save_every == 0 or step == total):
                 save_train_checkpoint(out / f"mmdm_step{step}.pkl", state, step)
     return state
 
@@ -228,8 +266,12 @@ def main():
     args = parser.parse_args()
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
-    train_mmdm(args.config_path, args.output_path, n_steps=args.n_steps,
-               flame_asset_dir=args.flame_asset_dir, device=args.device)
+    dp = init_dp(args.device)
+    try:
+        train_mmdm(args.config_path, args.output_path, n_steps=args.n_steps,
+                   flame_asset_dir=args.flame_asset_dir, device=args.device, dp=dp)
+    finally:
+        dp.close()
 
 
 if __name__ == "__main__":

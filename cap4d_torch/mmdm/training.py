@@ -12,6 +12,14 @@ PyTorch runs eagerly: a step is ``zero_grad``, one backward and
 ``optimizer.step()``. The module holds the parameters, so ``mmdm_loss``
 takes no parameter tree. Timesteps and noise are drawn from a
 ``torch.Generator`` unless they are passed in, as the parity tests do.
+
+Data parallelism (``dp``, one process a card, ``cap4d_torch.parallel``):
+rank r takes the block ``shard_slice(B, r, world)`` of the batch, the one
+the JAX step's ``P("dp")`` puts on device r, and the ranks average their
+gradients with one bucketed all-reduce a step (``all_reduce_grads_``), as
+XLA sums the sharded batch's gradients. ``DistributedDataParallel`` is not
+used: its reducer hooks every backward, while the step reduces once, after
+remat and the micro-batch loop.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from cap4d_torch.mmdm.schedule import DiffusionSchedule
 from cap4d_torch.mmdm.unet import MMDMUNet
+from cap4d_torch.parallel.mesh import DP, all_reduce_mean_, local_dp, shard_slice
 
 ADAMW_BETAS = (0.9, 0.999)
 ADAMW_EPS = 1e-8
@@ -100,19 +109,54 @@ def make_adamw(unet: torch.nn.Module, lr: float = 1e-4) -> torch.optim.AdamW:
                              weight_decay=ADAMW_WEIGHT_DECAY)
 
 
-def make_train_step(unet: MMDMUNet, sched: DiffusionSchedule, optimizer: torch.optim.Optimizer):
+def all_reduce_grads_(params, dp: DP, extra=()) -> int:
+    """Average the gradients of ``params`` (and the tensors ``extra``) over
+    the ranks in one bucketed all-reduce; a no-op without a process group.
+    A rank without a gradient for a parameter adds zeros; a parameter no
+    rank has a gradient for keeps none, so AdamW skips it as it does on one
+    rank. Returns the bytes reduced."""
+    if dp.group is None:
+        return 0
+    params = [p for p in params if p.requires_grad]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    has = torch.tensor([float(p.grad is not None) for p in params], device=grads[0].device)
+    moved = all_reduce_mean_([*grads, has, *extra], dp)
+    for p, g, h in zip(params, grads, has.cpu().tolist()):
+        p.grad = g if h > 0 else None
+    return moved
+
+
+def make_train_step(unet: MMDMUNet, sched: DiffusionSchedule, optimizer: torch.optim.Optimizer,
+                    dp: Optional[DP] = None):
     """Returns step(state, z, cond, generator, t=None, noise=None) → logs:
-    one loss, its backward and one optimizer update."""
-    consts = schedule_consts(sched, next(unet.parameters()).device)
+    one loss, its backward and one optimizer update. With ``dp`` each rank
+    takes its block of the batch (and of ``t``/``noise``); the logs are the
+    global batch means and every rank takes the same update."""
+    device = next(unet.parameters()).device
+    consts = schedule_consts(sched, device)
+    dp = local_dp(dp, device)
 
     def step(state: TrainState, z, cond, generator=None, t=None, noise=None):
+        B = z.shape[0]
+        mine = shard_slice(B, dp.rank, dp.world)
+        n_mine = mine.stop - mine.start
+        # the global mean is Σ_r n_r·loss_r / B: each rank's loss weighs
+        # n_r·world/B before the all-reduce's mean (1 for an even split)
+        weight = n_mine * dp.world / B
         optimizer.zero_grad(set_to_none=True)
-        loss, logs = mmdm_loss(unet, consts, z, cond, generator,
-                               num_timesteps=sched.num_timesteps, t=t, noise=noise)
-        loss.backward()
+        if n_mine:
+            loss, logs = mmdm_loss(unet, consts, z[mine], {k: v[mine] for k, v in cond.items()},
+                                   generator, num_timesteps=sched.num_timesteps,
+                                   t=None if t is None else t[mine],
+                                   noise=None if noise is None else noise[mine])
+            (loss if weight == 1.0 else loss * weight).backward()
+            logs = {k: v.detach() * weight for k, v in logs.items()}
+        else:
+            logs = {k: torch.zeros((), device=z.device) for k in ("loss_simple", "loss")}
+        all_reduce_grads_(unet.parameters(), dp, extra=list(logs.values()))
         optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in logs.items()}
+        return logs
 
     return step
 

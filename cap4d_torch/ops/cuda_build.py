@@ -7,7 +7,9 @@ includes and its flags, so that an edited source or header is rebuilt, and
 loaded with ``ctypes``. ``build_all`` starts one
 ``nvcc`` per source at once. Every C entry point returns
 ``cudaGetLastError()``; the wrapper raises when it is not 0, so a refused
-launch never passes silently.
+launch never passes silently. A ctypes launch goes to the CUDA runtime's
+current device, so ``call`` first checks that every input tensor lies on
+it (a rank of ``cap4d_torch.parallel`` makes its own card current).
 
 Nothing here is imported or built on a machine without CUDA until a kernel
 is launched on a CUDA tensor.
@@ -43,6 +45,15 @@ def nvcc_path() -> str:
         if cand and Path(cand).exists():
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def check_on_current_card(devices, current: int) -> None:
+    """Raise unless every device in ``devices`` is CUDA device ``current``
+    (an index of None means the current one)."""
+    for d in devices:
+        if d.type != "cuda" or (current if d.index is None else d.index) != current:
+            raise ValueError(f"kernel input on {d}, but the launch goes to the current "
+                             f"device cuda:{current}; call torch.cuda.set_device first")
 
 
 class CudaKernel:
@@ -123,8 +134,13 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def call(self, fn: str, *args) -> None:
-        """Launch through C entry point ``fn``; raise on a CUDA error."""
+    def call(self, fn: str, *args, inputs: Sequence) -> None:
+        """Launch through C entry point ``fn`` on the tensors ``inputs``
+        (whose pointers ``args`` carry); raise when one lies on another card
+        than the current one, or on a CUDA error."""
+        import torch
+
+        check_on_current_card([t.device for t in inputs], torch.cuda.current_device())
         lib = self.lib()
         rc = getattr(lib, fn)(*args)
         if rc != 0:

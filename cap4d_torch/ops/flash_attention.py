@@ -119,7 +119,8 @@ def flash_attention_fwd_cuda(q, k, v, with_lse: bool = False):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     KERNEL.call("c4d_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 o.data_ptr(), None if lse is None else lse.data_ptr(), B, S, H,
-                *_strides(q, k, v, o), float(D ** -0.5), ctypes.c_void_p(stream))
+                *_strides(q, k, v, o), float(D ** -0.5), ctypes.c_void_p(stream),
+                inputs=(q, k, v))
     return o, lse
 
 
@@ -149,7 +150,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse):
                     o.data_ptr(), do.data_ptr(), lse.data_ptr(), lse_pad.data_ptr(),
                     dsum_pad.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), B, S, H, *_strides(q, k, v, o, do, dq), float(D ** -0.5),
-                    ctypes.c_void_p(stream))
+                    ctypes.c_void_p(stream), inputs=(q, k, v, o, do, lse))
     return dq, dk, dv
 
 

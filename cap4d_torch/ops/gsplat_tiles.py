@@ -141,7 +141,7 @@ def composite_fwd_cuda(packed, pair_gauss, bounds, tiles_x: int):
     KERNEL_FWD.call("c4d_gsplat_fwd", packed.data_ptr(), pair_gauss.data_ptr(),
                     bounds.data_ptr(), n_tiles, tiles_x, n_rows, work.data_ptr(),
                     out.data_ptr(), n_done.data_ptr(), state.data_ptr(),
-                    ctypes.c_void_p(stream))
+                    ctypes.c_void_p(stream), inputs=(packed, pair_gauss, bounds))
     return out, n_done, state
 
 
@@ -160,7 +160,8 @@ def composite_bwd_cuda(packed, pair_gauss, bounds, out, n_done, state, grad_out,
     KERNEL_BWD.call("c4d_gsplat_bwd", packed.data_ptr(), pair_gauss.data_ptr(),
                     bounds.data_ptr(), out.data_ptr(), n_done.data_ptr(), state.data_ptr(),
                     grad_out.data_ptr(), n_tiles, tiles_x, n_rows, work.data_ptr(),
-                    dpacked.data_ptr(), ctypes.c_void_p(stream))
+                    dpacked.data_ptr(), ctypes.c_void_p(stream),
+                    inputs=(packed, pair_gauss, bounds, out, n_done, state, grad_out))
     return dpacked
 
 

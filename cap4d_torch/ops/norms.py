@@ -150,7 +150,7 @@ def _group_norm_silu_cuda(x, scale, bias, num_groups, eps, apply_silu):
     KERNEL.call("c4d_group_norm_silu", x.data_ptr(), y.data_ptr(), scale.data_ptr(),
                 bias.data_ptr(), n, h * w, c, num_groups, float(eps), int(apply_silu),
                 _DTYPES[x.dtype], plan.slab_groups, plan.cluster, int(plan.resident),
-                ctypes.c_void_p(stream))
+                ctypes.c_void_p(stream), inputs=(x, scale, bias))
     return y
 
 

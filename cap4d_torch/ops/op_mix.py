@@ -165,7 +165,7 @@ def op_mix(x: torch.Tensor, case: str, niter: int, plain: bool = False) -> torch
     x = x.contiguous()
     out = torch.empty_like(x)
     KERNEL.call("c4d_op_mix", _CASE_ID[case], x.data_ptr(), out.data_ptr(), x.shape[0],
-                int(niter), _stream(x))
+                int(niter), _stream(x), inputs=(x,))
     return out
 
 
@@ -186,5 +186,5 @@ def op_mix_term(x: torch.Tensor, acc: torch.Tensor, case: str, plain: bool = Fal
     term = torch.empty((x.shape[0], LANES if case == "scan8" else 5), dtype=torch.float32,
                        device=x.device)
     KERNEL.call("c4d_op_mix_term", _CASE_ID[case], x.data_ptr(), acc.data_ptr(), term.data_ptr(),
-                x.shape[0], _stream(x))
+                x.shape[0], _stream(x), inputs=(x, acc))
     return term

@@ -219,7 +219,8 @@ def _launch(kernel_fn: str, verts, faces, image_size, *outputs):
     base = ws.data_ptr()
     KERNEL.call(kernel_fn, verts.data_ptr(), faces.data_ptr(), B, V, F, height, width, base,
                 base + B * F * 64, base + B * F * 72, *(t.data_ptr() for t in outputs),
-                ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(verts.device.index)))
+                ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(verts.device.index)),
+                inputs=(verts, faces, *outputs))
     return ws
 
 

@@ -77,11 +77,31 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      at step 3); the checkpoint reloads into a fresh UNet; then, outside the
      counted run, one more step through the loop's step function, timed
      alone and profiled, and the AdamW update alone;
- 11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+ 11. the op-mix micro-benchmark (K7) and the full-body SMPL path (``op_mix``,
+     ``smpl``);
+ 12. several cards through ``cap4d_torch.parallel`` (``parallel``), on the one
+     card: NCCL at world 1 (a bucketed all-reduce and a barrier), and NCCL
+     for two ranks on the card refused; then two ranks sharing the card over
+     gloo (started by ``cap4d_torch.parallel.spawn``), against this process
+     alone: stage 1 at the shipped width on signal weights, the debug config
+     cut to 2 DDIM steps, at ``groups_per_device`` 2 (z_gen within
+     ``DP_REL_TOL``), phase 9's 48 frames with ``dp_frames`` 0 (every PNG and
+     the PLY byte-identical to phase 9's), and ``make_accum_train_step`` at
+     full width (the shipped training config, 4 micro-batches over the two
+     ranks, 2 AdamW steps with injected draws after one from seeded random
+     gradients: the first step's loss to 1e-5 relative and gradient norm
+     within ``DP_GRAD_REL_TOL``, the second step's within
+     ``DP_STEP2_REL_TOL``, beside one process run three times; both ranks'
+     parameters bitwise equal); each rank's seconds,
+     peak memory and launches, the gradient all-reduce's bytes and seconds;
+     then stage 1's CLI under ``torch.distributed.run --nproc_per_node 2``
+     (1 DDIM step): rank 0 writes every PNG, rank 1 none;
+ 13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Launch counts are read around each main path (6 and its batched runs, 8,
-9, 9b, 10, and the op-mix and SMPL runs) with every count set to 0 just
-before it; the kernels line sums them.
+9, 9b, 10, the op-mix and SMPL runs, and each rank's runs in 12) with every
+count set to 0 just before it; the kernels line sums them (the ranks return
+theirs to this process).
 
 ``--phases`` runs a subset (for bring-up); the result lines are printed only
 when every phase ran.
@@ -2173,8 +2193,362 @@ def phase_smpl(work: Path, kernels, card: str):
     return fit_launches, anim_launches
 
 
+# ---------------------------------------- several cards: cap4d_torch.parallel ----
+
+# z_gen of stage 1 on two ranks against one process, both at groups_per_device
+# 2 (bf16, signal weights, the same initial latents): each rank's UNet call
+# holds the groups one process's round holds, so the two agree bit for bit
+# unless the processes' convolution or GEMM algorithms differ
+DP_REL_TOL = 0.0
+# training on two ranks against one process (bf16 compute; see
+# phase_parallel (d)): the first step's all-reduced gradient norm, and the
+# second step's loss and gradient norm. One process run twice differed from
+# itself by up to 2.43e-5 and 3.49e-4 there, two ranks by up to 5.91e-6 and
+# 1.56e-4 (H100, PERF.md §6)
+DP_GRAD_REL_TOL = 1e-4
+DP_STEP2_REL_TOL = 1e-3
+
+
+def torch_flags() -> None:
+    """TF32 off for fp32 matmuls and convolutions, in this process and in
+    every rank it starts (the ranks are compared with this process)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def port_kernels():
+    from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, op_mix, rasterize
+
+    return [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL, gsplat_tiles.KERNEL_FWD,
+            gsplat_tiles.KERNEL_BWD, flash_attention.KERNEL_BWD, op_mix.KERNEL]
+
+
+def counted(kernels, fn):
+    """(fn's result, the launches it made, its seconds, its peak GiB)."""
+    import torch
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k.name: k.launches for k in kernels}, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def nccl_rank(dp):
+    """NCCL on the card: three tensors (16 MB) averaged in two buckets, then
+    a barrier; over one rank the mean leaves them as they were."""
+    import torch
+
+    from cap4d_torch.parallel import all_reduce_mean_, barrier
+
+    gen = torch.Generator(device=dp.device).manual_seed(3)
+    ts = [torch.randn(n, generator=gen, device=dp.device) for n in (3_000_000, 1_000_000, 5)]
+    ref = [t.clone() for t in ts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = all_reduce_mean_(ts, dp, bucket_bytes=8 * 2**20)
+    barrier(dp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert all(torch.equal(a, b) for a, b in zip(ts, ref)), "the mean over one rank changed"
+    return {"backend": dp.backend, "nccl": str(torch.cuda.nccl.version()), "bytes": moved,
+            "s": seconds}
+
+
+def dp_stage1(dp, a, cfg, noise, out):
+    """``run_generation`` on signal weights at groups_per_device 2 over the
+    ranks of ``dp`` (None: this process alone); returns z_gen."""
+    import torch
+
+    import cap4d_torch.mmdm.model as mmdm_model
+    from cap4d_torch.inference.generate_images import run_generation
+
+    saved, mmdm_model.init_random_ = mmdm_model.init_random_, signal_init_
+    try:
+        return run_generation(cfg, a.ref_dir, out, allow_random_weights=True,
+                              flame_asset_dir=a.flame_dir, dtype=torch.bfloat16,
+                              init_noise=noise, groups_per_device=2, dp=dp)["z_gen"]
+    finally:
+        mmdm_model.init_random_ = saved
+
+
+def dp_train(dp, cfg_path: Path, flame_dir: Path, steps: int = 2, accum: int = 4) -> dict:
+    """``make_accum_train_step`` at full width (signal weights, bf16 compute,
+    remat) over the ranks of ``dp`` (None: this process alone): ``steps``
+    AdamW steps of ``accum`` micro-batches from the synthetic dataset with
+    injected timesteps and noise (cfg_probability 0, so no mask draw), after
+    one update from seeded random gradients (as the CPU tests carry a JAX
+    TrainState one update past init).
+    Returns the losses, the gradient norms after the all-reduce, a checksum
+    of the parameters' bytes, and the gradient all-reduce alone, timed."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import cap4d_torch.mmdm.model as mmdm_model
+    from cap4d_torch.mmdm.model import MMDM
+    from cap4d_torch.mmdm.train import SyntheticMMDMDataset, make_accum_train_step
+    from cap4d_torch.mmdm.training import all_reduce_grads_, init_train_state
+    from cap4d_torch.mmdm.unet import AttentionModule, GroupNorm32
+    from cap4d_torch.parallel import local_dp
+    from cap4d_torch.utils.config import load_yaml
+
+    dp = local_dp(dp, "cuda")
+    dev = dp.device
+    config = load_yaml(cfg_path)
+    saved, mmdm_model.init_random_ = mmdm_model.init_random_, signal_init_
+    try:
+        model = MMDM.from_config(config, flame_asset_dir=flame_dir, dtype=torch.bfloat16,
+                                 device=dev, remat=True, trainable=True)
+    finally:
+        mmdm_model.init_random_ = saved
+    state = init_train_state(model.unet, float(config["learning_rate"]))
+    params = list(model.unet.parameters())
+    # one AdamW update from seeded random gradients first: an update from
+    # fresh moments is about lr·sign(g), which turns the last bits of a
+    # near-zero gradient into a whole step; after it the updates compared
+    # below are smooth in the gradient
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device=dev)
+    state.optimizer.step()
+    step_fn = make_accum_train_step(model, state.optimizer, accum, cfg_probability=0.0, dp=dp)
+    data = SyntheticMMDMDataset(model, n_views=model.n_frames, n_ref=int(config["n_ref"]),
+                                seed=0).batches(1)
+    losses, norms = [], []
+    for s in range(steps):
+        micro = [next(data) for _ in range(accum)]
+        z = torch.as_tensor(np.stack([m["z"] for m in micro]), device=dev)
+        cond = {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro]), device=dev)
+                for k in micro[0]["cond"]}
+        gen = torch.Generator(device=dev).manual_seed(1000 + s)
+        t = torch.randint(0, model.schedule.num_timesteps, z.shape[:3], generator=gen, device=dev)
+        noise = torch.randn(z.shape, generator=gen, device=dev)
+        losses.append(float(step_fn(state, z, cond, None, t_stack=t, noise_stack=noise)))
+        norms.append(float(torch.linalg.vector_norm(
+            torch.stack([p.grad.norm() for p in params if p.grad is not None]))))
+    digest = hashlib.sha256()
+    for p in params:
+        digest.update(p.detach().cpu().numpy().tobytes())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = all_reduce_grads_(params, dp)
+    torch.cuda.synchronize()
+    return {"losses": losses, "grad_norms": norms, "checksum": digest.hexdigest(),
+            "allreduce_bytes": moved, "allreduce_s": time.perf_counter() - t0,
+            "n_params": sum(p.numel() for p in params),
+            "n_attn": sum(isinstance(m, AttentionModule) for m in model.unet.modules()),
+            "n_gn": sum(isinstance(m, GroupNorm32) for m in model.unet.modules())}
+
+
+def ply_diff(a: Path, b: Path) -> str:
+    """The elements and fields of two PLY files that differ, with the most
+    they differ by."""
+    import numpy as np
+
+    from cap4d_torch.utils.plyio import read_ply
+
+    pa, pb = read_ply(a), read_ply(b)
+    out = []
+    for el in pa:
+        for f in pa[el].dtype.names:
+            x, y = pa[el][f].astype(np.float64), pb[el][f].astype(np.float64)
+            if x.shape != y.shape or not np.array_equal(x, y):
+                d = np.abs(x - y) if x.shape == y.shape else None
+                out.append(f"{el}.{f}: " + ("shapes differ" if d is None else
+                                            f"{int((d > 0).sum())} values, max {d.max():.3g}"))
+    return "; ".join(out) if out else "equal values"
+
+
+def parallel_rank(dp, a, cfg, noise, anim, train_cfg):
+    """One rank of the two sharing the card: stage 1's group split, the
+    animation's frame split, training's data-parallel step, each counted."""
+    import torch
+
+    from cap4d_torch.avatar.animate import render_sequence
+
+    torch_flags()
+    kernels = port_kernels()
+    out = {"stage1": counted(kernels, lambda: dp_stage1(dp, a, cfg, noise, a.root / "dp_world2"))}
+    torch.cuda.empty_cache()
+    out["animate"] = counted(kernels, lambda: render_sequence(
+        anim.model_path, anim.drv, anim.out, flame_asset_dir=str(anim.flame_dir),
+        compress_ply=True, dp=dp))
+    torch.cuda.empty_cache()
+    out["train"] = counted(kernels, lambda: dp_train(dp, train_cfg, a.flame_dir))
+    return out
+
+
+def phase_parallel(work: Path, model_path: Path, flame_dir: Path, kernels, card: str):
+    """Several cards through ``cap4d_torch.parallel`` on the one card there
+    is: NCCL at world 1; two ranks sharing the card over gloo for stage 1's
+    group split, the animation's frame split and training's data-parallel
+    step, each against this process alone; stage 1's CLI under
+    ``torch.distributed.run``. Returns the ranks' launch counts."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cap4d_torch.parallel import spawn
+    from cap4d_torch.utils.config import dump_yaml, load_yaml
+
+    t_phase = time.perf_counter()
+    log("[parallel] compute mode " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip())
+    # (a) NCCL at world 1; NCCL asked for two ranks on the one card raises
+    (nccl,) = spawn(nccl_rank, 1, "cuda", backend="nccl", timeout_s=300)
+    assert nccl["backend"] == "nccl", nccl
+    log(f"[parallel] NCCL {nccl['nccl']} at world 1: {nccl['bytes']} bytes all-reduced in 2 "
+        f"buckets + a barrier in {nccl['s']:.4f} s")
+    try:
+        spawn(nccl_rank, 2, "cuda", backend="nccl", timeout_s=300)
+    except Exception as e:      # the rank's ValueError, raised here with its traceback
+        assert "NCCL refuses two ranks on one device" in str(e), e
+    else:
+        raise AssertionError("NCCL accepted two ranks on one card")
+    log("[parallel] NCCL for two ranks on one card: refused (the rank raised, spawn raised)")
+
+    # one process: stage 1 (the debug config cut to 2 DDIM steps) and training
+    a = stage1_assets(work)
+    cfg2 = a.root / "gen_config_2steps.yaml"
+    dump_yaml(dict(load_yaml(a.cfg), n_ddim_steps=2), cfg2)
+    gen = torch.Generator(device="cuda").manual_seed(124)
+    noise = {"encode": torch.randn((1, 64, 64, 4), generator=gen, device="cuda").cpu().numpy(),
+             "x_bank": torch.randn((a.n_samples, 64, 64, 4), generator=gen,
+                                   device="cuda").cpu().numpy()}
+    z1, _, s1_s, s1_peak = counted(kernels, lambda: dp_stage1(None, a, cfg2, noise,
+                                                               a.root / "dp_world1"))
+    torch.cuda.empty_cache()
+    train_cfg = work / "parallel" / "train_config.yaml"
+    train_cfg.parent.mkdir()
+    dump_yaml(load_yaml(REPO / "configs" / "mmdm" / "cap4d_mmdm_final.yaml"), train_cfg)
+    t1, _, t1_s, t1_peak = counted(kernels, lambda: dp_train(None, train_cfg, a.flame_dir))
+    # one process's own spread: two more runs, each against the first
+    t1_again = [dp_train(None, train_cfg, a.flame_dir) for _ in range(2)]
+    torch.cuda.empty_cache()
+    log(f"[parallel] one process: stage 1 {s1_s:.1f} s (peak {s1_peak:.2f} GiB), training "
+        f"2 steps of 4 micro-batches {t1_s:.1f} s (peak {t1_peak:.2f} GiB)")
+
+    # (b)-(d): two ranks on the card over gloo
+    anim = SimpleNamespace(model_path=model_path, drv=work / "driving" / "fit.npz",
+                           out=work / "animation_dp", flame_dir=flame_dir)
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, 2, "cuda", a, cfg2, noise, anim, train_cfg, timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        log(f"[parallel] rank {r}: " + " | ".join(
+            f"{path} {res[path][2]:.1f} s, peak {res[path][3]:.2f} GiB, launches {res[path][1]}"
+            for path in ("stage1", "animate", "train")))
+
+    # (b) stage 1: rank 0 wrote the files, both ranks hold the same latents
+    z2 = [res["stage1"][0] for res in ranks]
+    assert np.array_equal(z2[0], z2[1]), "the ranks' z_gen differ"
+    same = bool(np.array_equal(z2[0], z1))
+    rel = float(np.linalg.norm(z2[0] - z1) / np.linalg.norm(z1))
+    log(f"[parallel] stage 1, 2 ranks x 2 groups a call vs one process at 2: z_gen "
+        f"{'bit-identical' if same else 'differs'}, max |diff| "
+        f"{float(np.abs(z2[0] - z1).max()):.4g}, relative norm gap {rel:.4g} (tolerance "
+        f"{DP_REL_TOL}) | on {card}")
+    assert rel <= DP_REL_TOL, f"stage 1 world 2 vs 1 relative gap {rel} > {DP_REL_TOL}"
+    out2 = a.root / "dp_world2"
+    assert len(list((out2 / "generated_images" / "images").glob("*.png"))) == a.n_samples
+    calls = 2           # 2 DDIM steps, one round of 4 groups: one UNet call a rank a step
+    for res in ranks:
+        launches = res["stage1"][1]
+        assert launches["flash_attention"] == 16 * calls, launches
+        assert launches["group_norm"] == 61 * calls, launches
+        assert launches["rasterize"] > 0, launches
+
+    # (c) the animation: every frame and the PLY byte-identical to phase 9's
+    seq, par = work / "animation", anim.out
+    for i in range(48):
+        name = f"frames/{i:05d}.png"
+        assert (seq / name).read_bytes() == (par / name).read_bytes(), f"frame {i} differs"
+    ply = "exported_animation.ply"
+    if (seq / ply).read_bytes() != (par / ply).read_bytes():
+        raise AssertionError("the PLY differs: " + ply_diff(seq / ply, par / ply))
+    rank_s = ranks[0]["animate"][0]["rank_render_s"]
+    assert [res["animate"][1]["gsplat_fwd"] for res in ranks] == [24, 24]
+    log(f"[parallel] animation, 48 frames at 512x512 over 2 ranks: every PNG and the PLY "
+        f"byte-identical to phase 9's | render loops {rank_s[0]:.2f} / {rank_s[1]:.2f} s, "
+        f"{48 / max(rank_s):.2f} FPS over the slowest rank (two ranks share one card)")
+
+    # (d) training: the ranks bitwise equal, each step against one process
+    tr = [res["train"][0] for res in ranks]
+    gaps = {f"{key} step {s + 1}": (abs(tr[0][key][s] - t1[key][s]) / abs(t1[key][s]),
+                                    *(abs(r[key][s] - t1[key][s]) / abs(t1[key][s])
+                                      for r in t1_again))
+            for key in ("losses", "grad_norms") for s in range(2)}
+    log("[parallel] training, relative gaps to one process (two ranks | one process again, "
+        "twice): " + ", ".join(f"{k} {g[0]:.3g} | {g[1]:.3g}, {g[2]:.3g}" for k, g in gaps.items()))
+    assert tr[0]["checksum"] == tr[1]["checksum"], "the ranks' parameters differ"
+    for key in ("losses", "grad_norms"):
+        assert tr[0][key] == tr[1][key], key
+    # step 1 starts from the same parameters as one process: the same loss;
+    # its gradients differ in last bits (K6 adds dQ atomically, and the sums
+    # over micro-batches associate differently over two ranks), which bf16
+    # backward layers round to whole ulps
+    assert gaps["losses step 1"][0] <= 1e-5, (tr[0]["losses"], t1["losses"])
+    assert gaps["grad_norms step 1"][0] <= DP_GRAD_REL_TOL, (tr[0]["grad_norms"],
+                                                              t1["grad_norms"])
+    # step 2 starts from parameters that differ in their last bits, and the
+    # bf16 forward turns any difference into whole-ulp roundings
+    for key in ("losses", "grad_norms"):
+        assert gaps[f"{key} step 2"][0] <= DP_STEP2_REL_TOL, (key, tr[0][key], t1[key])
+    for res in ranks:
+        launches, n_attn, n_gn = res["train"][1], tr[0]["n_attn"], tr[0]["n_gn"]
+        micro = 2 * 2      # 2 steps x 2 micro-batches a rank
+        assert launches["flash_attention_bwd"] == micro * n_attn, launches
+        assert launches["flash_attention"] == micro * 2 * n_attn, launches
+        assert launches["group_norm"] == micro * (2 * n_gn - 1), launches
+    log(f"[parallel] training, 4 micro-batches over 2 ranks, 2 AdamW steps, {tr[0]['n_params']} "
+        f"parameters: losses {tr[0]['losses']} (one process {t1['losses']}), gradient norms "
+        f"{tr[0]['grad_norms']} (one process {t1['grad_norms']}), parameter checksums equal | "
+        f"gradient all-reduce (gloo through host memory, two ranks on one card): "
+        f"{tr[0]['allreduce_bytes']} bytes in {tr[0]['allreduce_s']:.3f} / "
+        f"{tr[1]['allreduce_s']:.3f} s | on {card}")
+
+    # stage 1's CLI under torch.distributed.run, one DDIM step on random weights
+    cfg1 = a.root / "gen_config_1step.yaml"
+    dump_yaml(dict(load_yaml(a.cfg), n_ddim_steps=1), cfg1)
+    logs, out_cli = work / "torchrun_logs", a.root / "dp_cli"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "--log_dir", str(logs), "--redirects", "3", "-m",
+         "cap4d_torch.inference.generate_images", "--config_path", str(cfg1),
+         "--reference_data_path", str(a.ref_dir), "--output_path", str(out_cli),
+         "--allow_random_weights", "1", "--flame_asset_dir", str(a.flame_dir)],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    cli_s = time.perf_counter() - t0
+    stdout = {p.parent.name: p.read_text() for p in logs.rglob("stdout.log")}
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:], stdout)
+    assert set(stdout) == {"0", "1"}, sorted(stdout)
+    assert "[dp] backend gloo, world 2" in stdout["0"], stdout["0"][-2000:]
+    assert "Saving generated images" in stdout["0"] and "Saving" not in stdout["1"], stdout
+    assert len(list((out_cli / "generated_images" / "images").glob("*.png"))) == a.n_samples
+    assert len(list((out_cli / "reference_images" / "images").glob("*.png"))) == 1
+    log(f"[parallel] torch.distributed.run --nproc_per_node 2 -m "
+        f"cap4d_torch.inference.generate_images (1 DDIM step): {cli_s:.1f} s, rank 0 wrote "
+        f"{a.n_samples} + 1 PNGs, rank 1 none")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s (the two-rank spawn "
+        f"{spawn_s:.1f} s) | on {card}")
+    return [res[path][1] for res in ranks for path in ("stage1", "animate", "train")]
+
+
 PHASES = ("attention", "attention_bwd", "group_norm", "rasterize", "unet", "unet_grad",
-          "generate", "loader", "gsplat", "fit", "animate", "quality", "train", "op_mix", "smpl")
+          "generate", "loader", "gsplat", "fit", "animate", "quality", "train", "op_mix", "smpl",
+          "parallel")
 
 
 def main() -> int:
@@ -2195,18 +2569,17 @@ def main() -> int:
     # animation drives the fit's checkpoint
     assert "fit" not in phases or {"generate", "gsplat"} <= set(phases), phases
     assert "animate" not in phases or "fit" in phases, phases
+    # the parallel phase compares with the animation's frames and drives its checkpoint
+    assert "parallel" not in phases or "animate" in phases, phases
     sys.path.insert(0, str(REPO))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch_flags()
 
     from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, op_mix, rasterize
 
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
         f"nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    kernels = [flash_attention.KERNEL, norms.KERNEL, rasterize.KERNEL,
-               gsplat_tiles.KERNEL_FWD, gsplat_tiles.KERNEL_BWD, flash_attention.KERNEL_BWD,
-               op_mix.KERNEL]
+    kernels = port_kernels()
     phase_build(kernels)
     if "attention" in phases or "attention_bwd" in phases:
         phase_attention_sass()
@@ -2264,6 +2637,8 @@ def main() -> int:
         main_paths.append(phase_op_mix(entries[6], kernels, card))
     if "smpl" in phases:
         main_paths.extend(phase_smpl(work, kernels, card))
+    if "parallel" in phases:
+        main_paths.extend(phase_parallel(work, model_path, flame_dir, kernels, card))
     shutil.rmtree(work, ignore_errors=True)
     if phases != list(PHASES):
         log(f"[done] phases {phases} passed; no result lines for a partial run")

@@ -116,8 +116,10 @@ def test_cli_flags_match_jax(monkeypatch):
     try:
         for extra in ([], ["--groups_per_device", "4", "--max_dispatch_group_steps", "50",
                            "--detect_anomaly"]):
-            for mod in (jgen, tgen):
-                monkeypatch.setattr("sys.argv", argv + extra)
+            # the port's CLI resolves its device (joining a process group
+            # under torchrun) before it calls run_generation
+            for mod, device in ((jgen, []), (tgen, ["--device", "cpu"])):
+                monkeypatch.setattr("sys.argv", argv + device + extra)
                 mod.main()
             anomaly = bool(jax.config.jax_debug_nans)
             assert got["torch"]["groups_per_device"] == got["jax"]["groups_per_device"]

@@ -384,9 +384,9 @@ def test_smpl_fit_animation_and_ply(smpl_dir, capture, fitted):
     assert res["frames"] == 2 and len(list((out / "frames").glob("*.png"))) == 2
     ply = read_ply(out / "exported_animation.ply")
     assert "delta_vertex_00001" in ply and len(ply["vertex"]) == trainer.n_active
-    with pytest.raises(ValueError, match="dp_frames"):
+    with pytest.raises(ValueError, match="dp_frames"):   # more ranks than the one process
         render_sequence_smpl(model_path, _driving(root), out, smpl_asset_dir=smpl_dir,
-                             dp_frames=0, device="cpu")
+                             dp_frames=2, device="cpu")
 
 
 def test_smpl_port_checkpoint_loads_into_jax(smpl_dir, capture, fitted):
