@@ -5,8 +5,11 @@ All frames' FLAME forwards and projections run as one batched call on the
 FLAME model's device; image I/O, crop boxes and ray maps stay on the host.
 Reference frames go through the native runtime's fused decode → crop →
 resize on a thread pool (``runtime.loader.NativePrefetcher``) when no frame
-has a background directory, as in the JAX package; frames with one take the
-Python path (``data/utils.py``), which composites the background first.
+has a background directory, as in the JAX package; frames with one, and
+frames of a video file (``images/<camera>.mp4``), take the Python path
+(``data/utils.py``), which composites the background first. A video is read
+on the FLAME model's device: Motion-JPEG anywhere, H.264 and VP9 only on the
+card (``VideoFrameReader``).
 """
 
 from __future__ import annotations
@@ -148,9 +151,9 @@ def build_frame_set(
                     res = item["resolutions"].flatten()
                     ocm = np.ones((int(res[0]), int(res[1]), 1), np.float32)
                 else:
-                    img = load_frame(img_dir, timestep_id)
+                    img = load_frame(img_dir, timestep_id, dev)
                     if "bg_dir_path" in item:
-                        bg = load_frame(item.pop("bg_dir_path"), timestep_id)
+                        bg = load_frame(item.pop("bg_dir_path"), timestep_id, dev)
                     else:
                         bg = np.ones_like(img) * 255
                     ocm = np.ones_like(img[..., [0]], np.float32)

@@ -5,16 +5,22 @@ so ``rescale_image`` carries numpy copies of OpenCV's ``INTER_AREA``
 (fractional-overlap box weights rounded to float32, ``computeResizeAreaTab``)
 and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
-(``cap4d_torch/runtime``).
+(``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
+(the port's own mp4/mov demuxer, ``data/mp4.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from cap4d_torch.runtime.loader import decode_image
+from cap4d_torch.data.mp4 import read_track
+from cap4d_torch.runtime.loader import decode_bytes, decode_image
+from cap4d_torch.runtime.nvdec import CODEC_NAMES, nvdec_refusal
+from cap4d_torch.utils.device import resolve_device
 
 CROP_MARGIN = 0.2
 
@@ -136,21 +142,73 @@ def load_camera_rays(crop_box, intr, extr, target_resolution: int) -> np.ndarray
     return d.reshape(3, h, -1)
 
 
-def load_frame(frame_dir: Path, frame_id: int) -> np.ndarray:
-    """Frame ``frame_id`` (sorted order) of a directory of PNG or JPEG frames,
-    RGB uint8. A video file raises ``ValueError``: the JAX package reads it
-    with cv2's ``VideoCapture``, and the card's machine has no video decoder
-    (no cv2, no ffmpeg)."""
-    frame_dir = Path(frame_dir)
-    if not frame_dir.is_dir():
-        raise ValueError(f"{frame_dir}: frames must be a directory of PNG or JPEG images; "
-                         "video input needs a video decoder (cv2 or ffmpeg), which the port "
-                         "does not have")
-    frames = sorted(frame_dir.glob("*.*"))
-    if frame_id >= len(frames):
-        print(f"WARNING: Frame {frame_id} out of bounds for video with length {len(frames)}")
-        frame_id = len(frames) - 1
-    return decode_image(frames[frame_id])
+class VideoFrameReader:
+    """The frames of an ``.mp4``/``.mov`` file, RGB uint8 (H, W, 3) by frame
+    index in presentation order (the JAX package's cv2 reader, same name,
+    ``len`` and indexing).
+
+    Motion-JPEG and PNG samples decode on the host through the runtime,
+    whatever ``device`` is. H.264 and VP9 need the card's NVDEC: ``device``
+    None resolves through ``resolve_device`` (which raises without CUDA),
+    ``device="cpu"`` raises ``ValueError`` (the port has no software
+    decoder), and on the card the reader raises ``RuntimeError`` with
+    NVDEC's answer (``runtime/nvdec.py``: the port does not drive its decoder
+    yet). Other codecs raise ``ValueError`` naming the four-character code
+    (``data/mp4.py``). No file handle stays open between reads."""
+
+    def __init__(self, video_path, device=None):
+        self.path = Path(video_path)
+        self.track = read_track(self.path)
+        t = self.track
+        if t.codec in CODEC_NAMES:
+            what = f"{self.path}: {CODEC_NAMES[t.codec]} ({t.fourcc!r}, {t.width}x{t.height})"
+            dev = resolve_device(device)
+            if dev.type != "cuda":
+                raise ValueError(f"{what} decodes only on the card (NVDEC); the port has no "
+                                 f"software decoder for it, so device={str(dev)!r} cannot read it")
+            card = dev.index if dev.index is not None else torch.cuda.current_device()
+            raise RuntimeError(f"{what}: {nvdec_refusal(t.codec, t.width, t.height, card)}")
+
+    def __len__(self) -> int:
+        return len(self.track)
+
+    def __getitem__(self, index: int) -> np.ndarray:
+        if not 0 <= index < len(self):
+            raise IndexError(index)
+        return decode_bytes(self.track.sample(int(self.track.order[index])),
+                            f"{self.path} frame {index}", (self.track.height, self.track.width))
+
+
+@functools.lru_cache(maxsize=2)
+def _open_video(path: str, mtime_ns: int, size: int, device) -> VideoFrameReader:
+    return VideoFrameReader(path, device)
+
+
+def open_video(path, device=None) -> VideoFrameReader:
+    """A reader of ``path``, kept open for the last two files (keyed by path,
+    modification time, size and device), so stage 1's several reference
+    frames from one video parse its ``moov`` once."""
+    st = Path(path).stat()
+    return _open_video(str(Path(path).resolve()), st.st_mtime_ns, st.st_size,
+                       None if device is None else str(device))
+
+
+def load_frame(frame_path: Path, frame_id: int, device=None) -> np.ndarray:
+    """Frame ``frame_id`` of a directory of PNG or JPEG frames (sorted order)
+    or of a video file (:class:`VideoFrameReader` on ``device``), RGB uint8.
+    An index past the end warns and reads the last frame, as the JAX
+    package's ``load_frame`` does."""
+    frame_path = Path(frame_path)
+    if frame_path.is_dir():
+        frames = sorted(frame_path.glob("*.*"))
+        n, read = len(frames), lambda i: decode_image(frames[i])
+    else:
+        reader = open_video(frame_path, device)
+        n, read = len(reader), reader.__getitem__
+    if frame_id >= n:
+        print(f"WARNING: Frame {frame_id} out of bounds for video with length {n}")
+        frame_id = n - 1
+    return read(frame_id)
 
 
 def adjust_intrinsics_crop(fx, fy, cx, cy, bbox, target_resolution):

@@ -12,10 +12,11 @@ from cap4d_torch.parallel.mesh import (
     init_dp,
     local_dp,
     pick_backend,
+    rank_card,
     shard_slice,
     spawn,
 )
 
 __all__ = ["DP", "all_reduce_mean_", "all_reduce_sum_", "barrier", "broadcast_", "dp_mesh",
-           "gather_object", "init_dp", "local_dp", "pick_backend", "shard_slice",
-           "spawn"]
+           "gather_object", "init_dp", "local_dp", "pick_backend", "rank_card",
+           "shard_slice", "spawn"]

@@ -71,12 +71,29 @@ class DP:
             dist.destroy_process_group()
 
 
+def rank_card(index: Optional[int], local_rank: int, local_world: int,
+              n_cards: int) -> tuple[int, int]:
+    """(this rank's card, how many cards the host's ``local_world`` ranks use
+    between them). An explicit ``index`` (``--device cuda:0``) puts every
+    local rank on that card; without one, rank ``r`` takes card
+    ``r % n_cards``."""
+    if n_cards < 1:
+        raise ValueError("no CUDA card is visible")
+    if index is not None:
+        if not 0 <= index < n_cards:
+            raise ValueError(f"card {index} requested, {n_cards} visible")
+        return index, 1
+    return local_rank % n_cards, min(local_world, n_cards)
+
+
 def pick_backend(device_type: str, local_world: int, n_cards: int,
                  requested: Optional[str] = None) -> str:
     """The backend rule: NCCL when each of the host's ``local_world`` ranks
     has a card of its own, gloo when they share cards or run on the CPU.
-    Raises on a request the rule refuses (NCCL on the CPU or on a shared
-    card) instead of switching."""
+    ``n_cards`` is the number of cards those ranks use between them
+    (:func:`rank_card`), not the number visible. Raises on a request the
+    rule refuses (NCCL on the CPU or on a shared card) instead of
+    switching."""
     if requested not in (None, "nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {requested!r}")
     if device_type == "cpu":
@@ -108,7 +125,8 @@ def init_dp(device=None, backend: Optional[str] = None, init_method: Optional[st
     (and ``MASTER_ADDR``/``MASTER_PORT`` through the ``env://`` store unless
     ``init_method`` names another). Without them it returns world 1 on
     ``resolve_device(device)`` and creates no group. On CUDA the rank's card
-    is ``cuda:{local_rank % device_count}``, made current before anything
+    is ``cuda:{local_rank % device_count}``, or the card ``device`` names
+    for every local rank (which then share it), made current before anything
     launches; ``device="cpu"`` runs the plain versions over gloo. Rank 0
     prints the backend and the device map."""
     env = os.environ
@@ -120,8 +138,8 @@ def init_dp(device=None, backend: Optional[str] = None, init_method: Optional[st
     dev = resolve_device(device)
     n_cards = 0
     if dev.type == "cuda":
-        n_cards = torch.cuda.device_count()
-        dev = torch.device("cuda", dev.index if dev.index is not None else local_rank % n_cards)
+        card, n_cards = rank_card(dev.index, local_rank, local_world, torch.cuda.device_count())
+        dev = torch.device("cuda", card)
         torch.cuda.set_device(dev)
     chosen = pick_backend(dev.type, local_world, n_cards, backend)
     dist.init_process_group(chosen, init_method=init_method or "env://", rank=rank,

@@ -1464,6 +1464,13 @@ std::vector<uint8_t> encode_jpeg_buffer(const uint8_t* rgb, int w, int h, int qu
 
 // ============================================================ file I/O ====
 
+// a PNG or JPEG image in memory (a file's bytes, or a video sample)
+int decode_bytes(const uint8_t* data, size_t n, Image* img) {
+  if (n >= 2 && data[0] == 0x89 && data[1] == 'P') return decode_png_buffer(data, n, img);
+  if (n >= 2 && data[0] == 0xFF && data[1] == 0xD8) return decode_jpeg_buffer(data, n, img);
+  return C4D_EFORMAT;
+}
+
 int decode_image(const char* path, Image* img) {
   FILE* fp = fopen(path, "rb");
   if (!fp) return C4D_EOPEN;
@@ -1474,11 +1481,7 @@ int decode_image(const char* path, Image* img) {
   const bool read_error = ferror(fp);
   fclose(fp);
   if (read_error) return C4D_EOPEN;
-  if (data.size() >= 2 && data[0] == 0x89 && data[1] == 'P')
-    return decode_png_buffer(data.data(), data.size(), img);
-  if (data.size() >= 2 && data[0] == 0xFF && data[1] == 0xD8)
-    return decode_jpeg_buffer(data.data(), data.size(), img);
-  return C4D_EFORMAT;
+  return decode_bytes(data.data(), data.size(), img);
 }
 
 // pad-crop (crop_image semantics: OOB → bg value) into a square crop buffer
@@ -1618,6 +1621,16 @@ struct Pool {
   }
 };
 
+// dims via w/h; the pixels into out when they fit its cap_bytes
+int copy_out(const Image& img, uint8_t* out, long cap_bytes, int* w, int* h) {
+  *w = img.w;
+  *h = img.h;
+  const long need = static_cast<long>(img.rgb.size());
+  if (need > cap_bytes) return C4D_ECAPACITY;
+  std::memcpy(out, img.rgb.data(), need);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1634,12 +1647,16 @@ int c4d_decode_image(const char* path, uint8_t* out, long cap_bytes, int* w,
                      int* h) {
   Image img;
   if (int rc = decode_image(path, &img)) return rc;
-  *w = img.w;
-  *h = img.h;
-  const long need = static_cast<long>(img.rgb.size());
-  if (need > cap_bytes) return C4D_ECAPACITY;
-  std::memcpy(out, img.rgb.data(), need);
-  return 0;
+  return copy_out(img, out, cap_bytes, w, h);
+}
+
+// The same from n bytes in memory (a Motion-JPEG or PNG video sample).
+int c4d_decode_buffer(const uint8_t* data, long n, uint8_t* out, long cap_bytes,
+                      int* w, int* h) {
+  if (n < 0) return C4D_EARG;
+  Image img;
+  if (int rc = decode_bytes(data, static_cast<size_t>(n), &img)) return rc;
+  return copy_out(img, out, cap_bytes, w, h);
 }
 
 // RGB (h, w, 3) uint8 → a baseline 4:2:0 JPEG file at `quality` (1..100).

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "c4d_load_frame": ([ctypes.c_char_p, _INT_P, ctypes.c_int, ctypes.c_int, _FLOAT_P],
                        ctypes.c_int),
     "c4d_decode_image": ([ctypes.c_char_p, _U8_P, ctypes.c_long, _INT_P, _INT_P], ctypes.c_int),
+    "c4d_decode_buffer": ([ctypes.c_char_p, ctypes.c_long, _U8_P, ctypes.c_long, _INT_P, _INT_P],
+                          ctypes.c_int),
     "c4d_encode_jpeg": ([ctypes.c_char_p, _U8_P, ctypes.c_int, ctypes.c_int, ctypes.c_int],
                         ctypes.c_int),
     "c4d_pool_create": ([ctypes.c_int], ctypes.c_void_p),
@@ -132,17 +134,38 @@ def load_frame_native(path: str | Path, crop_box, target_res: int, bg_value: int
     return out
 
 
+def _decode(fn, args: tuple, name, shape=None) -> np.ndarray:
+    """Decode through ``fn(*args, out, cap, &w, &h)``: once into a buffer of
+    the expected ``shape`` (h, w) when one is given and the image has it,
+    else twice, once for the size and once into a buffer of that size."""
+    w, h = ctypes.c_int(0), ctypes.c_int(0)
+    if shape is not None:
+        out = np.empty((*shape, 3), np.uint8)
+        status = fn(*args, out.ctypes.data_as(_U8_P), out.nbytes, ctypes.byref(w),
+                    ctypes.byref(h))
+        if status == 0 and (h.value, w.value) == tuple(shape):
+            return out
+        if status not in (0, -2):
+            _check(status, name)
+    status = fn(*args, None, 0, ctypes.byref(w), ctypes.byref(h))
+    if status != -2:   # the size query fails with -2 once the image decoded
+        _check(status, name)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    _check(fn(*args, out.ctypes.data_as(_U8_P), out.nbytes, ctypes.byref(w), ctypes.byref(h)),
+           name)
+    return out
+
+
 def decode_image(path: str | Path) -> np.ndarray:
     """A PNG or JPEG file → RGB uint8 (H, W, 3)."""
-    w, h = ctypes.c_int(0), ctypes.c_int(0)
-    fn = lib().c4d_decode_image
-    status = fn(str(path).encode(), None, 0, ctypes.byref(w), ctypes.byref(h))
-    if status != -2:   # the size query fails with -2 once the image decoded
-        _check(status, path)
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    _check(fn(str(path).encode(), out.ctypes.data_as(_U8_P), out.nbytes,
-              ctypes.byref(w), ctypes.byref(h)), path)
-    return out
+    return _decode(lib().c4d_decode_image, (str(path).encode(),), path)
+
+
+def decode_bytes(data: bytes, name: str = "image", shape=None) -> np.ndarray:
+    """A PNG or JPEG image in memory (a Motion-JPEG or PNG video sample) →
+    RGB uint8 (H, W, 3); decoded once when its (H, W) is ``shape`` (a video
+    track's size), twice otherwise; errors name ``name``."""
+    return _decode(lib().c4d_decode_buffer, (data, len(data)), name, shape)
 
 
 def encode_jpeg(path: str | Path, rgb: np.ndarray, quality: int = 95) -> None:

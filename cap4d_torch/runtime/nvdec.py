@@ -1,0 +1,146 @@
+"""H.264 and VP9 on the card: NVDEC's decoder caps and the NV12 → RGB
+conversion.
+
+The JAX package decodes video with cv2 (ffmpeg, on the host). The port has
+no software decoder for H.264 or VP9 and is not to have one: those codecs
+are NVDEC's (``libnvcuvid.so.1``, which ships with NVIDIA's GPU libraries
+and which a container can use when its ``NVIDIA_DRIVER_CAPABILITIES``
+include ``video``).
+
+:func:`decoder_caps` asks ``cuvidGetDecoderCaps`` (through ctypes, on the
+card's primary context, the one torch uses) what the card's NVDEC takes,
+and :func:`nvdec_refusal` turns its answer into the error that
+``VideoFrameReader`` raises for an H.264 or VP9 file on the card. The
+decoder itself (``cuvidCreateVideoParser`` / ``cuvidCreateDecoder``) is not
+driven yet: on the H100 machine it was developed for, the container grants
+``compute,utility`` only, and every ``cuvidGetDecoderCaps`` and
+``cuvidCreateDecoder`` call returns ``CUDA_ERROR_OUT_OF_MEMORY`` (2), for
+every codec. ROADMAP keeps the item.
+
+:func:`nv12_to_rgb` is the colour conversion such a decoder's NV12 planes
+need: plain PyTorch, on whatever device the planes are on, tested on the
+CPU against cv2's decode of the port's own H.264 stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+import torch
+
+# cudaVideoCodec (cuviddec.h)
+CODEC_IDS = {"h264": 4, "vp9": 10}
+CODEC_NAMES = {"h264": "H.264", "vp9": "VP9"}
+CHROMA_420 = 1          # cudaVideoChromaFormat_420
+# (Kr, Kb) of each matrix: Rec. ITU-R BT.601, BT.709, BT.2020
+MATRICES = {"bt601": (0.299, 0.114), "bt709": (0.2126, 0.0722), "bt2020": (0.2627, 0.0593)}
+CUDA_ERRORS = {2: "CUDA_ERROR_OUT_OF_MEMORY", 100: "CUDA_ERROR_NO_DEVICE",
+               801: "CUDA_ERROR_NOT_SUPPORTED", 1: "CUDA_ERROR_INVALID_VALUE"}
+
+
+class DecodeCaps(ctypes.Structure):
+    """``CUVIDDECODECAPS`` of the Video Codec SDK's ``cuviddec.h`` (88 bytes;
+    SDK 9-12 agree on the layout)."""
+
+    _fields_ = [("eCodecType", ctypes.c_int), ("eChromaFormat", ctypes.c_int),
+                ("nBitDepthMinus8", ctypes.c_uint), ("reserved1", ctypes.c_uint * 3),
+                ("bIsSupported", ctypes.c_ubyte), ("nNumNVDECs", ctypes.c_ubyte),
+                ("nOutputFormatMask", ctypes.c_ushort), ("nMaxWidth", ctypes.c_uint),
+                ("nMaxHeight", ctypes.c_uint), ("nMaxMBCount", ctypes.c_uint),
+                ("nMinWidth", ctypes.c_ushort), ("nMinHeight", ctypes.c_ushort),
+                ("reserved3", ctypes.c_uint * 11)]
+
+
+assert ctypes.sizeof(DecodeCaps) == 88
+
+
+def decoder_caps(codec: str, card: int = 0) -> Dict:
+    """``cuvidGetDecoderCaps`` for ``codec`` ("h264" or "vp9") at 8-bit
+    4:2:0 on card ``card``'s primary context: {"status", "supported",
+    "nvdecs", "formats", "min", "max", "max_mbs"}, or {"error": why} when
+    ``libcuda.so.1`` or ``libnvcuvid.so.1`` does not load or a CUDA call
+    fails."""
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+        cuvid = ctypes.CDLL("libnvcuvid.so.1")
+    except OSError as e:
+        return {"error": f"{e}"}
+    dev, ctx = ctypes.c_int(0), ctypes.c_void_p()
+    for name, rc in (("cuInit", lambda: cuda.cuInit(0)),
+                     ("cuDeviceGet", lambda: cuda.cuDeviceGet(ctypes.byref(dev), card)),
+                     ("cuDevicePrimaryCtxRetain",
+                      lambda: cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev))):
+        status = rc()
+        if status != 0:
+            return {"error": f"{name} returned {status} ({CUDA_ERRORS.get(status, '?')})"}
+    try:
+        status = cuda.cuCtxPushCurrent_v2(ctx)
+        if status != 0:
+            return {"error": f"cuCtxPushCurrent returned {status}"}
+        caps = DecodeCaps(eCodecType=CODEC_IDS[codec], eChromaFormat=CHROMA_420)
+        status = cuvid.cuvidGetDecoderCaps(ctypes.byref(caps))
+        cuda.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+    finally:
+        cuda.cuDevicePrimaryCtxRelease_v2(dev)
+    return {"status": status, "supported": bool(caps.bIsSupported), "nvdecs": caps.nNumNVDECs,
+            "formats": caps.nOutputFormatMask, "min": (caps.nMinWidth, caps.nMinHeight),
+            "max": (caps.nMaxWidth, caps.nMaxHeight), "max_mbs": caps.nMaxMBCount}
+
+
+def nvdec_refusal(codec: str, width: int, height: int, card: int = 0) -> str:
+    """Why NVDEC will not decode ``codec`` at ``width`` x ``height`` on card
+    ``card``, naming the library, codec, size and status."""
+    name = CODEC_NAMES[codec]
+    caps = decoder_caps(codec, card)
+    if "error" in caps:
+        return f"NVDEC (libnvcuvid.so.1) is not usable: {caps['error']}"
+    if caps["status"] != 0:
+        return (f"cuvidGetDecoderCaps({name}, 8-bit 4:2:0) returned {caps['status']} "
+                f"({CUDA_ERRORS.get(caps['status'], 'see cuda.h')}); NVDEC needs a container "
+                "whose NVIDIA_DRIVER_CAPABILITIES include 'video'")
+    if not caps["supported"]:
+        return f"the card's NVDEC does not decode {name} 8-bit 4:2:0"
+    (w0, h0), (w1, h1) = caps["min"], caps["max"]
+    if not (w0 <= width <= w1 and h0 <= height <= h1):
+        return (f"the card's NVDEC decodes {name} from {w0}x{h0} to {w1}x{h1}, "
+                f"not {width}x{height}")
+    return (f"the card's NVDEC takes {name} at {width}x{height}, but the port does not drive "
+            "its decoder yet")
+
+
+def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
+                full_range: bool = False) -> np.ndarray:
+    """NV12 planes → RGB uint8 (H, W, 3) numpy, as ``VideoFrameReader``
+    returns frames.
+
+    ``y`` (H, W) and ``uv`` (ceil(H/2), ceil(W/2), 2) uint8 tensors (NV12's
+    interleaved chroma plane), on any device. Chroma is repeated over each
+    2x2 block of luma (what swscale's unscaled 4:2:0 converter does);
+    ``matrix`` names the YCbCr matrix (:data:`MATRICES`), and limited range
+    scales luma 16..235 and chroma 16..240 to 0..255. Computed in float32,
+    rounded to nearest."""
+    if matrix not in MATRICES:
+        raise ValueError(f"matrix must be one of {sorted(MATRICES)}, got {matrix!r}")
+    if y.dtype != torch.uint8 or uv.dtype != torch.uint8 or uv.shape[-1] != 2:
+        raise ValueError(f"nv12_to_rgb takes uint8 planes, got {y.dtype} {tuple(y.shape)} "
+                         f"and {uv.dtype} {tuple(uv.shape)}")
+    h, w = y.shape
+    if uv.shape[:2] != ((h + 1) // 2, (w + 1) // 2):
+        raise ValueError(f"chroma plane {tuple(uv.shape)} does not fit luma {h}x{w}")
+    kr, kb = MATRICES[matrix]
+    kg = 1.0 - kr - kb
+    c = uv.float() - 128.0
+    c = c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :w]
+    u, v = c[..., 0], c[..., 1]
+    luma = y.float()
+    if not full_range:
+        luma = (luma - 16.0) * (255.0 / 219.0)
+        u, v = u * (255.0 / 224.0), v * (255.0 / 224.0)
+    r = luma + 2.0 * (1.0 - kr) * v
+    g = luma - (2.0 * kb * (1.0 - kb) / kg) * u - (2.0 * kr * (1.0 - kr) / kg) * v
+    b = luma + 2.0 * (1.0 - kb) * u
+    rgb = torch.stack([r, g, b], -1).round_().clamp_(0.0, 255.0).to(torch.uint8)
+    return rgb.cpu().numpy()
+

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import json
 import pickle
+import re
+import struct
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -487,3 +489,217 @@ def raster_edge_set(height: int, width: int, seed: int = 0):
         faces.append(f + offset)
         offset += v.shape[1]
     return np.concatenate(verts, axis=1), np.concatenate(faces, axis=0)
+
+
+# ------------------------------------------------------------------ video ----
+# An mp4/mov writer and an H.264 stream whose decode is known exactly, for
+# the video reader's tests and chip_smoke.py (the card's machine has no
+# encoder). Boxes follow ISO/IEC 14496-12; the H.264 syntax is Rec. ITU-T
+# H.264's (7.3.2.1 SPS, 7.3.2.2 PPS, 7.3.3 slice header, 7.3.4 slice data).
+
+VIDEO_TIMESCALE, FRAME_TICKS = 12288, 512     # ticks a second and a frame: 24 fps
+UNITY_MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+
+
+def _box(kind: bytes, *parts: bytes) -> bytes:
+    body = b"".join(parts)
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _full_box(kind: bytes, version: int, flags: int, *parts: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags), *parts)
+
+
+def visual_sample_entry(fourcc: bytes, width: int, height: int, *children: bytes) -> bytes:
+    """A VisualSampleEntry (``avc1``, ``jpeg``, ...) with its child boxes."""
+    return _box(fourcc, b"\0" * 6, struct.pack(">H", 1), b"\0" * 16,
+                struct.pack(">HHIIIH", width, height, 0x480000, 0x480000, 0, 1),
+                b"\0" * 32, struct.pack(">Hh", 0x18, -1), *children)
+
+
+def write_mp4(path, samples, entry: bytes, width: int, height: int, sync=None,
+              brand: bytes = b"isom", ctts=None, per_chunk: int = 1, co64: bool = False) -> None:
+    """One video track at 24 fps: ``samples`` (bytes each, in decode order)
+    described by the sample entry ``entry``, ``sync`` the sync flags (all
+    when None), an edit list that skips nothing (as cv2 writes). ``brand`` b"qt  " makes
+    a QuickTime ``.mov``. For the demuxer's tests: ``ctts`` the composition
+    offsets in frames, ``per_chunk`` samples a chunk (the last chunk takes
+    the rest), ``co64`` 64-bit chunk offsets."""
+    n, delta = len(samples), FRAME_TICKS
+    duration = n * delta
+    ftyp = _box(b"ftyp", brand, struct.pack(">I", 0x200 if brand == b"isom" else 0),
+                brand + (b"iso2mp41" if brand == b"isom" else b""))
+    sizes = [len(s) for s in samples]
+    offsets = np.cumsum([len(ftyp) + (16 if co64 else 8)] + sizes[:-1])[::per_chunk]
+    mdat = (_box(b"mdat", *samples) if not co64 else
+            struct.pack(">I4sQ", 1, b"mdat", 16 + sum(sizes)) + b"".join(samples))
+    stbl = [_full_box(b"stsd", 0, 0, struct.pack(">I", 1), entry),
+            _full_box(b"stts", 0, 0, struct.pack(">III", 1, n, delta))]
+    if ctts is not None:
+        stbl.append(_full_box(b"ctts", 0, 0, struct.pack(f">I{2 * n}I", n, *[
+            v for c in ctts for v in (1, c * delta)])))
+    if sync is not None and not all(sync):
+        keys = [i + 1 for i, s in enumerate(sync) if s]
+        stbl.append(_full_box(b"stss", 0, 0, struct.pack(f">I{len(keys)}I", len(keys), *keys)))
+    runs = [(1, per_chunk)] + ([(len(offsets), n - per_chunk * (len(offsets) - 1))]
+                               if n % per_chunk else [])
+    kind, field = (b"co64", "Q") if co64 else (b"stco", "I")
+    chunk_box = _full_box(kind, 0, 0, struct.pack(f">I{len(offsets)}{field}", len(offsets),
+                                                  *offsets))
+    stbl += [_full_box(b"stsc", 0, 0, struct.pack(f">I{3 * len(runs)}I", len(runs), *[
+                 v for first, k in runs for v in (first, k, 1)])),
+             _full_box(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *sizes)), chunk_box]
+    minf = _box(b"minf", _full_box(b"vmhd", 0, 1, b"\0" * 8),
+                _box(b"dinf", _full_box(b"dref", 0, 0, struct.pack(">I", 1),
+                                        _full_box(b"url ", 0, 1))),
+                _box(b"stbl", *stbl))
+    mdia = _box(b"mdia",
+                _full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, VIDEO_TIMESCALE, duration,
+                                                     0x55C4, 0)),
+                _full_box(b"hdlr", 0, 0, b"\0" * 4, b"vide", b"\0" * 12, b"VideoHandler\0"),
+                minf)
+    tkhd = _full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, duration), b"\0" * 8,
+                     struct.pack(">hhhH", 0, 0, 0, 0), UNITY_MATRIX,
+                     struct.pack(">II", width << 16, height << 16))
+    edts = _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">IIiI", 1, duration, 0, 0x10000)))
+    mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIIIIH", 0, 0, VIDEO_TIMESCALE, duration,
+                                                0x10000, 0x100), b"\0" * 10, UNITY_MATRIX,
+                     b"\0" * 24, struct.pack(">I", 2))
+    moov = _box(b"moov", mvhd, _box(b"trak", tkhd, edts, mdia))
+    Path(path).write_bytes(ftyp + mdat + moov)
+
+
+class _Bits:
+    """An MSB-first bit writer with Exp-Golomb codes (H.264 9.1)."""
+
+    def __init__(self):
+        self.bits: list = []
+
+    def u(self, n: int, v: int) -> "_Bits":
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+        return self
+
+    def ue(self, v: int) -> "_Bits":
+        n = (v + 1).bit_length()
+        return self.u(n - 1, 0).u(n, v + 1)
+
+    def se(self, v: int) -> "_Bits":
+        return self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def align(self, bit: int = 0) -> "_Bits":
+        while len(self.bits) % 8:
+            self.bits.append(bit)
+        return self
+
+    def trailing(self) -> "_Bits":
+        return self.u(1, 1).align()
+
+    def tobytes(self) -> bytes:
+        assert len(self.bits) % 8 == 0
+        return np.packbits(np.array(self.bits, np.uint8)).tobytes()
+
+
+def nal_unit(header: int, rbsp: bytes) -> bytes:
+    """A NAL unit: its header byte, then the RBSP with emulation-prevention
+    bytes inserted (0x03 after two zero bytes that precede a byte <= 3)."""
+    return bytes([header]) + re.sub(b"\x00\x00(?=[\x00-\x03])", b"\x00\x00\x03", rbsp)
+
+
+def h264_frames(n_frames: int, width: int, height: int, seed: int = 0):
+    """``n_frames`` of smooth moving 4:2:0 content in video range (luma
+    16..235, chroma 16..240): (Y (h, w), U (h/2, w/2), V) uint8 each."""
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    y, x = np.mgrid[0:height, 0:width] / max(width, height)
+    out = []
+    for k in range(n_frames):
+        t = 0.35 * k
+        luma = 126 + 100 * np.sin(7 * x + 3 * y + t + phase[0]) * np.cos(4 * y - t)
+        cb = 128 + 100 * np.sin(5 * x - t + phase[1])[::2, ::2]
+        cr = 128 + 100 * np.cos(6 * y + t + phase[2])[::2, ::2]
+        out.append((np.clip(np.rint(luma), 16, 235).astype(np.uint8),
+                    np.clip(np.rint(cb), 16, 240).astype(np.uint8),
+                    np.clip(np.rint(cr), 16, 240).astype(np.uint8)))
+    return out
+
+
+def write_h264_mp4(path, n_frames: int, width: int, height: int, gop: int = 8,
+                   seed: int = 0):
+    """An H.264 mp4 whose every decoded frame is known exactly.
+
+    Baseline profile, CAVLC, ``pic_order_cnt_type`` 2, no VUI (so BT.601
+    limited range, decoders' default). Frame ``k`` with ``k % gop == 0`` is
+    an IDR picture made only of ``I_PCM`` macroblocks (the samples as they
+    are); every other frame a reference P picture that skips all its
+    macroblocks (``mb_skip_run`` = all, motion zero), so it decodes to a copy
+    of the IDR before it. ``stss`` lists the IDRs; samples carry 4-byte NAL
+    lengths. Width and height must be even; the coded picture is padded to
+    whole macroblocks by repeating the last row and column, and cropped
+    back. Returns the decoded frames, (Y, U, V) uint8 each
+    (:func:`h264_frames` for the IDRs)."""
+    if width % 2 or height % 2 or not 2 <= gop <= 16:
+        raise ValueError(f"even width and height, gop 2..16 (got {width}x{height}, gop {gop})")
+    mbw, mbh = -(-width // 16), -(-height // 16)
+    n_mbs = mbw * mbh
+    sps = _Bits().u(8, 66).u(8, 0xC0).u(8, 51).ue(0).ue(0).ue(2).ue(1).u(1, 0)
+    sps.ue(mbw - 1).ue(mbh - 1).u(1, 1).u(1, 1)
+    crop = (mbw * 16 - width) // 2, (mbh * 16 - height) // 2
+    sps.u(1, int(any(crop)))
+    if any(crop):
+        sps.ue(0).ue(crop[0]).ue(0).ue(crop[1])
+    sps = nal_unit(0x67, sps.u(1, 0).trailing().tobytes())
+    pps = _Bits().ue(0).ue(0).u(1, 0).u(1, 0).ue(0).ue(0).ue(0).u(1, 0).u(2, 0)
+    pps = nal_unit(0x68, pps.se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, 0).trailing().tobytes())
+
+    idrs = h264_frames(-(-n_frames // gop), width, height, seed)
+    samples, frames = [], []
+    for k in range(n_frames):
+        if k % gop == 0:
+            planes = idrs[k // gop]
+            ys, us, vs = (np.pad(p, ((0, mbh * s - p.shape[0]), (0, mbw * s - p.shape[1])),
+                                 mode="edge") for p, s in zip(planes, (16, 8, 8)))
+            mbs = np.empty((n_mbs, 386), np.uint8)
+            mbs[:, :2] = (0x0D, 0x00)     # mb_type ue(25) = I_PCM, then 7 alignment bits
+            mbs[:, 2:258] = ys.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(n_mbs, 256)
+            mbs[:, 258:322] = us.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(n_mbs, 64)
+            mbs[:, 322:] = vs.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(n_mbs, 64)
+            head = _Bits().ue(0).ue(7).ue(0).u(4, 0).ue(k // gop % 65536).u(1, 0).u(1, 0)
+            head.se(0).ue(1).ue(25).align()
+            rbsp = head.tobytes() + mbs[0, 2:].tobytes() + mbs[1:].tobytes() + b"\x80"
+            nal = nal_unit(0x65, rbsp)
+        else:
+            head = _Bits().ue(0).ue(5).ue(0).u(4, k % gop).u(1, 0).u(1, 0).u(1, 0)
+            nal = nal_unit(0x41, head.se(0).ue(1).ue(n_mbs).trailing().tobytes())
+        samples.append(struct.pack(">I", len(nal)) + nal)
+        frames.append(planes)
+    avcc = _box(b"avcC", bytes([1, 66, 0xC0, 51, 0xFF, 0xE1]), struct.pack(">H", len(sps)), sps,
+                bytes([1]), struct.pack(">H", len(pps)), pps)
+    write_mp4(path, samples, visual_sample_entry(b"avc1", width, height, avcc), width, height,
+              sync=[k % gop == 0 for k in range(n_frames)])
+    return frames
+
+
+def write_mjpeg_video(path, frames, quality: int = 90) -> None:
+    """A Motion-JPEG video of RGB uint8 frames, encoded by the port's
+    runtime: a QuickTime ``jpeg`` sample entry for a ``.mov`` path, else an
+    mp4 ``mp4v`` entry whose ``esds`` names JPEG (object type 0x6C), the
+    two forms cv2 writes."""
+    from cap4d_torch.runtime.loader import encode_jpeg
+
+    path = Path(path)
+    tmp = path.with_suffix(".frame.jpg")
+    samples = []
+    try:
+        for rgb in frames:
+            encode_jpeg(tmp, rgb, quality)
+            samples.append(tmp.read_bytes())
+    finally:
+        tmp.unlink(missing_ok=True)
+    h, w = frames[0].shape[:2]
+    if path.suffix == ".mov":
+        write_mp4(path, samples, visual_sample_entry(b"jpeg", w, h), w, h, brand=b"qt  ")
+        return
+    # ES_Descriptor(ES_ID 1, DecoderConfigDescriptor(JPEG, visual), SLConfigDescriptor)
+    esds = _full_box(b"esds", 0, 0, bytes([3, 21, 0, 1, 0, 4, 13, 0x6C, 0x11]),
+                     b"\0" * 11, bytes([6, 1, 2]))
+    write_mp4(path, samples, visual_sample_entry(b"mp4v", w, h, esds), w, h)

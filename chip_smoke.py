@@ -54,6 +54,14 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      the prefetch pool against the serial Python path, and a
      ``--detect_anomaly`` stage 1 whose UNet returns NaN at DDIM step 2,
      which must raise ``FloatingPointError``;
+  6c. video input (``video``): the probe of NVDEC (``libnvcuvid``,
+     ``NVIDIA_DRIVER_CAPABILITIES``, ``cuvidGetDecoderCaps`` for H.264 and
+     VP9, ``cuvidCreateDecoder`` for H.264); the port's H.264 stream at 1920x1080 and 1080x1920 through the demuxer,
+     ``nv12_to_rgb`` on the card against the CPU, and its read on the card,
+     which raises NVDEC's answer (the port drives no decoder yet);
+     Motion-JPEG at 1080p (.mp4 and .mov) through the runtime, sequential
+     and random access, timed; stage 1's reference loader on a Motion-JPEG
+     video against the same frames as a PNG directory;
   7. K4/K5 (3DGS tile compositing forward/backward) against the plain
      compositor at the fit's shapes: a freshly initialised full-width avatar
      (``configs/avatar/default.yaml`` model_params, head-sized sphere
@@ -113,8 +121,10 @@ Times are CUDA-event times on the card, with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1025,6 +1035,86 @@ def runtime_probe() -> None:
         f"g++ {shutil.which('g++')} | ffmpeg {shutil.which('ffmpeg')}")
 
 
+def video_probe() -> dict:
+    """What the machine offers video input: ``libcuda.so.1`` and
+    ``libnvcuvid.so.1`` (NVDEC), ``NVIDIA_DRIVER_CAPABILITIES``, the Video
+    Codec SDK headers, the Python video modules, ``cuvidGetDecoderCaps`` for
+    H.264 and VP9 at 8-bit 4:2:0 and ``cuvidCreateDecoder`` for H.264.
+    Returns the caps by codec."""
+    import importlib
+
+    from cap4d_torch.runtime import nvdec
+
+    libs = {}
+    for name in ("libcuda.so.1", "libnvcuvid.so.1"):
+        try:
+            ctypes.CDLL(name)
+            libs[name] = "loads"
+        except OSError as e:
+            libs[name] = f"absent ({e})"
+    roots = ["/usr/local/cuda/include", "/usr/local/cuda/targets/x86_64-linux/include",
+             "/usr/include"]
+    headers = {h: [r for r in roots if Path(r, h).exists()] for h in ("nvcuvid.h", "cuviddec.h")}
+    modules = {}
+    for mod in ("av", "torchvision.io", "decord"):
+        try:
+            importlib.import_module(mod)
+            modules[mod] = "imports"
+        except ImportError as e:
+            modules[mod] = f"{type(e).__name__}: {e}"[:80]
+    log(f"[video] probe: {libs} | NVIDIA_DRIVER_CAPABILITIES="
+        f"{os.environ.get('NVIDIA_DRIVER_CAPABILITIES')!r} | SDK headers {headers} | "
+        f"modules {modules}")
+    caps = {codec: nvdec.decoder_caps(codec) for codec in ("h264", "vp9")}
+    log(f"[video] probe: cuvidGetDecoderCaps (8-bit 4:2:0) {caps}")
+    if "error" not in caps["h264"]:
+        log(f"[video] probe: cuvidCreateDecoder (H.264 1920x1088 NV12) returned "
+            f"{create_decoder_status()}")
+    return caps
+
+
+class DecoderCreateInfo(ctypes.Structure):
+    """``CUVIDDECODECREATEINFO`` of ``cuviddec.h`` (176 bytes on x86-64)."""
+    _fields_ = [("ulWidth", ctypes.c_ulong), ("ulHeight", ctypes.c_ulong),
+                ("ulNumDecodeSurfaces", ctypes.c_ulong), ("CodecType", ctypes.c_int),
+                ("ChromaFormat", ctypes.c_int), ("ulCreationFlags", ctypes.c_ulong),
+                ("bitDepthMinus8", ctypes.c_ulong), ("ulIntraDecodeOnly", ctypes.c_ulong),
+                ("ulMaxWidth", ctypes.c_ulong), ("ulMaxHeight", ctypes.c_ulong),
+                ("Reserved1", ctypes.c_ulong), ("display_area", ctypes.c_short * 4),
+                ("OutputFormat", ctypes.c_int), ("DeinterlaceMode", ctypes.c_int),
+                ("ulTargetWidth", ctypes.c_ulong), ("ulTargetHeight", ctypes.c_ulong),
+                ("ulNumOutputSurfaces", ctypes.c_ulong), ("vidLock", ctypes.c_void_p),
+                ("target_rect", ctypes.c_short * 4), ("enableHistogram", ctypes.c_ulong),
+                ("Reserved2", ctypes.c_ulong * 4)]
+
+
+def create_decoder_status() -> int:
+    """``cuvidCreateDecoder``'s status for an H.264 1920x1088 NV12 decoder
+    (8 surfaces, PreferCUVID with a context lock) on card 0's primary
+    context; a decoder it makes is destroyed again."""
+    cuda, cuvid = ctypes.CDLL("libcuda.so.1"), ctypes.CDLL("libnvcuvid.so.1")
+    assert ctypes.sizeof(DecoderCreateInfo) == 176
+    dev, ctx, lock, dec = ctypes.c_int(0), ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
+    assert cuda.cuDeviceGet(ctypes.byref(dev), 0) == 0
+    assert cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev) == 0
+    try:
+        assert cuda.cuCtxPushCurrent_v2(ctx) == 0
+        assert cuvid.cuvidCtxLockCreate(ctypes.byref(lock), ctx) == 0
+        info = DecoderCreateInfo(ulWidth=1920, ulHeight=1088, ulNumDecodeSurfaces=8,
+                                 CodecType=4, ChromaFormat=1, ulCreationFlags=4,
+                                 ulMaxWidth=1920, ulMaxHeight=1088, ulTargetWidth=1920,
+                                 ulTargetHeight=1088, ulNumOutputSurfaces=2, vidLock=lock)
+        info.display_area[:] = [0, 0, 1920, 1080]
+        status = cuvid.cuvidCreateDecoder(ctypes.byref(dec), ctypes.byref(info))
+        if status == 0:
+            cuvid.cuvidDestroyDecoder(dec)
+        cuvid.cuvidCtxLockDestroy(lock)
+        cuda.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+    finally:
+        cuda.cuDevicePrimaryCtxRelease_v2(dev)
+    return status
+
+
 def test_image(h: int, w: int, seed: int):
     """A smooth RGB uint8 image with mild noise."""
     import numpy as np
@@ -1126,6 +1216,122 @@ def phase_loader(work: Path, card: str):
         raise AssertionError("detect_anomaly did not raise on a NaN eps")
     finally:
         MMDMUNet.forward = forward
+
+
+# ------------------------------------------------------------ video input ----
+
+VIDEO_SIZES = ((1920, 1080), (1080, 1920))   # 1080p, and portrait phone video
+
+
+def phase_video(work: Path, card: str):
+    """Video input on the card's machine: the probe; the port's H.264 stream
+    at 1920x1080 and 1080x1920 (24 frames, an IDR every 8) through the
+    demuxer, ``nv12_to_rgb`` on the card against the CPU on its planes, and
+    its read on the card, which raises NVDEC's answer; Motion-JPEG at 1080p
+    (.mp4 and .mov) through the runtime, sequential and random access,
+    timed; stage 1's reference loader on a Motion-JPEG video against the
+    same frames as a PNG directory."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.data import mp4
+    from cap4d_torch.data.datasets import build_frame_set, load_reference_items
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame
+    from cap4d_torch.flame.compute import load_cap4d_flame_model
+    from cap4d_torch.runtime.nvdec import nv12_to_rgb
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.png import read_png, write_png
+
+    caps = video_probe()
+    d = work / "video"
+    d.mkdir(parents=True, exist_ok=True)
+    for w, h in VIDEO_SIZES:
+        path = d / f"h264_{w}x{h}.mp4"
+        t0 = time.perf_counter()
+        planes = sa.write_h264_mp4(path, 24, w, h, gop=8)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t = mp4.read_track(path)
+        demux_ms = 1e3 * (time.perf_counter() - t0)
+        assert (t.codec, t.width, t.height, len(t)) == ("h264", w, h, 24), t
+        assert list(np.flatnonzero(t.sync)) == [0, 8, 16], t.sync
+        assert [mp4.annexb(t.sample(i), t.avc.length_size)[4] & 0x1F for i in range(24)] == [
+            5 if i % 8 == 0 else 1 for i in range(24)]
+        worst, differing = 0, 0
+        for k in (0, 8, 16):
+            y, u, v = (torch.from_numpy(p) for p in planes[k])
+            uv = torch.stack([u, v], -1)
+            diff = np.abs(nv12_to_rgb(y.cuda(), uv.cuda()).astype(int) - nv12_to_rgb(y, uv))
+            worst, differing = max(worst, int(diff.max())), differing + int((diff > 0).sum())
+        # the same float32 ops on both devices; a value within an ulp of .5
+        # may round the other way
+        assert worst <= 1, worst
+        try:
+            load_frame(path, 3)
+        except RuntimeError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{path.name}: an H.264 read on the card returned a frame")
+        assert "H.264" in refusal and "NVDEC" in refusal, refusal
+        log(f"[video] H.264 {w}x{h}, 24 frames, IDR every 8: written in {write_s:.2f} s "
+            f"({path.stat().st_size} bytes), demuxed in {demux_ms:.2f} ms; nv12_to_rgb card vs "
+            f"CPU max |diff| {worst} ({differing} values differ of {3 * 3 * w * h}) | read on "
+            f"the card raises: {refusal}")
+    usable = all(c.get("status") == 0 and c.get("supported") for c in caps.values())
+    log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'}: H.264 and "
+        f"VP9 decode not measured; VP9 has no encoder on this machine")
+
+    # Motion-JPEG at 1080p through the runtime, in both sample entries
+    frames = [test_image(1080, 1920, k) for k in range(24)]
+    reads = {}
+    for name in ("mjpeg.mp4", "mjpeg.mov"):
+        path = d / name
+        sa.write_mjpeg_video(path, frames)
+        reader = VideoFrameReader(path, device="cuda")
+        assert len(reader) == 24 and reader.track.codec == "mjpeg"
+        t0 = time.perf_counter()
+        seq = [reader[k] for k in range(24)]
+        seq_ms = 1e3 * (time.perf_counter() - t0) / 24
+        order = np.random.default_rng(0).permutation(24)
+        t0 = time.perf_counter()
+        rand = {int(k): load_frame(path, int(k)) for k in order}
+        rand_ms = 1e3 * (time.perf_counter() - t0) / 24
+        assert all(np.array_equal(seq[k], rand[k]) for k in range(24)), "random access differs"
+        err = max(float(np.abs(f.astype(int) - g).mean()) for f, g in zip(seq, frames))
+        assert err < 4.0, err    # quality 90 and the frames' noise (std 4)
+        reads[name] = seq
+        log(f"[video] Motion-JPEG {name} 1920x1080, 24 frames ({path.stat().st_size} bytes): "
+            f"{seq_ms:.2f} ms a frame sequential, {rand_ms:.2f} ms a load_frame(k) in random "
+            f"order, equal; mean |frame - source| {err:.3f} | on {card}")
+    assert all(np.array_equal(a, b) for a, b in zip(*reads.values())), ".mp4 and .mov differ"
+
+    # stage 1's reference loader: images/cam0.mp4 against a PNG directory
+    root = d / "stage1"
+    flame_dir = sa.make_asset_dir(root)
+    ref = sa.make_reference_dir(root, resolution=512, n_timesteps=3)
+    video = ref / "images" / "cam0.mp4"
+    sa.write_mjpeg_video(video, [read_png(p) for p in sorted((ref / "images" / "cam0").glob("*"))])
+    fit = dict(np.load(ref / "fit.npz"))
+    fit["camera_order"] = np.array(["cam0.mp4"])
+    np.savez(ref / "fit.npz", **fit)
+    (ref / "reference_images.json").write_text('[["cam0.mp4", 1]]')
+    flame = load_cap4d_flame_model(flame_dir, n_shape_params=150, n_expr_params=65,
+                                   add_mouth=True, device=torch.device("cuda"))
+    head_ids = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
+    items, extr = load_reference_items(ref)
+    from_video = build_frame_set(flame, items, head_ids, extr, 512, is_reference=True)
+    decoded = [VideoFrameReader(video)[k] for k in range(3)]
+    video.rename(root / "cam0.mp4")
+    for sub, imgs in (("images", decoded), ("bg", [np.full_like(decoded[0], 255)] * 3)):
+        (ref / sub / "cam0.mp4").mkdir(parents=True)
+        for k, img in enumerate(imgs):
+            write_png(ref / sub / "cam0.mp4" / f"{k:05d}.png", img)
+    items, extr = load_reference_items(ref)
+    from_pngs = build_frame_set(flame, items, head_ids, extr, 512, is_reference=True)
+    assert np.array_equal(from_video.images, from_pngs.images), "video-fed frame set differs"
+    assert np.isfinite(from_video.images).all() and np.abs(from_video.images).max() > 0.1
+    log(f"[video] stage 1's reference loader on images/cam0.mp4 (Motion-JPEG, frame 1 at "
+        f"512²) equals the same frames as a PNG directory (white bg directory)")
 
 
 # ------------------------------------ the held-out quality of the head fit ----
@@ -2392,8 +2598,6 @@ def phase_parallel(work: Path, model_path: Path, flame_dir: Path, kernels, card:
     group split, the animation's frame split and training's data-parallel
     step, each against this process alone; stage 1's CLI under
     ``torch.distributed.run``. Returns the ranks' launch counts."""
-    import os
-
     import numpy as np
     import torch
 
@@ -2547,8 +2751,8 @@ def phase_parallel(work: Path, model_path: Path, flame_dir: Path, kernels, card:
 
 
 PHASES = ("attention", "attention_bwd", "group_norm", "rasterize", "unet", "unet_grad",
-          "generate", "loader", "gsplat", "fit", "animate", "quality", "train", "op_mix", "smpl",
-          "parallel")
+          "generate", "loader", "video", "gsplat", "fit", "animate", "quality", "train",
+          "op_mix", "smpl", "parallel")
 
 
 def main() -> int:
@@ -2622,6 +2826,8 @@ def main() -> int:
         main_paths.extend(gen_launches)
     if "loader" in phases:
         phase_loader(work, card)
+    if "video" in phases:
+        phase_video(work, card)
     if "gsplat" in phases:
         flame_dir, stage1_out = phase_gsplat(entries[3], entries[4], work, stage1_out)
     if "fit" in phases:

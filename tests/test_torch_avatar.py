@@ -33,6 +33,7 @@ from cap4d_torch.avatar.deform_net import UnetGenerator
 from cap4d_torch.avatar.lpips import LPIPS, LPIPSNet, load_lpips
 from cap4d_torch.flame.compute import load_cap4d_flame_model as torch_flame
 from cap4d_torch.utils import synthetic_assets as sa
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def _close(a, b, atol=1e-5, rtol=1e-5, msg=""):

@@ -29,6 +29,7 @@ from cap4d_torch.avatar.trainer import AvatarTrainer
 from cap4d_torch.utils import synthetic_assets as sa
 from cap4d_torch.utils.png import write_png
 from tests.test_avatar_e2e import OPT_PARAMS
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 RES = 64
 MODEL_PARAMS = dict(

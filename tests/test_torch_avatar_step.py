@@ -26,6 +26,7 @@ from cap4d_torch.avatar.trainer import AvatarTrainer, adam_update
 from cap4d_torch.utils import synthetic_assets as sa
 from tests.test_avatar_e2e import OPT_PARAMS
 from tests.test_torch_avatar_e2e import MODEL_PARAMS, _jax_trainer, _make_stage1_output
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from cap4d_tpu.flame import io as jio
 from cap4d_tpu.flame import skinner as jskin
 from cap4d_tpu.mmdm import conditioning as jcond
 from cap4d_tpu.mmdm import schedule as jsched
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ import torch
 
 from cap4d_torch.ops import flash_attention as fa
 from cap4d_tpu.ops.attention import _einsum_attention
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def _bf16(*shape):

@@ -16,6 +16,7 @@ from cap4d_torch.inference.generate_images import run_generation as torch_run
 from cap4d_torch.mmdm.convert import UNET_PREFIX, VAE_PREFIX
 from cap4d_torch.mmdm.model import MMDM
 from cap4d_torch.utils import synthetic_assets as sa
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SEED, N_GEN, LAT = 124, 14, 8   # two groups of G = 7
 

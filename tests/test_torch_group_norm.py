@@ -26,6 +26,7 @@ import cap4d_tpu.ops.norms as jax_norms
 from cap4d_torch.mmdm import unet as unet_mod
 from cap4d_torch.ops import norms
 from cap4d_torch.utils.config import load_yaml
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 

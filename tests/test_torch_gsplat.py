@@ -22,6 +22,7 @@ from cap4d_torch.ops import gsplat as tgs
 from cap4d_torch.ops import gsplat_tiles
 from cap4d_torch.ops.gsplat_tiles import rasterize_gaussians, tile_pairs
 from tests.test_gsplat import _scene, numpy_render
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def _t(*arrays):

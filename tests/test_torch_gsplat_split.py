@@ -25,6 +25,7 @@ import torch
 from cap4d_tpu.ops.gsplat_pallas import CHUNK, NCH, _make_composite
 from cap4d_torch.ops import gsplat_tiles as gt
 from cap4d_torch.ops.gsplat import BATCH, LN_T_STOP, rasterize_gaussians_plain
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def _splats(rng, n, x0, y0, sigma_px, opac):

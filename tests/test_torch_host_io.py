@@ -13,6 +13,7 @@ from cap4d_torch.data.utils import rescale_image
 from cap4d_torch.utils.config import dump_yaml, load_yaml, parse_yaml
 from cap4d_torch.utils.png import read_png, write_png
 from cap4d_tpu.mmdm.model import load_yaml as jax_load_yaml
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").glob("*/*.yaml"))

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cap4d_tpu", "tools", "tests", "yaml", "cv2",

@@ -18,6 +18,7 @@ from cap4d_tpu.ops.flash_attention import _flash_fwd
 from cap4d_tpu.ops.norms import fused_group_norm_silu
 from cap4d_tpu.ops.rasterize import rasterize_meshes as jax_rasterize
 from cap4d_tpu.ops.rasterize import rasterize_meshes_pallas
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def test_attention_plain_matches_pallas_interpret_and_einsum():

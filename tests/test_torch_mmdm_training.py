@@ -48,6 +48,7 @@ from cap4d_tpu.mmdm.unet import MMDMUNet as JUNet
 from cap4d_tpu.ops.attention import _einsum_attention
 from cap4d_tpu.ops.attention import attention_mode_reshape as j_reshape
 from cap4d_tpu.ops.norms import _gn_silu_jnp
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 # the shipped topology's kinds of block at a narrow width: spatial attention
 # at ds 1 (S = 64), joint "3d" attention at ds 2 (S = 3·4·4 = 48, a ragged

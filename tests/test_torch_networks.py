@@ -28,6 +28,7 @@ from cap4d_tpu.mmdm.convert import unet_torch_key, vae_torch_key
 from cap4d_tpu.mmdm.unet import MMDMUNet as JUNet
 from cap4d_tpu.mmdm.unet import timestep_embedding as j_temb
 from cap4d_tpu.mmdm.vae import AutoencoderKL as JVAE
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SMALL = dict(in_channels=4, out_channels=4, model_channels=32, channel_mult=(1, 2),
              num_res_blocks=1, attention_resolutions=(1, 2), num_head_channels=16,

@@ -22,6 +22,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from cap4d_torch.ops import op_mix as om
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 MATMUL_CASES = {"acc_matmul3", "acc_matmul2", "tri_matmul2", "tri_blocked", "tri_blocked4"}

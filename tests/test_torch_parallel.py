@@ -30,9 +30,11 @@ from cap4d_torch.parallel import (
     gather_object,
     init_dp,
     pick_backend,
+    rank_card,
     shard_slice,
     spawn,
 )
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 LAT, C_COND = 8, 6
 TIMEOUT_S = 240.0
@@ -507,6 +509,66 @@ def test_backend_rule(device_type, local_world, n_cards, requested, expected):
             pick_backend(device_type, local_world, n_cards, requested)
     else:
         assert pick_backend(device_type, local_world, n_cards, requested) == expected
+
+
+@pytest.mark.parametrize("index,local_world,n_cards,cards,backend", [
+    (None, 1, 1, [0], "nccl"),                  # no index, one card
+    (None, 2, 4, [0, 1], "nccl"),               # no index, enough cards
+    (None, 3, 2, [0, 1, 0], "gloo"),            # no index, too few cards: shared
+    (0, 1, 4, [0], "nccl"),                     # an explicit index, one local rank
+    (0, 2, 4, [0, 0], "gloo"),                  # an explicit index, two local ranks
+])
+def test_rank_card_rule(index, local_world, n_cards, cards, backend):
+    """Each local rank's card and the backend from the cards the ranks use:
+    an explicit index puts every local rank on it, which NCCL refuses."""
+    plans = [rank_card(index, r, local_world, n_cards) for r in range(local_world)]
+    assert [card for card, _ in plans] == cards
+    used = plans[0][1]
+    assert used == len(set(cards)) and all(n == used for _, n in plans)
+    assert pick_backend("cuda", local_world, used, None) == backend
+    if backend == "gloo":
+        with pytest.raises(ValueError, match="NCCL refuses two ranks on one device"):
+            pick_backend("cuda", local_world, used, "nccl")
+    else:
+        assert pick_backend("cuda", local_world, used, "nccl") == "nccl"
+    with pytest.raises(ValueError, match="requested"):
+        rank_card(n_cards, 0, local_world, n_cards)
+
+
+@pytest.mark.parametrize("requested", [None, "nccl"])
+def test_init_dp_explicit_card_two_local_ranks(monkeypatch, requested):
+    """``--device cuda:0`` under ``torchrun --nproc_per_node 2`` on a host
+    with two cards: both ranks land on card 0, so init_dp picks gloo, and
+    raises (before any process group) when NCCL is asked for."""
+    import cap4d_torch.parallel.mesh as mesh
+
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cards = []
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_init(backend, **kw):
+        seen.update(kw, backend=backend)
+        raise Stop
+
+    monkeypatch.setattr(mesh.dist, "init_process_group", fake_init)
+    if requested == "nccl":
+        with pytest.raises(ValueError, match="NCCL refuses two ranks on one device"):
+            init_dp("cuda:0", backend="nccl")
+        assert not seen
+    else:
+        with pytest.raises(Stop):
+            init_dp("cuda:0")
+        assert seen["backend"] == "gloo" and (seen["rank"], seen["world_size"]) == (1, 2)
+    assert cards == [torch.device("cuda", 0)]
 
 
 @pytest.mark.parametrize("n_items", [0, 1, 3, 4, 7, 64])

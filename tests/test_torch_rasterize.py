@@ -20,6 +20,7 @@ from cap4d_torch.ops.rasterize import (BOX, EMPTY, EMPTY_BOX, WHOLE, face_setup_
 from cap4d_torch.utils.synthetic_assets import RASTER_TILE, raster_edge_cases
 from cap4d_tpu.ops.rasterize import rasterize_meshes as jax_rasterize
 from cap4d_tpu.ops.rasterize import rasterize_meshes_pallas
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 SIZES = [(1, 1), (17, 23), (120, 200)]   # no side a multiple of the 16-pixel tile but 1

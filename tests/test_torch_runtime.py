@@ -15,6 +15,7 @@ import pytest
 from cap4d_torch.runtime import loader as tl
 from cap4d_torch.utils.png import read_png, write_png
 from cap4d_tpu.runtime import loader as jl
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZES = [(96, 96), (37, 53), (17, 9), (1, 1), (300, 211)]
 JPEG_PARAMS = {
@@ -206,9 +207,10 @@ def test_load_frame_reads_jpeg_and_refuses_video(tmp_path, files):
             files[(37, 53), kind].read_bytes())
     np.testing.assert_array_equal(load_frame(d, 0), _cv2_rgb(files[(37, 53), "jpg_q95"]))
     np.testing.assert_array_equal(load_frame(d, 1), _cv2_rgb(files[(37, 53), "png_cv2"]))
+    # a video file cut after its ftyp box: no moov, so no sample table
     video = tmp_path / "clip.mp4"
-    video.write_bytes(b"\0\0\0\x18ftypmp42")
-    with pytest.raises(ValueError, match="video input needs a video decoder"):
+    video.write_bytes(b"\0\0\0\x10ftypmp42\0\0\0\0")
+    with pytest.raises(ValueError, match="no moov box"):
         load_frame(video, 0)
 
 

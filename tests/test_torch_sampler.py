@@ -12,6 +12,7 @@ import torch
 from cap4d_torch.mmdm.sampler import StochasticIOSampler as TSampler
 from cap4d_tpu.mmdm.sampler import StochasticIOSampler as JSampler
 from cap4d_tpu.mmdm.schedule import make_mmdm_schedule
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 LAT, C_COND = 8, 6
 

@@ -38,6 +38,7 @@ from cap4d_torch.smpl import avatar as ta
 from cap4d_torch.smpl import model as tm
 from cap4d_torch.smpl import scene as ts
 from cap4d_torch.utils import synthetic_assets as sa
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 RES = 64
 # tests/test_smpl.py's fit sizes

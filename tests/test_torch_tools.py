@@ -14,6 +14,7 @@ import torch
 from cap4d_torch.tools import convert_lpips as tconv
 from cap4d_torch.tools import fit_default_full, fit_holdout_quality, fit_tesla_quality
 from cap4d_torch.utils.config import dump_yaml
+from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 TINY_MODEL = dict(n_unet_layers=5, n_points_per_triangle=1, use_lower_jaw=False,
