@@ -76,8 +76,8 @@ def deform_state_dict_from_flax(params: Dict[str, Any], num_downs: int) -> Dict[
         for path, grp, transposed in ((down, f"down_{i}", False), (up, f"up_{i}", True)):
             w = np.asarray(params[grp]["kernel"], np.float32)
             w = w[::-1, ::-1].transpose(2, 3, 0, 1) if transposed else w.transpose(3, 2, 0, 1)
-            sd[f"{path}.weight"] = torch.as_tensor(np.ascontiguousarray(w))
-            sd[f"{path}.bias"] = torch.as_tensor(np.asarray(params[grp]["bias"], np.float32))
+            sd[f"{path}.weight"] = torch.tensor(np.ascontiguousarray(w))
+            sd[f"{path}.bias"] = torch.tensor(np.asarray(params[grp]["bias"], np.float32))
     return sd
 
 
@@ -85,9 +85,10 @@ def load_jax_capture(trainer, capture: Dict[str, Any]) -> None:
     """Install ``cap4d_tpu``'s ``AvatarTrainer.capture()`` (numpy leaves)
     into a port trainer: the active rows of the gaussian store with their aux
     and Adam moments, the deform net and its moments, the neck rows and
-    their moments, and the FLAME bank."""
+    their moments, and the FLAME bank. Every tensor is a copy: the trainer
+    updates its state in place."""
     dev = trainer.device
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(np.asarray(a)), device=dev)
+    t = lambda a: torch.tensor(np.asarray(a), device=dev)
     g = capture["gaussians"]
     aux = g["aux"]
     idx = np.nonzero(np.asarray(aux.active))[0]
@@ -207,8 +208,7 @@ def restore_reference_checkpoint(trainer, chkpt: Dict[str, Any], with_extras: bo
      binding_counter, max_radii2d, grad_accum, denom, opt_state,
      spatial_lr_scale) = chkpt["gaussians"]
     dev = trainer.device
-    t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(_to_np(a)), dtype=dt,
-                                                    device=dev)
+    t = lambda a, dt=torch.float32: torch.tensor(_to_np(a), dtype=dt, device=dev)
     trainer.gauss = {"xyz": t(xyz), "features_dc": t(f_dc), "features_rest": t(f_rest),
                      "scaling": t(scaling), "rotation": t(rotation), "opacity": t(opacity)}
     n = trainer.gauss["xyz"].shape[0]

@@ -147,6 +147,13 @@ class FlameAvatarConfig:
     gaussian_init_type: str = "scaled"
 
 
+def bank_row(x: torch.Tensor, t) -> torch.Tensor:
+    """Row ``t`` of a per-timestep tensor. ``t`` is an int, or a
+    one-element index tensor on ``x``'s device, gathered there without
+    reading it on the host (as a captured train step needs)."""
+    return x.index_select(0, t.view(1))[0] if torch.is_tensor(t) else x[int(t)]
+
+
 def make_deform_net(config: FlameAvatarConfig) -> UnetGenerator:
     return UnetGenerator(in_channels=3 + 2 * N_POS_ENC, out_channels=3, ngf=64,
                          num_downs=config.n_unet_layers, zero_init_last=True)
@@ -171,7 +178,7 @@ def mesh_properties(flame_model: FlameModel, uv: UVAssets, deform_net: UnetGener
                         eye_rot=torch.stack([eye_rot, eye_rot * 0.0]),
                         neck_rot=torch.stack([neck_rot, neck_rot]))
     # pytorch3d → opencv convention (y, z negated; :239-241)
-    v = out["verts"] * torch.tensor([1.0, -1.0, -1.0], device=expr.device)
+    v = torch.cat([out["verts"][..., :1], -out["verts"][..., 1:]], dim=-1)
     verts, offsets = v[0], v[0] - v[1]
     remeshed_verts = uv_resample(uv, verts)
     remeshed_offsets = uv_resample(uv, offsets.detach()) / STD_DEFORM
@@ -240,9 +247,11 @@ class FlameVariant:
             "tra": t(np.stack([m["tra"] for m in meshes])),
         }
 
-    def mesh_props(self, deform_net, bank, t: int, neck_offset) -> MeshProperties:
-        rel = relative_neck_rotation(bank["base_rot"], bank["rot"][t], neck_offset)
+    def mesh_props(self, deform_net, bank, t, neck_offset) -> MeshProperties:
+        """``t``: the timestep, an int or a one-element index tensor."""
+        rot = bank_row(bank["rot"], t)
+        rel = relative_neck_rotation(bank["base_rot"], rot, neck_offset)
         return mesh_properties(self.flame_model, self.uv, deform_net, bank["shape"],
-                               bank["expr"][t], bank["rot"][t], bank["tra"][t],
-                               bank["eye_rot"][t], rel,
+                               bank_row(bank["expr"], t), rot, bank_row(bank["tra"], t),
+                               bank_row(bank["eye_rot"], t), rel,
                                use_expr_mask=self.config.use_expr_mask)

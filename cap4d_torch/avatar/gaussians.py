@@ -172,11 +172,13 @@ def densify_and_prune(params: Tensors, aux: Tensors, moments: Dict[str, Tensors]
 
 def reset_opacity(params: Tensors, moments: Dict[str, Tensors]) -> None:
     """opacity ← logit(min(σ(o), 0.01)) and its Adam moments zeroed
-    (gaussian_model.py:279-282), in place."""
+    (gaussian_model.py:279-282), written into the existing tensors (a
+    captured train step keeps reading them)."""
     with torch.no_grad():
-        params["opacity"] = inverse_sigmoid(torch.clamp(torch.sigmoid(params["opacity"]), max=0.01))
+        params["opacity"].copy_(
+            inverse_sigmoid(torch.clamp(torch.sigmoid(params["opacity"]), max=0.01)))
         for m in moments.values():
-            m["opacity"] = torch.zeros_like(m["opacity"])
+            m["opacity"].zero_()
 
 
 def add_densification_stats(aux: Tensors, means2d_grad: torch.Tensor,
@@ -186,5 +188,5 @@ def add_densification_stats(aux: Tensors, means2d_grad: torch.Tensor,
     g = torch.linalg.norm(means2d_grad[:, :2], dim=-1)
     aux["xyz_gradient_accum"] += torch.where(visibility, g, torch.zeros_like(g))
     aux["denom"] += visibility.to(g.dtype)
-    aux["max_radii2d"] = torch.where(visibility, torch.maximum(aux["max_radii2d"], radii),
-                                     aux["max_radii2d"])
+    aux["max_radii2d"].copy_(torch.where(visibility, torch.maximum(aux["max_radii2d"], radii),
+                                         aux["max_radii2d"]))

@@ -44,11 +44,16 @@ def _banded_blur_mat(n: int, size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _blur_mat_on(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`_banded_blur_mat` on ``device``, copied there once (a
+    captured train step may not copy from the host)."""
+    return torch.as_tensor(_banded_blur_mat(n), device=device)
+
+
 def _blur(x: torch.Tensor) -> torch.Tensor:
     """Separable gaussian blur of (C, H, W)."""
-    mh = torch.as_tensor(_banded_blur_mat(x.shape[1]), device=x.device)
-    mw = torch.as_tensor(_banded_blur_mat(x.shape[2]), device=x.device)
-    return mh.T @ x @ mw
+    return _blur_mat_on(x.shape[1], x.device).T @ x @ _blur_mat_on(x.shape[2], x.device)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, channel_first: bool = False) -> torch.Tensor:

@@ -6,10 +6,23 @@ Reference: gaussianavatars/train.py (flags --source_paths --model_path
 cadence; the evaluation report with L1/PSNR/SSIM/LPIPS on the held-out
 split; config_dump.yaml; chkpnt{iter}.pth checkpoints).
 
-One iteration is one eager ``AvatarTrainer.train_step``. The camera order
-is the JAX package's: a seeded ``numpy`` permutation, drawn anew when used
-up. Losses stay on the device and are fetched only at the logging
-iterations. Run it with ``python -m cap4d_torch.avatar.train``.
+The dispatch is the JAX package's (``chunked``, ``dispatch_len``): a fit
+of at least 100 iterations runs in dispatches of up to ``CHUNK_LEN``
+iterations over a device-resident :class:`CameraBank`, each dispatch one
+host round trip (its losses and pair-overflow counts in one copy). On the
+card a dispatch replays a captured CUDA graph of the whole train step
+(``avatar/step_compiler.py``); on the CPU the same step runs eagerly.
+Dispatches are cut at every loop event (the log every 10 iterations, the SH
+warmup, the densification and opacity-reset cadence, evaluations and
+checkpoints), so the trajectory does not depend on ``dispatch_len``. The
+pair budget is probed before the loop (every training view's candidates)
+and grows, with the dispatch rolled back and run again, whenever a render
+outgrows it; each regrowth is logged to ``metrics.jsonl``. A fit runs one
+eager ``AvatarTrainer.train_step`` per iteration (and says why) with
+``chunked=False``, under ``--detect_anomaly`` (anomaly mode syncs) and on a
+train split of mixed resolutions (no bank). The camera order is the JAX
+package's either way: a seeded ``numpy`` permutation, drawn anew when used
+up. Run it with ``python -m cap4d_torch.avatar.train``.
 """
 
 from __future__ import annotations
@@ -30,11 +43,18 @@ from cap4d_torch.avatar.convert_ref import (
 from cap4d_torch.avatar.losses import error_map, l1_loss, psnr, ssim
 from cap4d_torch.avatar.lpips import load_lpips
 from cap4d_torch.avatar.scene import dump_cameras_json, load_cap4d_dataset
-from cap4d_torch.avatar.trainer import AvatarTrainer, search_max_iteration
+from cap4d_torch.avatar.step_compiler import StepGraphs, probe_budget
+from cap4d_torch.avatar.trainer import AvatarTrainer, CameraBank, search_max_iteration
 from cap4d_torch.smpl.scene import load_smpl_dataset
 from cap4d_torch.utils.config import dump_yaml, load_yaml
 from cap4d_torch.utils.device import resolve_device
 from cap4d_torch.utils.png import write_png
+
+
+# iterations per dispatch (cap4d_tpu/avatar/train.py:57), and the log cadence
+# that also cuts dispatches
+CHUNK_LEN = 10
+LOG_EVERY = 10
 
 
 def jet_colormap(x: np.ndarray) -> np.ndarray:
@@ -64,11 +84,19 @@ def training(
     variant: str = "flame",
     smpl_asset_dir: str | Path = "data/assets/smpl",
     device=None,
+    chunked: Optional[bool] = None,
+    dispatch_len: Optional[int] = None,
 ) -> AvatarTrainer:
     """Fit an avatar: the FLAME head (``variant="flame"``, stage-1
     flame/*.npz inputs) or the full SMPL body (``variant="smpl"``,
     smpl/*.npz inputs, SMPL assets under ``smpl_asset_dir``). Runs on the
-    card unless ``device="cpu"``."""
+    card unless ``device="cpu"``.
+
+    ``chunked`` (default: on when the fit has at least 100 iterations left)
+    runs dispatches of up to ``dispatch_len`` (default ``CHUNK_LEN``)
+    iterations, graphed on the card; neither changes the trajectory. The
+    returned trainer's ``step_graphs`` holds the dispatcher's counters
+    (None for a per-step fit)."""
     device = resolve_device(device)
     if variant not in ("flame", "smpl"):
         raise ValueError(f"variant must be 'flame' or 'smpl', got {variant!r}")
@@ -106,27 +134,77 @@ def training(
     cams = scene.train_cameras
     order = rng.permutation(len(cams))
     order_pos = 0
+
+    def take_indices(k: int) -> List[int]:
+        nonlocal order, order_pos
+        out = []
+        while len(out) < k:
+            if order_pos >= len(order):
+                order = rng.permutation(len(cams))
+                order_pos = 0
+            out.append(int(order[order_pos]))
+            order_pos += 1
+        return out
+
     opt = opt_params
     n_iter = opt["iterations"]
     sh_max = trainer.config.sh_degree
-    ema_loss = 0.0
     metrics_fh = open(model_path / "metrics.jsonl", "a")
+    graphs = _dispatcher(trainer, cams, n_iter, first_iter, chunked, dispatch_len)
+    trainer.step_graphs = graphs
+    k_max = graphs.max_len if graphs is not None else 1
+
+    def after_event(it: int) -> bool:
+        """Loop events that read the state after iteration ``it`` on the host:
+        a dispatch ends there."""
+        if it in testing_iterations or it in checkpoint_iterations or it % LOG_EVERY == 0:
+            return True
+        if it < opt["densify_until_iter"]:
+            if it > opt["densify_from_iter"] and it % opt["densification_interval"] == 0:
+                return True
+            if it % opt["opacity_reset_interval"] == 0 or it == opt["densify_from_iter"]:
+                return True
+        return False
+
+    ema_loss = 0.0
     t_start = time.perf_counter()
     adam_step = 0
-    for iteration in range(first_iter + 1, n_iter + 1):
-        if order_pos >= len(order):
-            order = rng.permutation(len(cams))
-            order_pos = 0
-        cam = cams[int(order[order_pos])]
-        order_pos += 1
-        # SH warmup (train.py:120-121)
-        if iteration % opt["sh_warmup_iterations"] == 0:
+    iteration = first_iter
+    while iteration < n_iter:
+        i0 = iteration + 1
+        # SH warmup (train.py:120-121), before the warmup multiple's step
+        if i0 % opt["sh_warmup_iterations"] == 0:
             trainer.active_sh_degree = min(trainer.active_sh_degree + 1, sh_max)
-        adam_step += 1
-        losses = trainer.train_step(cam, iteration, adam_step)
+        # up to k_max iterations, cut before the next SH bump and at the first event
+        k = min(k_max, n_iter - i0 + 1)
+        for j in range(1, k):
+            if ((i0 + j) % opt["sh_warmup_iterations"] == 0
+                    and trainer.active_sh_degree < sh_max):
+                k = j
+                break
+        for j in range(k):
+            if after_event(i0 + j):
+                k = j + 1
+                break
+        idxs = take_indices(k)
+        if graphs is not None:
+            n_grown = len(graphs.regrowths)
+            losses = graphs.run(idxs, i0, adam_step + 1)
+            for old, new in graphs.regrowths[n_grown:]:
+                print(f"[ITER {i0}] a render outgrew the pair budget {old}: grown to {new}, "
+                      f"dispatch rolled back and run again")
+                metrics_fh.write(json.dumps({"iter": i0, "capacity_grown": new,
+                                             "prev_capacity": old}) + "\n")
+        else:
+            losses = trainer.train_step(cams[idxs[0]], i0, adam_step + 1)
+        adam_step += k
+        iteration = i0 + k - 1
+        trainer.iteration = iteration
+        cam = cams[idxs[-1]]
 
-        if iteration % 10 == 0 or iteration == n_iter:
-            vals = {k: float(v) for k, v in losses.items()}
+        if iteration % LOG_EVERY == 0 or iteration == n_iter:
+            # a dispatch's losses are host arrays over its iterations, ending here
+            vals = {name: float(v[-1] if graphs is not None else v) for name, v in losses.items()}
             vals.update(n_truncated=0.0, n_truncated_depth=0.0)
             ema_loss = 0.4 * vals["total"] + 0.6 * ema_loss
             elapsed = time.perf_counter() - t_start
@@ -152,8 +230,37 @@ def training(
         if iteration in checkpoint_iterations or iteration == n_iter:
             print(f"[ITER {iteration}] Saving Checkpoint")
             trainer.save_checkpoint(model_path, iteration)
+    if graphs is not None:
+        graphs.close()
+        print(f"[fit] dispatches: {graphs.counters()}")
     metrics_fh.close()
     return trainer
+
+
+def _dispatcher(trainer: AvatarTrainer, cams, n_iter: int, first_iter: int,
+                chunked: Optional[bool], dispatch_len: Optional[int]) -> Optional[StepGraphs]:
+    """The fit's :class:`StepGraphs` (graphed on the card), or None for one
+    eager ``train_step`` per iteration, with the reason printed."""
+    use = chunked if chunked is not None else n_iter - first_iter >= 100
+    why = None
+    if not use:
+        why = ("chunked=False" if chunked is False
+               else f"{n_iter - first_iter} iterations, fewer than 100")
+    elif torch.is_anomaly_enabled():
+        why = "--detect_anomaly (anomaly mode syncs at every check)"
+    bank = CameraBank.build(cams, trainer.device) if why is None else None
+    if why is None and bank is None:
+        why = "the train split mixes resolutions (no camera bank)"
+    if why is not None:
+        print(f"[fit] one eager train_step per iteration: {why}")
+        return None
+    trainer.schedule_tables(n_iter + 1)
+    graphed = trainer.device.type == "cuda"
+    graphs = StepGraphs(trainer, bank, probe_budget(trainer, cams), dispatch_len or CHUNK_LEN,
+                        graphs=graphed)
+    print(f"[fit] {'graphed' if graphed else 'eager'} dispatches of up to {graphs.max_len} "
+          f"iterations, pair budget {graphs.budget}")
+    return graphs
 
 
 @torch.no_grad()

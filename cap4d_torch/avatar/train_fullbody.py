@@ -26,9 +26,11 @@ SMPL_DISABLED_REGULARIZERS = dict(
 
 def train_fullbody(source_paths, model_path, config_path, interval: int = 2000,
                    load_existing_checkpoint: bool = False,
-                   smpl_asset_dir: str = "data/assets/smpl", lpips_weights=None, device=None):
+                   smpl_asset_dir: str = "data/assets/smpl", lpips_weights=None, device=None,
+                   chunked=None, dispatch_len=None):
     """Fit an SMPL avatar with a config's model_params and opt_params, the
-    FLAME regularizers off; runs on the card unless ``device="cpu"``."""
+    FLAME regularizers off; runs on the card unless ``device="cpu"``.
+    ``chunked`` and ``dispatch_len`` as ``training`` takes them."""
     device = resolve_device(device)
     config = load_yaml(config_path)
     opt_params = dict(config["opt_params"], **SMPL_DISABLED_REGULARIZERS)
@@ -40,6 +42,7 @@ def train_fullbody(source_paths, model_path, config_path, interval: int = 2000,
         testing_iterations=testing, checkpoint_iterations=testing + [n_iter],
         load_existing_checkpoint=load_existing_checkpoint, lpips_weights=lpips_weights,
         variant="smpl", smpl_asset_dir=smpl_asset_dir, device=device,
+        chunked=chunked, dispatch_len=dispatch_len,
     )
 
 

@@ -11,6 +11,11 @@ launch never passes silently. A ctypes launch goes to the CUDA runtime's
 current device, so ``call`` first checks that every input tensor lies on
 it (a rank of ``cap4d_torch.parallel`` makes its own card current).
 
+A launch recorded into a CUDA graph runs again at every replay without
+passing through ``call``: the graph's owner (``avatar/step_compiler.py``)
+reads what its capture launched and adds it per replay with
+``add_launches``, so ``launches`` counts what ran on the card.
+
 Nothing here is imported or built on a machine without CUDA until a kernel
 is launched on a CUDA tensor.
 """
@@ -59,8 +64,11 @@ def check_on_current_card(devices, current: int) -> None:
 class CudaKernel:
     """One ``csrc`` source: its build, its ctypes binding and its launch count.
 
-    ``launches`` counts successful launches through ``call``; callers reset
-    it to 0 to count the launches of one run."""
+    ``launches`` counts successful launches through ``call`` and replayed
+    ones through ``add_launches``; callers reset it to 0 to count the
+    launches of one run. ``CudaKernel.registry`` holds every kernel made."""
+
+    registry: List["CudaKernel"] = []
 
     def __init__(self, source: str, signatures: Dict[str, Sequence], extra_flags: Iterable[str] = ()):
         self.source = CSRC / source
@@ -69,6 +77,7 @@ class CudaKernel:
         self.launches = 0
         self._lib = None
         self.build_log = ""
+        CudaKernel.registry.append(self)
 
     @property
     def name(self) -> str:
@@ -147,6 +156,10 @@ class CudaKernel:
             msg = lib.c4d_error_string(rc).decode()
             raise RuntimeError(f"{self.source.name}:{fn} launch failed: CUDA error {rc} ({msg})")
         self.launches += 1
+
+    def add_launches(self, n: int) -> None:
+        """Count ``n`` launches made by a replayed CUDA graph."""
+        self.launches += n
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

@@ -9,8 +9,12 @@ Pipeline, all differentiable where the JAX package's is:
   kernel): tile boxes from the radius, the exact alpha-bound tile cull, one
   (tile, depth rank) key per covered tile, one ``torch.sort`` of int64 keys
   ``tile << 32 | rank`` and the per-tile ``[start, end)`` bounds. Every tile a
-  splat's box touches is covered (no window ladder, no pair budget), so
-  ``n_truncated`` and ``n_truncated_depth`` are always 0;
+  splat's box touches is covered (no window ladder), so ``n_truncated`` and
+  ``n_truncated_depth`` are always 0. With a pair ``budget`` (the fit's
+  captured step, whose shapes must not depend on the device's values) the
+  build writes exactly that many candidate slots and counts the candidates
+  that did not fit; the caller re-runs with a larger budget, so no pair is
+  ever dropped from a result it keeps;
 * compositing through :class:`Composite`: kernel K4 (``csrc/gsplat_fwd.cu``)
   forward and kernel K5 (``csrc/gsplat_bwd.cu``) backward on CUDA tensors,
   the plain compositor ``ops/gsplat.py::rasterize_gaussians_plain`` (with
@@ -30,7 +34,7 @@ through the projection's autograd; the densify statistics read the
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -59,11 +63,44 @@ KERNEL_BWD = CudaKernel("gsplat_bwd.cu",
                         {"c4d_gsplat_bwd": [P, P, P, P, P, P, P, I, I, I, P, P, P]})
 
 
+def _tile_boxes(mean_x, mean_y, radius, valid, width: int, height: int):
+    """Each gaussian's box of tiles: its first tile column and row, its
+    width in tiles and its tile count (0 where not valid)."""
+    tiles_x = (width + TILE - 1) // TILE
+    tiles_y = (height + TILE - 1) // TILE
+    tx0 = torch.floor((mean_x - radius) / TILE).long().clamp(0, tiles_x - 1)
+    ty0 = torch.floor((mean_y - radius) / TILE).long().clamp(0, tiles_y - 1)
+    tx1 = torch.floor((mean_x + radius) / TILE).long().clamp(0, tiles_x - 1)
+    ty1 = torch.floor((mean_y + radius) / TILE).long().clamp(0, tiles_y - 1)
+    wx = tx1 - tx0 + 1
+    return tx0, ty0, wx, torch.where(valid, wx * (ty1 - ty0 + 1), torch.zeros_like(wx))
+
+
+def count_candidates(means3d, quats, scales, viewmat, K, width: int, height: int,
+                     near: float = 0.01, far=1e10) -> torch.Tensor:
+    """The (gaussian, tile) candidates of one view before the alpha cull,
+    as a 0-d device tensor: the slots a pair budget must hold for it."""
+    with torch.no_grad():
+        ch = project_gaussians_ch(means3d, quats, scales, viewmat, K, width, height, near, far)
+        return _tile_boxes(ch["mean_x"], ch["mean_y"], ch["radius"], ch["valid"],
+                           width, height)[3].sum()
+
+
 def tile_pairs(mean_x, mean_y, conic_a, conic_b, conic_c, opacity, radius, valid, depth,
-               width: int, height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               width: int, height: int, budget: Optional[int] = None):
     """Sorted (tile, depth) pairs: ``pair_gauss`` (M,) int32 gaussian per
     pair, tile-major and front to back within a tile, and ``bounds``
-    (n_tiles + 1,) int32 segment starts. No gradient flows through here."""
+    (n_tiles + 1,) int32 segment starts. No gradient flows through here.
+
+    With ``budget`` B the sizes depend on no device value (no host sync): B
+    candidate slots, one per (gaussian, tile of its box) up to B, found by a
+    ``searchsorted`` over the candidates' running count; culled and unused
+    slots take the sentinel tile ``n_tiles``, so the one sort puts them last,
+    and the bounds come from a ``scatter_add_`` into ``n_tiles + 1`` bins.
+    ``pair_gauss`` then has B entries, of which ``pair_gauss[:bounds[-1]]``
+    equal the unbudgeted call's bit for bit when every candidate fits, and a
+    third result, a (1,) int32 device counter, holds the candidates that did
+    not (Σ candidates − B, at least 0)."""
     with torch.no_grad():
         dev = mean_x.device
         tiles_x = (width + TILE - 1) // TILE
@@ -79,15 +116,25 @@ def tile_pairs(mean_x, mean_y, conic_a, conic_b, conic_c, opacity, radius, valid
                    - torch.sqrt(0.25 * (conic_a - conic_c) ** 2 + conic_b ** 2))
         r2_cut = (2.0 * torch.log(torch.clamp(opacity, min=1e-30) / ALPHA_MIN)
                   / torch.clamp(lam_min, min=1e-12))
-        tx0 = torch.floor((mean_x - radius) / TILE).long().clamp(0, tiles_x - 1)
-        ty0 = torch.floor((mean_y - radius) / TILE).long().clamp(0, tiles_y - 1)
-        tx1 = torch.floor((mean_x + radius) / TILE).long().clamp(0, tiles_x - 1)
-        ty1 = torch.floor((mean_y + radius) / TILE).long().clamp(0, tiles_y - 1)
-        wx = tx1 - tx0 + 1
-        count = torch.where(valid, wx * (ty1 - ty0 + 1), torch.zeros_like(wx))
-        g = torch.repeat_interleave(torch.arange(n, device=dev), count)
-        first = torch.cumsum(count, 0) - count
-        local = torch.arange(g.shape[0], device=dev) - first[g]
+        tx0, ty0, wx, count = _tile_boxes(mean_x, mean_y, radius, valid, width, height)
+        ends = torch.cumsum(count, 0)
+        first = ends - count
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(n, device=dev)
+        if budget is None:
+            g = torch.repeat_interleave(torch.arange(n, device=dev), count)
+            slot = torch.arange(g.shape[0], device=dev)
+        elif n == 0:
+            return (torch.zeros(budget, dtype=torch.int32, device=dev),
+                    torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev))
+        else:
+            slot = torch.arange(budget, device=dev)
+            # the gaussian whose candidates [first, end) hold each slot; n past the last
+            g = torch.searchsorted(ends, slot, right=True)
+            used = g < n
+            g = g.clamp(max=n - 1)
+        local = slot - first[g]
         cx = tx0[g] + local % wx[g]
         cy = ty0[g] + local // wx[g]
         tlx = (cx * TILE).float()
@@ -96,16 +143,23 @@ def tile_pairs(mean_x, mean_y, conic_a, conic_b, conic_c, opacity, radius, valid
         ddx = torch.clamp(torch.maximum(tlx - mx, mx - (tlx + TILE)), min=0.0)
         ddy = torch.clamp(torch.maximum(tly - my, my - (tly + TILE)), min=0.0)
         ok = ddx * ddx + ddy * ddy <= r2_cut[g]
-        g, tile = g[ok], (cy * tiles_x + cx)[ok]
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(n, device=dev)
+        bounds = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+        if budget is None:
+            g, tile = g[ok], (cy * tiles_x + cx)[ok]
+            keys = (tile << 32) | rank[g]
+            sorted_keys = torch.sort(keys).values
+            pair_gauss = order[sorted_keys & 0xFFFFFFFF].to(torch.int32)
+            bounds[1:] = torch.cumsum(torch.bincount(tile, minlength=n_tiles), 0)
+            return pair_gauss, bounds.to(torch.int32)
+        tile = torch.where(ok & used, cy * tiles_x + cx, torch.full_like(cx, n_tiles))
         keys = (tile << 32) | rank[g]
         sorted_keys = torch.sort(keys).values
         pair_gauss = order[sorted_keys & 0xFFFFFFFF].to(torch.int32)
-        counts = torch.bincount(tile, minlength=n_tiles)
-        bounds = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
-        bounds[1:] = torch.cumsum(counts, 0)
-        return pair_gauss, bounds.to(torch.int32)
+        counts = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+        counts.scatter_add_(0, tile, torch.ones_like(tile))
+        bounds[1:] = torch.cumsum(counts[:n_tiles], 0)
+        overflow = torch.clamp(ends[-1:] - budget, min=0).to(torch.int32)
+        return pair_gauss, bounds.to(torch.int32), overflow
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -348,10 +402,14 @@ def rasterize_gaussians(
     render_depth: bool = False,
     means2d_offset: Optional[torch.Tensor] = None,   # (N, 2) zeros; grad = densify stats
     plain: bool = False,
+    budget: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera; the result keys of ``rasterize_gaussians_pallas``
     (its ``mask`` of inactive slots has no counterpart: every row is live),
-    plus ``n_pairs``."""
+    plus ``n_pairs``. With a pair ``budget`` the pair build is
+    :func:`tile_pairs`'s static one, ``n_pairs`` is a (1,) device count and
+    ``n_overflow`` the (1,) int32 count of candidates past the budget: a
+    render whose ``n_overflow`` is not 0 is incomplete."""
     if background is None:
         background = torch.ones(3, dtype=torch.float32, device=means3d.device)
     ch = project_gaussians_ch(means3d, quats, scales, viewmat, K, width, height, near, far)
@@ -371,9 +429,9 @@ def rasterize_gaussians(
 
     tiles_x = (width + TILE - 1) // TILE
     tiles_y = (height + TILE - 1) // TILE
-    pair_gauss, bounds = tile_pairs(mean_x, mean_y, ch["conic_a"], ch["conic_b"],
-                                    ch["conic_c"], opacities, radius, valid, depth,
-                                    width, height)
+    pairs = tile_pairs(mean_x, mean_y, ch["conic_a"], ch["conic_b"], ch["conic_c"], opacities,
+                       radius, valid, depth, width, height, budget=budget)
+    pair_gauss, bounds = pairs[:2]
     out = composite(packed, pair_gauss, bounds, tiles_x, plain=plain)
 
     T = torch.exp(out[..., 5])
@@ -388,8 +446,10 @@ def rasterize_gaussians(
         "visibility": valid & (radius > 0),
         "n_truncated": zero,
         "n_truncated_depth": zero,
-        "n_pairs": pair_gauss.shape[0],
+        "n_pairs": pair_gauss.shape[0] if budget is None else bounds[-1:],
     }
+    if budget is not None:
+        result["n_overflow"] = pairs[2]
     if render_depth:
         dtile = out[..., 4] / torch.clamp(alpha, min=1e-10)
         result["depth"] = tiles_to_image(dtile[..., None], tiles_x, tiles_y, width, height)[..., 0]

@@ -19,7 +19,13 @@ import numpy as np
 import torch
 
 from cap4d_torch.avatar.binding import face_frame_pack
-from cap4d_torch.avatar.flame_avatar import MeshProperties, UVAssets, build_uv_assets, uv_resample
+from cap4d_torch.avatar.flame_avatar import (
+    MeshProperties,
+    UVAssets,
+    bank_row,
+    build_uv_assets,
+    uv_resample,
+)
 from cap4d_torch.ops.rasterize import load_obj
 from cap4d_torch.smpl.model import SMPLModel, smpl_forward
 
@@ -66,11 +72,12 @@ class SMPLVariant:
             "rot": t(np.stack([get(m, "rot", np.zeros(3, np.float32)) for m in meshes])),
         }
 
-    def mesh_props(self, deform_net, bank, t: int, neck_offset) -> MeshProperties:
+    def mesh_props(self, deform_net, bank, t, neck_offset) -> MeshProperties:
         """select_mesh_by_timestep for SMPL (cap4d_gaussian_model.py:689-772,
-        the enable_deform_net=False branch: neutral == deformed)."""
-        out = smpl_forward(self.smpl_model, bank["betas"], bank["body_pose"][t][None],
-                           bank["global_orient"][t][None])
+        the enable_deform_net=False branch: neutral == deformed); ``t`` an
+        int or a one-element index tensor."""
+        out = smpl_forward(self.smpl_model, bank["betas"], bank_row(bank["body_pose"], t)[None],
+                           bank_row(bank["global_orient"], t)[None])
         R = self.uv.resolution
         v = uv_resample(self.uv, out["verts"][0]).reshape(R * R, 3)
         pack = face_frame_pack(v, self.uv.remesh_faces)

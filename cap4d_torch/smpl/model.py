@@ -102,7 +102,8 @@ def smpl_forward(model: SMPLModel, betas: torch.Tensor, body_pose: torch.Tensor,
         # forward kinematics along the kintree (24 joints, parents first)
         parents = model.parents
         rel_j = joints.clone()
-        rel_j[1:] = joints[1:] - joints[parents[1:]]
+        # parents by row, not by a host index array (no copy to the card)
+        rel_j[1:] = joints[1:] - torch.stack([joints[int(p)] for p in parents[1:]])
         A = []
         for j in range(SMPL_N_JOINTS):
             T = torch.zeros((B, 4, 4), dtype=rots.dtype, device=rots.device)

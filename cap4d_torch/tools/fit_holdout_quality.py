@@ -206,6 +206,7 @@ def run(iterations: int = 1500, out: str | Path = "examples_work/torch/holdout",
         "holdout_per_view": {k: [round(x, 4) for x in v] for k, v in stats.items()},
         "driving_mean_std": [[round(a, 5), round(b, 5)] for a, b in drive_stats],
         "s_per_iteration": seconds_per_iteration(work / "avatar" / "metrics.jsonl"),
+        "dispatch": trainer.step_graphs and trainer.step_graphs.counters(),
         "device": device_name(device),
         "tool": "cap4d_torch/tools/fit_holdout_quality.py",
     }

@@ -73,7 +73,15 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      without the MMDM;
   8. the stage-2 main path: ``training()`` on phase 6's 28 + 1 images with
      default model_params and debug opt_params cut to 300 iterations
-     (densification, opacity reset, SH warmup, evaluation, checkpoint);
+     (densification, opacity reset, SH warmup, evaluation, checkpoint),
+     twice, each counted: chunked as by default (the whole train step
+     captured as a CUDA graph and replayed, launches counted through the
+     replays) and per step (``chunked=False``), with s per iteration,
+     captures, the pair budget and its regrowths; then one step from
+     identical state on the camera with the most candidates, eager against
+     eager (K5's atomic spread) and replayed against eager (within
+     ``GRAPH_*_REL_TOL``), and dispatches of ten replays timed by CUDA
+     events against their wall time (the card's busy share);
   9. the stage-3 main path: ``render_sequence`` of that checkpoint driven by
      a synthetic 48-frame fit.npz at 512², with the animated PLY;
   9b. the head fit's held-out quality (``quality``): ``fit_holdout_quality``
@@ -86,7 +94,8 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      counted run, one more step through the loop's step function, timed
      alone and profiled, and the AdamW update alone;
  11. the op-mix micro-benchmark (K7) and the full-body SMPL path (``op_mix``,
-     ``smpl``);
+     ``smpl``; its 300-iteration fit graphed and per step, and the replay
+     against the eager step, as in 8);
  12. several cards through ``cap4d_torch.parallel`` (``parallel``), on the one
      card: NCCL at world 1 (a bucketed all-reduce and a barrier), and NCCL
      for two ranks on the card refused; then two ranks sharing the card over
@@ -106,8 +115,8 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      (1 DDIM step): rank 0 writes every PNG, rank 1 none;
  13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
-Launch counts are read around each main path (6 and its batched runs, 8,
-9, 9b, 10, the op-mix and SMPL runs, and each rank's runs in 12) with every
+Launch counts are read around each main path (6 and its batched runs, both
+fits of 8, 9, 9b, 10, the op-mix and SMPL runs, and each rank's runs in 12) with every
 count set to 0 just before it; the kernels line sums them (the ranks return
 theirs to this process).
 
@@ -1350,11 +1359,14 @@ def phase_quality(work: Path, kernels, card: str):
     log(f"[quality] fit_holdout_quality 300 iterations: held-out {res['holdout']} (per view "
         f"{res['holdout_per_view']}) | {res['s_per_iteration']:.4f} s per fit iteration | fit "
         f"{res['fit_seconds']} s, wall {wall:.1f} s | gaussians {res['n_gaussians']} | on {card}")
-    log(f"[quality] launches {launches}")
+    log(f"[quality] launches {launches} | dispatch {res['dispatch']}")
     assert all(math.isfinite(v) for v in res["holdout"].values()), res["holdout"]
-    # the plain-compositor oracle launches no K4; 300 iterations, then the
-    # evaluation, held-out and driving renders
-    assert launches["gsplat_bwd"] == 300 and launches["gsplat_fwd"] >= 300 + 3 + 4, launches
+    # the plain-compositor oracle launches no K4; 300 iterations (replayed
+    # from the step's CUDA graph, and any a budget regrowth ran again), then
+    # the evaluation, held-out and driving renders
+    n_step = 300 + res["dispatch"]["rolled_back"]
+    assert res["dispatch"]["graphed"] and res["dispatch"]["replays"] > 0, res["dispatch"]
+    assert launches["gsplat_bwd"] == n_step and launches["gsplat_fwd"] >= n_step + 3 + 4, launches
     assert launches["rasterize"] > 0, launches
     return launches
 
@@ -1801,50 +1813,212 @@ def check_eval_renders(trainer, scene, evals):
     assert shown > 0, "no held-out camera shows the avatar"
 
 
-def phase_fit(work: Path, stage1_out: Path, flame_dir: Path, kernels, card: str):
-    """Stage 2 through ``training()``; returns the model path and launches."""
+# One train step from identical state, replayed from its CUDA graph against
+# the same step run eagerly: the losses (relative) and every written tensor
+# (relative norm). K5 adds with atomicAdd, so the eager step differs from
+# itself in the last bits; the replay is held to that spread. On the H100
+# (PERF.md §6) eager against eager measured up to 6.3e-6 (losses) and
+# 3.5e-6 (state), the replay against eager up to 7.0e-6 and 1.1e-6
+GRAPH_LOSS_REL_TOL = 1e-4
+GRAPH_STATE_REL_TOL = 3e-5
+# The budgeted pair build against the exact one at one view: K4's outputs
+# bit for bit, the gradients through K5 within this (relative norm). On the
+# H100 the exact build against itself measured up to 3.3e-7, the budgeted
+# against the exact 3.3e-7 (PERF.md §6)
+BUDGET_GRAD_REL_TOL = 1e-5
+
+
+def budget_vs_exact(trainer, cam, budget: int, tag: str) -> None:
+    """One view rendered with the exact pair build twice and with the pair
+    budget once: the renders (K4) bit for bit, and the gradients of a fixed
+    loss (K5) held to the exact build's own spread."""
+    import torch
+
+    from cap4d_torch.avatar import gaussians as G
+    from cap4d_torch.ops.gsplat_tiles import rasterize_gaussians
+
+    ct = trainer.camera_tensors(cam)
+    with torch.no_grad():
+        world = G.world_gaussians(trainer.gauss, trainer.aux,
+                                  trainer.mesh_at_timestep(cam.timestep).face_pack)
+    runs = []
+    for b in (None, None, budget):
+        leaves = [world[k].detach().clone().requires_grad_(True)
+                  for k in ("means3d", "quats", "scales", "opacities", "sh")]
+        out = rasterize_gaussians(*leaves, ct["rt"], ct["K"], cam.width, cam.height,
+                                  sh_degree=trainer.active_sh_degree, budget=b)
+        grads = torch.autograd.grad((out["render"] * ct["gt"]).sum(), leaves)
+        runs.append((out["render"].detach(), out.get("n_overflow"), grads))
+    assert int(runs[2][1]) == 0, int(runs[2][1])
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][0], runs[2][0]), tag
+    spread, gap = rel_gap(runs[0][2], runs[1][2]), rel_gap(runs[0][2], runs[2][2])
+    log(f"[{tag}] budget {budget} against the exact pair build: render bit-identical; "
+        f"gradients exact vs exact {spread:.3e}, budgeted vs exact {gap:.3e} (bound "
+        f"{BUDGET_GRAD_REL_TOL:g})")
+    assert gap <= BUDGET_GRAD_REL_TOL, (gap, spread)
+
+
+def rel_gap(a, b) -> float:
+    """The largest relative gap over pairs of tensors: |a − b| / |a| by
+    norm (0 where both are 0)."""
+    import torch
+
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = x.double(), y.double()
+        scale = float(torch.linalg.vector_norm(x))
+        diff = float(torch.linalg.vector_norm(x - y))
+        worst = max(worst, diff / scale if scale else diff)
+    return worst
+
+
+def graph_vs_eager(trainer, cams, tag: str, iteration: int = 301) -> dict:
+    """From one state, one step on the camera with the most candidates: run
+    eagerly twice (their spread), then captured and replayed, through
+    ``StepGraphs``' lane step at the fit's probed budget; then a dispatch of
+    ten replays, its device time by CUDA events against its wall time, and
+    its profile. The trainer's state is put back afterwards."""
+    import torch
+
+    from cap4d_torch.avatar.step_compiler import StepGraphs, probe_budget
+    from cap4d_torch.avatar.trainer import CameraBank
+
+    bank = CameraBank.build(cams, trainer.device)
+    for i, cam in enumerate(cams):     # the bank's uint8 images come back bit for bit
+        got, ref = bank.camera(torch.tensor([i], device=trainer.device)), trainer.camera_tensors(cam)
+        assert all(torch.equal(got[k], ref[k]) for k in ("rt", "K", "gt", "mask")), i
+    budget = probe_budget(trainer, cams)
+    counts = [int(trainer.candidate_count(c)) for c in cams]
+    idx = max(range(len(cams)), key=counts.__getitem__)
+    budget_vs_exact(trainer, cams[idx], budget, tag)
+    start = [t.clone() for t in trainer.written_state()]
+
+    def put_back():
+        for s_, t in zip(start, trainer.written_state()):
+            t.copy_(s_)
+
+    def one(sg, lanes=1):
+        put_back()
+        losses = sg.run([idx] * lanes, iteration, iteration)
+        return ([torch.as_tensor(v) for v in losses.values()],
+                [t.clone() for t in trainer.written_state()])
+
+    eager = StepGraphs(trainer, bank, budget, 1, graphs=False)
+    graph = StepGraphs(trainer, bank, budget, 10, graphs=True)
+    e1, e2 = one(eager), one(eager)
+    one(graph)                                     # the eager first lane, then the capture
+    g1 = one(graph)                                # replayed
+    assert graph.captures == 1 and graph.replays == 1, (graph.captures, graph.replays)
+    spread = (rel_gap(e1[0], e2[0]), rel_gap(e1[1], e2[1]))
+    gap = (rel_gap(e1[0], g1[0]), rel_gap(e1[1], g1[1]))
+    log(f"[{tag}] bank {tuple(bank.gt.shape)} {bank.gt.dtype} | one step from identical state "
+        f"on camera {idx} ({counts[idx]} candidates, budget {budget}): eager vs eager losses {spread[0]:.3e}, state {spread[1]:.3e} | "
+        f"replayed vs eager losses {gap[0]:.3e}, state {gap[1]:.3e} (bounds "
+        f"{GRAPH_LOSS_REL_TOL:g}, {GRAPH_STATE_REL_TOL:g}) | capture {graph.capture_s:.2f} s, "
+        f"launches a replay {graph.replay_launches}")
+    assert gap[0] <= GRAPH_LOSS_REL_TOL and gap[1] <= GRAPH_STATE_REL_TOL, (gap, spread)
+
+    # dispatches of 10 replays (snapshot, upload, replays, one fetch), timed
+    # on the card by CUDA events around the replays and on the host around
+    # the whole dispatch
+    times = []
+    for _ in range(3):
+        put_back()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        graph.run([idx] * 10, iteration, iteration)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append((ev[0].elapsed_time(ev[1]) / 10, (time.perf_counter() - t0) * 1e3 / 10))
+    log(f"[{tag}] dispatches of 10 replays, ms a step on the card (CUDA events) | wall: "
+        + ", ".join(f"{d:.3f} | {w:.3f} (busy {100 * d / w:.0f}%)" for d, w in times))
+    put_back()
+    profile_breakdown(lambda: graph.run([idx] * 10, iteration, iteration),
+                      f"{tag} dispatch of 10 replays profile")
+    put_back()
+    graph.close()
+    return {"spread": spread, "gap": gap, "times": times}
+
+
+def fit_summary(tag: str, model_path: Path, trainer, wall: float, launches, card: str) -> dict:
+    """The fit's metrics.jsonl read back: s per iteration over iterations
+    20-300, the evaluations, and the dispatcher's counters, logged."""
     import json as _json
 
+    lines = [_json.loads(l) for l in open(model_path / "metrics.jsonl")]
+    steps = {l["iter"]: l for l in lines if "loss" in l}
+    evals = [l for l in lines if "val/psnr" in l or "test/psnr" in l]
+    assert all(math.isfinite(l["loss"]) for l in steps.values()), "non-finite fit loss"
+    assert (model_path / "chkpnt300.pth").exists() and evals, "no checkpoint / evaluation"
+    assert steps[190]["n_active"] != steps[210]["n_active"], "densification changed nothing"
+    s_per_it = (steps[300]["elapsed_s"] - steps[20]["elapsed_s"]) / 280
+    g = trainer.step_graphs
+    disp = ("per-step eager" if g is None else
+            f"{g.captures} captures ({g.capture_s:.2f} s), {g.replays} replays, pair budget "
+            f"{g.budget}, regrowths {g.regrowths}, {g.rolled_back} iterations rolled back")
+    log(f"[{tag}] 300 iterations, wall {wall:.1f} s | {s_per_it:.4f} s per iteration over "
+        f"iterations 20-300 ({1 / s_per_it:.2f} it/s) | splats {steps[20]['n_active']} -> "
+        f"{steps[300]['n_active']} | loss {steps[10]['loss']:.4f} -> {steps[300]['loss']:.4f} | "
+        f"{disp} | {evals} | on {card}")
+    log(f"[{tag}] launches {launches}")
+    return {"s_per_it": s_per_it, "wall": wall, "evals": evals,
+            "rolled_back": 0 if g is None else g.rolled_back}
+
+
+def phase_fit(work: Path, stage1_out: Path, flame_dir: Path, kernels, card: str):
+    """Stage 2 through ``training()``: the counted fit, chunked as by default
+    (CUDA graphs), then the same fit per step (``chunked=False``), each
+    counted; returns the graphed fit's model path and both runs' launches."""
+    import torch
+
+    from cap4d_torch.avatar.scene import load_cap4d_dataset
     from cap4d_torch.avatar.train import training
 
     model, opt = avatar_params()
-    model_path = work / "avatar"
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    trainer = training([str(stage1_out / "reference_images"),
-                        str(stage1_out / "generated_images")],
-                       model_path, model, opt, testing_iterations=[300],
-                       checkpoint_iterations=[300], flame_asset_dir=flame_dir)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    lines = [_json.loads(l) for l in open(model_path / "metrics.jsonl")]
-    steps = {l["iter"]: l for l in lines if "loss" in l}
-    evals = [l for l in lines if "val/psnr" in l]
-    assert all(math.isfinite(l["loss"]) for l in steps.values()), "non-finite fit loss"
-    assert (model_path / "chkpnt300.pth").exists() and evals, "no checkpoint / eval"
-    assert steps[190]["n_active"] != steps[210]["n_active"], "densification changed nothing"
-    s_per_it = (steps[300]["elapsed_s"] - steps[20]["elapsed_s"]) / 280
-    from cap4d_torch.avatar.scene import load_cap4d_dataset
-
-    scene = load_cap4d_dataset([str(stage1_out / "reference_images"),
-                                str(stage1_out / "generated_images")])
+    sources = [str(stage1_out / "reference_images"), str(stage1_out / "generated_images")]
+    scene = load_cap4d_dataset(sources)
     n_eval = min(len(scene.val_cameras), 10) + min(len(scene.test_cameras), 10)
-    log(f"[fit] 300 iterations, wall {wall:.1f} s | {s_per_it:.4f} s per iteration over "
-        f"iterations 20-300 ({1 / s_per_it:.2f} it/s) | gaussians {steps[20]['n_active']} -> "
-        f"{steps[300]['n_active']} | loss {steps[10]['loss']:.4f} -> {steps[300]['loss']:.4f} | "
-        f"{evals[0]} | on {card}")
-    log(f"[fit] launches {launches} (300 iterations + {n_eval} evaluation renders)")
-    assert launches["gsplat_bwd"] == 300 and launches["gsplat_fwd"] == 300 + n_eval, launches
-    assert launches["rasterize"] > 0, launches
-    check_eval_renders(trainer, scene, [l for l in lines if "val/psnr" in l or "test/psnr" in l])
+    runs = {}
+    for tag, chunked in (("fit", None), ("fit eager", False)):
+        model_path = work / ("avatar" if chunked is None else "avatar_eager")
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        trainer = training(sources, model_path, model, opt, testing_iterations=[300],
+                           checkpoint_iterations=[300], flame_asset_dir=flame_dir,
+                           chunked=chunked)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        res = fit_summary(tag, model_path, trainer, wall, launches, card)
+        # 300 iterations (and the iterations a budget regrowth ran again), then
+        # the evaluation renders
+        n_step = 300 + res["rolled_back"]
+        assert launches["gsplat_bwd"] == n_step, launches
+        assert launches["gsplat_fwd"] == n_step + n_eval, launches
+        assert launches["rasterize"] > 0, launches
+        g = trainer.step_graphs
+        assert (g is not None and g.graphs and g.replays > 0) == (chunked is None), tag
+        runs[tag] = (trainer, launches, res)
+        if chunked is not None:
+            del trainer
+            torch.cuda.empty_cache()
+    trainer, _, res = runs["fit"]
+    log(f"[fit] graphed | eager: {res['s_per_it']:.4f} | {runs['fit eager'][2]['s_per_it']:.4f} "
+        f"s per iteration, wall {res['wall']:.1f} | {runs['fit eager'][2]['wall']:.1f} s, "
+        f"psnr {[l.get('val/psnr') for l in res['evals']]} | "
+        f"{[l.get('val/psnr') for l in runs['fit eager'][2]['evals']]} | on {card}")
+    check_eval_renders(trainer, scene, res["evals"])
+    graph_vs_eager(trainer, scene.train_cameras, "fit")
     # one more iteration and one evaluation render, outside the counted run
     cam = scene.train_cameras[0]
     profile_breakdown(lambda: trainer.train_step(cam, 301, 301), "fit iteration profile")
     profile_breakdown(lambda: trainer.render_camera(cam, cam.timestep, clip=True),
                       "render profile")
-    del trainer
-    return model_path, launches
+    launches = [runs["fit"][1], runs["fit eager"][1]]
+    del trainer, runs
+    return work / "avatar", launches
 
 
 def phase_animate(work: Path, model_path: Path, flame_dir: Path, kernels, card: str):
@@ -2290,10 +2464,10 @@ SMPL_VIEW = (540, 960)   # (W, H): half of generate_animation_camerahmr's 1080 x
 def phase_smpl(work: Path, kernels, card: str):
     """The full-body main path at full width on synthetic SMPL-sized assets:
     K4/K5 against the plain compositor at one full-body view of a fresh
-    avatar, ``train_fullbody`` (300 iterations), ``render_sequence_smpl``
-    of its checkpoint on the 48-frame wave; returns both runs' launches."""
-    import json as _json
-
+    avatar, ``train_fullbody`` (300 iterations) graphed and per step, the
+    replayed step against the eager one, ``render_sequence_smpl`` of the
+    graphed fit's checkpoint on the 48-frame wave; returns the three runs'
+    launches."""
     import numpy as np
     import torch
 
@@ -2335,33 +2509,38 @@ def phase_smpl(work: Path, kernels, card: str):
 
     cfg = root / "fullbody.yaml"
     dump_yaml({"model_params": model, "opt_params": opt}, cfg)
-    model_path = root / "avatar"
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    trainer = train_fullbody([str(data)], model_path, cfg, interval=300, smpl_asset_dir=smpl_dir)
-    wall = time.perf_counter() - t0
-    fit_launches = {k.name: k.launches for k in kernels}
-    lines = [_json.loads(l) for l in open(model_path / "metrics.jsonl")]
-    steps = {l["iter"]: l for l in lines if "loss" in l}
-    evals = [l for l in lines if "val/psnr" in l or "test/psnr" in l]
-    assert all(math.isfinite(l["loss"]) for l in steps.values()), "non-finite fit loss"
-    assert (model_path / "chkpnt300.pth").exists() and evals, "no checkpoint / evaluation"
-    assert steps[190]["n_active"] != steps[210]["n_active"], "densification changed nothing"
-    s_per_it = (steps[300]["elapsed_s"] - steps[20]["elapsed_s"]) / 280
     n_eval = len(scene.val_cameras[:10]) + len(scene.test_cameras[:10])
-    log(f"[smpl fit] 300 iterations, wall {wall:.1f} s | {s_per_it:.4f} s per iteration over "
-        f"iterations 20-300 ({1 / s_per_it:.2f} it/s) | splats {steps[20]['n_active']} -> "
-        f"{steps[300]['n_active']} | loss {steps[10]['loss']:.4f} -> {steps[300]['loss']:.4f} | "
-        f"{evals} | on {card}")
-    log(f"[smpl fit] launches {fit_launches} (300 iterations + {n_eval} evaluation renders)")
-    assert fit_launches["gsplat_bwd"] == 300, fit_launches
-    assert fit_launches["gsplat_fwd"] == 300 + n_eval, fit_launches
-    assert fit_launches["rasterize"] == 1, fit_launches      # the template's UV layout
-    assert all(math.isfinite(l.get("val/psnr", 0.0)) for l in evals), evals
+    runs = {}
+    for tag, chunked in (("smpl fit", None), ("smpl fit eager", False)):
+        model_path = root / ("avatar" if chunked is None else "avatar_eager")
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_fullbody([str(data)], model_path, cfg, interval=300,
+                                 smpl_asset_dir=smpl_dir, chunked=chunked)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        res = fit_summary(tag, model_path, trainer, wall, launches, card)
+        n_step = 300 + res["rolled_back"]
+        assert launches["gsplat_bwd"] == n_step, launches
+        assert launches["gsplat_fwd"] == n_step + n_eval, launches
+        assert launches["rasterize"] == 1, launches      # the template's UV layout
+        assert all(math.isfinite(l.get("val/psnr", 0.0)) for l in res["evals"]), res["evals"]
+        g = trainer.step_graphs
+        assert (g is not None and g.graphs and g.replays > 0) == (chunked is None), tag
+        runs[tag] = (trainer, launches, res)
+        if chunked is not None:
+            del trainer
+            torch.cuda.empty_cache()
+    trainer, fit_launches, res = runs["smpl fit"]
+    eager_launches, eager_res = runs["smpl fit eager"][1:]
+    log(f"[smpl fit] graphed | eager: {res['s_per_it']:.4f} | {eager_res['s_per_it']:.4f} s per "
+        f"iteration, wall {res['wall']:.1f} | {eager_res['wall']:.1f} s | on {card}")
+    model_path = root / "avatar"
+    graph_vs_eager(trainer, scene.train_cameras, "smpl fit")
     cam = scene.train_cameras[0]
     profile_breakdown(lambda: trainer.train_step(cam, 301, 301), "smpl fit iteration profile")
-    del trainer
+    del trainer, runs
     torch.cuda.empty_cache()
 
     anim = root / "wave.npz"
@@ -2396,7 +2575,7 @@ def phase_smpl(work: Path, kernels, card: str):
                           "smpl frame profile")
     del tr
     torch.cuda.empty_cache()
-    return fit_launches, anim_launches
+    return fit_launches, eager_launches, anim_launches
 
 
 # ---------------------------------------- several cards: cap4d_torch.parallel ----
@@ -2832,7 +3011,7 @@ def main() -> int:
         flame_dir, stage1_out = phase_gsplat(entries[3], entries[4], work, stage1_out)
     if "fit" in phases:
         model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
-        main_paths.append(fit_launches)
+        main_paths.extend(fit_launches)
     if "animate" in phases:
         main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
     if "quality" in phases:
