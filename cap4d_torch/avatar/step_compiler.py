@@ -33,7 +33,8 @@ it) the same lane step runs eagerly, with the same snapshots and regrowths.
 
 Kernel launches inside a replay do not pass through ``CudaKernel.call``:
 the launches counted while capturing are taken back (a capture launches
-nothing) and added again at every replay. A capture or replay error raises;
+nothing) and added again at every replay (``cuda_build.capture_graph``,
+``replay_graph``). A capture or replay error raises;
 there is no eager fallback on the card.
 """
 
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 
 from cap4d_torch.avatar.trainer import AvatarTrainer, CameraBank
-from cap4d_torch.ops.cuda_build import CudaKernel
+from cap4d_torch.ops.cuda_build import capture_graph, replay_graph, warm_up
 
 # a pair budget is a multiple of this many candidate slots
 BUDGET_QUANTUM = 65536
@@ -113,24 +114,14 @@ class StepGraphs:
 
     def _capture(self) -> None:
         """Capture :meth:`lane_step` after the eager first lane has run."""
-        before = {k.name: k.launches for k in CudaKernel.registry}
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.lane_step()
+        self.graph, self.replay_launches = capture_graph(self.lane_step)
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
-        self.replay_launches = {}
-        for k in CudaKernel.registry:
-            self.replay_launches[k.name] = k.launches - before[k.name]
-            k.launches = before[k.name]
-        self.graph = graph
 
     def _replay(self) -> None:
-        self.graph.replay()
+        replay_graph(self.graph, self.replay_launches)
         self.replays += 1
-        for k in CudaKernel.registry:
-            k.add_launches(self.replay_launches[k.name])
 
     # ------------------------------------------------------------- dispatches
 
@@ -163,11 +154,7 @@ class StepGraphs:
             self.graph, self.key = None, None
             torch.cuda.empty_cache()
             # the real first lane is the capture's warm-up, on a side stream
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.lane_step()
-            torch.cuda.current_stream().wait_stream(side)
+            warm_up(self.lane_step)
             self._capture()
             self.key = key
             lanes = range(1, k)

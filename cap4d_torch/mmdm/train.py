@@ -27,8 +27,14 @@ device whatever the mesh.
 Differences from ``cap4d_tpu``:
 
 - the micro-batches of a step run in a Python loop, each with its own
-  backward; PyTorch sums their gradients in ``.grad`` and the step divides
-  them by the number of micro-batches, as the JAX scan does;
+  backward; on the card each is a replay of one captured CUDA graph
+  (``step_graph.py``, the counterpart of the scan's body, which JAX
+  compiles once). PyTorch sums their gradients in static ``.grad`` tensors
+  and the step divides them by the number of micro-batches, as the JAX scan
+  does; the division, the all-reduce and AdamW stay outside the graph;
+- a worker thread draws the next step's batches while the card runs this
+  one, and the stacks reach the card through pinned host buffers in turn
+  (``BatchStager``), as JAX's asynchronous dispatch lets its host run ahead;
 - training computes in bf16 by default (``dtype``), with fp32 parameters and
   AdamW state: the attention kernels take bf16 only. The JAX CLI's default
   is fp32;
@@ -44,8 +50,9 @@ import contextlib
 import json
 import pickle
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,11 +65,11 @@ from cap4d_torch.mmdm.convert import (
 )
 from cap4d_torch.mmdm.ddim import ddim_sample
 from cap4d_torch.mmdm.model import MMDM
+from cap4d_torch.mmdm.step_graph import MicroBatchGraph
 from cap4d_torch.mmdm.training import (
     TrainState,
     all_reduce_grads_,
     init_train_state,
-    mmdm_loss,
     schedule_consts,
 )
 from cap4d_torch.parallel.mesh import DP, init_dp, local_dp, shard_slice
@@ -97,7 +104,8 @@ class SyntheticMMDMDataset:
 
 
 def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_steps: int,
-                          cfg_probability: float = 0.1, dp: Optional[DP] = None):
+                          cfg_probability: float = 0.1, dp: Optional[DP] = None,
+                          graphs: Optional[bool] = None):
     """One optimizer step over ``accum_steps`` micro-batches (virtual
     batching). Returns step(state, z_stack, cond_stack, generator,
     t_stack=None, noise_stack=None) → mean loss; the stacks are (accum, B,
@@ -105,42 +113,27 @@ def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_s
     and noise, from ``generator`` unless ``t_stack``/``noise_stack`` give
     them. With ``dp`` rank r runs micro-batches ``shard_slice(accum_steps,
     r, world)`` of the stacks (``accum_steps`` must divide evenly); the loss
-    is the global mean and every rank takes the same update."""
+    is the global mean and every rank takes the same update.
+
+    ``graphs`` (default: on the card, not on the CPU) replays each
+    micro-batch as a captured CUDA graph (``step_graph.MicroBatchGraph``,
+    kept as ``step.graph``); False runs the same body eagerly."""
     dp = local_dp(dp, model.device)
     if accum_steps % dp.world:
         raise ValueError(f"{accum_steps} micro-batches do not split evenly over {dp.world} ranks")
     mine = shard_slice(accum_steps, dp.rank, dp.world)
-    n_mine = mine.stop - mine.start
+    mine = range(mine.start, mine.stop)
+    n_mine = len(mine)
     unet = model.unet
-    consts = schedule_consts(model.schedule, model.device)
-    num_timesteps = model.schedule.num_timesteps
-
-    def micro_loss(z, cond, generator, t, noise):
-        # per-sample unconditional mixing (get_input, mmdm.py:78-85)
-        is_uncond = torch.rand((z.shape[0],), generator=generator, device=z.device) < cfg_probability
-
-        def mix(c):
-            drop = is_uncond.reshape(-1, *([1] * (c.ndim - 1)))
-            return torch.where(drop, torch.zeros_like(c), c)
-
-        cond = {"pos_enc": mix(cond["pos_enc"]), "z_input": mix(cond["z_input"]),
-                "ref_mask": cond["ref_mask"]}
-        return mmdm_loss(unet, consts, z, cond, generator, num_timesteps=num_timesteps,
-                         t=t, noise=noise)
+    if graphs is None:
+        graphs = next(unet.parameters()).device.type == "cuda"
+    micro = MicroBatchGraph(unet, schedule_consts(model.schedule, model.device),
+                            model.schedule.num_timesteps, cfg_probability, graphs)
 
     def step(state: TrainState, z_stack, cond_stack, generator=None, t_stack=None,
              noise_stack=None) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), device=z_stack.device)
-        for i in range(mine.start, mine.stop):
-            loss, _ = micro_loss(z_stack[i], {k: v[i] for k, v in cond_stack.items()}, generator,
-                                 None if t_stack is None else t_stack[i],
-                                 None if noise_stack is None else noise_stack[i])
-            loss.backward()
-            loss_sum += loss.detach()
-        for p in unet.parameters():
-            if p.grad is not None:
-                p.grad.div_(n_mine)
+        loss_sum = micro.run(mine, z_stack, cond_stack, generator, t_stack, noise_stack)
+        torch._foreach_div_(micro.grads(), n_mine)
         mean_loss = loss_sum / n_mine
         # the mean of the ranks' equal-sized means is the step's mean
         all_reduce_grads_(unet.parameters(), dp, extra=[mean_loss])
@@ -148,7 +141,81 @@ def make_accum_train_step(model: MMDM, optimizer: torch.optim.Optimizer, accum_s
         state.step += 1
         return mean_loss
 
+    step.graph = micro
     return step
+
+
+class BatchStager:
+    """The next ``n_steps`` optimizer steps' micro-batches from ``batches``,
+    as stacks (accum, B, ...) on ``device``, one step a ``next()``.
+
+    A worker thread draws and stacks step n+1 while step n runs: on the card
+    the host spends most of a graphed step blocked in its graph launches
+    (the command buffer fills), with the GIL released, and numpy draws
+    without it. The worker touches no CUDA state, so a capture may run
+    meanwhile. On the card the stacks then go through two sets of pinned
+    host buffers in turn (a set is written again only after the CUDA event
+    behind its last copy) into the device stacks, ``non_blocking`` on the
+    current stream: a copy from pageable memory would wait for the stream.
+    The draws are those of the loop that drew each step in place: the same
+    batches in the same order, and none past the last step."""
+
+    def __init__(self, batches, accum: int, device, n_steps: int):
+        self.batches, self.accum, self.left = batches, accum, n_steps
+        self.device = torch.device(device)
+        self.pool = ThreadPoolExecutor(max_workers=1)
+        self.host: list = [None, None]
+        self.copied: list = [None, None]
+        self.stacks: Dict[str, torch.Tensor] = {}
+        self.turn = 0
+        self.pending = self._submit()
+
+    def _draw(self) -> Dict[str, np.ndarray]:
+        micro = [next(self.batches) for _ in range(self.accum)]
+        return {"z": np.stack([m["z"] for m in micro]),
+                **{k: np.stack([m["cond"][k] for m in micro]) for k in micro[0]["cond"]}}
+
+    def _submit(self):
+        if self.left == 0:
+            return None
+        self.left -= 1
+        return self.pool.submit(self._draw)
+
+    def next(self) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if self.pending is None:
+            raise RuntimeError(f"all {self.accum}-micro-batch steps asked for are staged")
+        arrays = self.pending.result()
+        self.pending = self._submit()
+        if self.device.type != "cuda":
+            stacks = {n: torch.from_numpy(a) for n, a in arrays.items()}
+        else:
+            k = self.turn
+            self.turn ^= 1
+            if self.copied[k] is not None:
+                self.copied[k].synchronize()
+            if self.host[k] is None or any(self.host[k][n].shape != a.shape
+                                           for n, a in arrays.items()):
+                self.host[k] = {n: torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
+                                               pin_memory=True) for n, a in arrays.items()}
+            for n, a in arrays.items():
+                self.host[k][n].numpy()[...] = a
+                if n not in self.stacks or self.stacks[n].shape != a.shape:
+                    self.stacks[n] = torch.empty(a.shape, dtype=self.host[k][n].dtype,
+                                                 device=self.device)
+                self.stacks[n].copy_(self.host[k][n], non_blocking=True)
+            self.copied[k] = torch.cuda.Event()
+            self.copied[k].record()
+            stacks = self.stacks
+        return stacks["z"], {n: v for n, v in stacks.items() if n != "z"}
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def __enter__(self) -> "BatchStager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def save_train_checkpoint(path: Path, state: TrainState, step: int) -> None:
@@ -188,10 +255,12 @@ def train_mmdm(
     image_log_every: Optional[int] = None,
     device=None,
     dp: Optional[DP] = None,
+    graphs: Optional[bool] = None,
 ) -> TrainState:
     """Train the MMDM UNet on the card (``device="cpu"`` for the plain
     versions) over the ranks of ``dp`` (None: this process alone); returns
-    the final ``TrainState``.
+    the final ``TrainState``, whose ``step_graph`` holds the micro-batch
+    graph's counters. ``graphs``: see :func:`make_accum_train_step`.
 
     Every rank draws each step's micro-batches from the same seeded dataset
     and runs its share; its masks, timesteps and noise come from a generator
@@ -216,20 +285,19 @@ def train_mmdm(
 
     state = init_train_state(model.unet, lr)
     step_fn = make_accum_train_step(model, state.optimizer, accum,
-                                    cfg_probability=model.cfg_probability, dp=dp)
+                                    cfg_probability=model.cfg_probability, dp=dp, graphs=graphs)
+    state.step_graph = step_fn.graph
     if dataset is None:
         dataset = SyntheticMMDMDataset(model, n_views=model.n_frames,
                                        n_ref=int(config.get("n_ref", 4)))
     batches = dataset.batches(batch)
     generator = torch.Generator(device=dev).manual_seed(dp.rank << 32)
 
-    with open(out / "train_metrics.jsonl", "a") if main else contextlib.nullcontext() as metrics:
+    with open(out / "train_metrics.jsonl", "a") if main else contextlib.nullcontext() as metrics, \
+            BatchStager(batches, accum, dev, total) as stage:
         t0 = time.perf_counter()
         for step in range(1, total + 1):
-            micro = [next(batches) for _ in range(accum)]
-            z_stack = torch.as_tensor(np.stack([m["z"] for m in micro]), device=dev)
-            cond_stack = {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro]), device=dev)
-                          for k in micro[0]["cond"]}
+            z_stack, cond_stack = stage.next()
             loss = step_fn(state, z_stack, cond_stack, generator)
             if main and (step % log_every == 0 or step == 1):
                 l = float(loss)   # waits for the step's work on the card
@@ -259,7 +327,9 @@ def main():
     parser.add_argument("--n_steps", type=int, default=None)
     parser.add_argument("--flame_asset_dir", type=str, default="data/assets/flame")
     parser.add_argument("--detect_anomaly", action="store_true",
-                        help="torch.autograd.set_detect_anomaly (reference train.py:359,391)")
+                        help="torch.autograd.set_detect_anomaly (reference train.py:359,391); "
+                             "runs the micro-batches eagerly, since its checks cannot be "
+                             "captured in a CUDA graph")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "versions of the kernels)")
@@ -269,7 +339,8 @@ def main():
     dp = init_dp(args.device)
     try:
         train_mmdm(args.config_path, args.output_path, n_steps=args.n_steps,
-                   flame_asset_dir=args.flame_asset_dir, device=args.device, dp=dp)
+                   flame_asset_dir=args.flame_asset_dir, device=args.device, dp=dp,
+                   graphs=False if args.detect_anomaly else None)
     finally:
         dp.close()
 

@@ -45,6 +45,7 @@ class TrainState:
     unet: MMDMUNet
     optimizer: torch.optim.Optimizer
     step: int = 0
+    step_graph: Optional[object] = None   # train_mmdm's MicroBatchGraph, for its counters
 
 
 def q_sample(sched_consts: Dict[str, torch.Tensor], x_start, t, noise):
@@ -114,7 +115,9 @@ def all_reduce_grads_(params, dp: DP, extra=()) -> int:
     the ranks in one bucketed all-reduce; a no-op without a process group.
     A rank without a gradient for a parameter adds zeros; a parameter no
     rank has a gradient for keeps none, so AdamW skips it as it does on one
-    rank. Returns the bytes reduced."""
+    rank. A gradient keeps its tensor (the reduce copies back in place), so
+    a captured step's static ``.grad`` stays where its graph writes. Returns
+    the bytes reduced."""
     if dp.group is None:
         return 0
     params = [p for p in params if p.requires_grad]

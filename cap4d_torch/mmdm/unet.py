@@ -305,7 +305,11 @@ class MMDMUNet(nn.Module):
         args = (h, emb) if isinstance(layer, ResBlock) else (h,)
         if (self.remat and torch.is_grad_enabled()
                 and isinstance(layer, (ResBlock, SpatioTemporalTransformer))):
-            return checkpoint(layer, *args, use_reentrant=False)
+            # nothing in these layers draws random numbers (no dropout), so
+            # the recompute needs no stashed RNG state; stashing it would set
+            # the CUDA generator's state inside a captured training step
+            # (``mmdm/step_graph.py``), which a capture refuses
+            return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
         return layer(*args)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict) -> torch.Tensor:
@@ -317,6 +321,9 @@ class MMDMUNet(nn.Module):
         if self.compute_dtype is None or self.compute_dtype == self.dtype:
             h = self._denoise(x, timesteps, cond)
         else:
+            # autocast's cache of bf16 weight copies lives until this context
+            # exits (the remat recompute enters its own), so a captured step
+            # records the casts and every replay reads the current weights
             with torch.autocast(x.device.type, dtype=self.compute_dtype):
                 h = self._denoise(x, timesteps, cond)
         h = h.to(x.dtype)

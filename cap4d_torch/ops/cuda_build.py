@@ -12,9 +12,16 @@ current device, so ``call`` first checks that every input tensor lies on
 it (a rank of ``cap4d_torch.parallel`` makes its own card current).
 
 A launch recorded into a CUDA graph runs again at every replay without
-passing through ``call``: the graph's owner (``avatar/step_compiler.py``)
-reads what its capture launched and adds it per replay with
-``add_launches``, so ``launches`` counts what ran on the card.
+passing through ``call``: ``capture_graph`` takes back what a capture
+counted and returns it per kernel, and ``replay_graph`` adds it at every
+replay through ``add_launches``, so ``launches`` counts what ran on the card
+(the graphs of ``avatar/step_compiler.py`` and ``mmdm/step_graph.py``).
+A launch through ``call`` may be captured: ``check_on_current_card`` reads
+only the current device, the C entry points neither synchronise nor
+allocate (their one-time ``cudaFuncSetAttribute`` runs at the first call,
+which a capture's eager warm-up makes), and a TMA tensor map is encoded on
+the host from the pointers it is given, so the graph keeps the addresses
+of the tensors the capture saw.
 
 Nothing here is imported or built on a machine without CUDA until a kernel
 is launched on a CUDA tensor.
@@ -160,6 +167,45 @@ class CudaKernel:
     def add_launches(self, n: int) -> None:
         """Count ``n`` launches made by a replayed CUDA graph."""
         self.launches += n
+
+
+def warm_up(fn) -> None:
+    """Run ``fn()`` on a side stream, as PyTorch's recipe runs the iteration
+    before a capture: cuBLAS, cuDNN and the kernels' one-time set-up
+    (``cudaFuncSetAttribute``) happen there, outside the graph."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def capture_graph(fn):
+    """Capture ``fn()`` into a new ``torch.cuda.CUDAGraph``. A capture
+    launches nothing, so the launches that ``call`` counted meanwhile are
+    taken back; returns (graph, {kernel name: launches in one replay})."""
+    import torch
+
+    before = {k.name: k.launches for k in CudaKernel.registry}
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        per_replay = {}
+        for k in CudaKernel.registry:
+            per_replay[k.name] = k.launches - before[k.name]
+            k.launches = before[k.name]
+    return graph, per_replay
+
+
+def replay_graph(graph, per_replay: Dict[str, int]) -> None:
+    """Replay ``graph`` and count its kernels' launches."""
+    graph.replay()
+    for k in CudaKernel.registry:
+        k.add_launches(per_replay[k.name])
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

@@ -90,9 +90,15 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
  10. the MMDM training main path: ``train_mmdm`` on the shipped training
      config at full width with the synthetic dataset, bf16, cut to a virtual
      batch of 4 micro-batches and 3 optimizer steps (checkpoint and image log
-     at step 3); the checkpoint reloads into a fresh UNet; then, outside the
-     counted run, one more step through the loop's step function, timed
-     alone and profiled, and the AdamW update alone;
+     at step 3), each micro-batch a replay of one captured CUDA graph (its
+     captures and replays asserted, launches counted through the replays);
+     the checkpoint reloads into a fresh UNet; then, outside the counted run,
+     on signal weights, a graphed step against an eager one from identical
+     state (eager against eager for the spread; within
+     ``TRAIN_GRAPH_*_REL_TOL``), a replayed step after an AdamW update
+     against an eager one (stale bf16 weight casts would show), s per
+     optimizer step graphed | eager in turns, the card's busy share over
+     replayed steps by CUDA events, profiles of both, the AdamW update alone;
  11. the op-mix micro-benchmark (K7) and the full-body SMPL path (``op_mix``,
      ``smpl``; its 300-iteration fit graphed and per step, and the replay
      against the eager step, as in 8);
@@ -105,7 +111,7 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      ``DP_REL_TOL``), phase 9's 48 frames with ``dp_frames`` 0 (every PNG and
      the PLY byte-identical to phase 9's), and ``make_accum_train_step`` at
      full width (the shipped training config, 4 micro-batches over the two
-     ranks, 2 AdamW steps with injected draws after one from seeded random
+     ranks, graphed, 2 AdamW steps with injected draws after one from seeded random
      gradients: the first step's loss to 1e-5 relative and gradient norm
      within ``DP_GRAD_REL_TOL``, the second step's within
      ``DP_STEP2_REL_TOL``, beside one process run three times; both ranks'
@@ -2273,18 +2279,22 @@ def phase_train(work: Path, kernels, card: str):
     elapsed = {l["step"]: l["step"] / l["steps_per_sec"] for l in lines}
     accum = cuts["virtual_batch_size"]
     s_step = (elapsed[3] - elapsed[1]) / 2
-    log(f"[train] {n_params} UNet parameters | losses {losses} | step 1 (warm-up) "
+    graph = state.step_graph.counters()
+    log(f"[train] {n_params} UNet parameters | losses {losses} | step 1 (warm-up and capture) "
         f"{elapsed[1]:.3f} s | steps 2-3: {s_step:.4f} s per optimizer step, "
-        f"{s_step / accum:.4f} s per micro-batch ({accum} micro-batches a step) | peak "
-        f"{peak:.2f} GiB allocated | wall {wall:.1f} s with set-up, image log and checkpoint "
-        f"| on {card}")
+        f"{s_step / accum:.4f} s per micro-batch ({accum} micro-batches a step) | micro-batch "
+        f"graph {graph} | peak {peak:.2f} GiB allocated | wall {wall:.1f} s with set-up, image "
+        f"log and checkpoint | on {card}")
+    micro = accum * cuts["n_steps"]
+    # the first micro-batch warms up, then one capture; the rest are replays
+    assert graph["graphed"] and graph["captures"] == 1 and graph["replays"] == micro - 1, graph
 
     n_attn = sum(isinstance(m, AttentionModule) for m in unet.modules())
     n_gn = sum(isinstance(m, GroupNorm32) for m in unet.modules())
-    micro = accum * cuts["n_steps"]
     n_ddim = len(make_ddim_timesteps(10, 1000))
     # remat runs every attention and every GroupNorm but the last one twice;
-    # the image log's DDIM runs 10 forwards without gradients
+    # the image log's DDIM runs 10 forwards without gradients; a replay adds
+    # what its capture launched
     expect = {"flash_attention_bwd": micro * n_attn,
               "flash_attention": micro * 2 * n_attn + n_ddim * n_attn,
               "group_norm": micro * (2 * n_gn - 1) + n_ddim * n_gn}
@@ -2316,42 +2326,233 @@ def phase_train(work: Path, kernels, card: str):
     assert bool(eps_a.isfinite().all()) and err <= 1e-3 * float(eps_a.abs().max()), err
     del fresh
 
-    # one more optimizer step through the loop's own step function, timed
-    # alone and profiled (outside the counted run)
-    import numpy as np
-
-    from cap4d_torch.mmdm.train import SyntheticMMDMDataset, make_accum_train_step
-
-    model = SimpleNamespace(unet=unet, schedule=shipped_schedule(), device=torch.device("cuda"),
-                            latent_size=L)
-    data = SyntheticMMDMDataset(model, n_views=8, n_ref=4, seed=1).batches(1)
-    t0 = time.perf_counter()
-    micro_batches = [next(data) for _ in range(accum)]
-    z_stack = torch.as_tensor(np.stack([m["z"] for m in micro_batches]), device="cuda")
-    cond_stack = {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro_batches]),
-                                     device="cuda") for k in micro_batches[0]["cond"]}
-    torch.cuda.synchronize()
-    log(f"[train] host: drawing and uploading one step's synthetic batches (as the loop does) "
-        f"{time.perf_counter() - t0:.4f} s")
-    step_fn = make_accum_train_step(model, state.optimizer, accum)
-    gen = torch.Generator(device="cuda").manual_seed(6)
-
-    def one_step():
-        return step_fn(state, z_stack, cond_stack, gen)
-
-    one_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step()
-    torch.cuda.synchronize()
-    log(f"[train] one more optimizer step ({accum} micro-batches + AdamW), timed alone: "
-        f"{time.perf_counter() - t0:.4f} s")
-    profile_breakdown(one_step, "train step profile")
-    adamw_ms = time_ms(lambda: state.optimizer.step(), iters=3, warmup=1)
-    log(f"[train] AdamW update over {n_params} fp32 parameters: {adamw_ms:.3f} ms")
     del state, unet
     torch.cuda.empty_cache()
+    train_graph_vs_eager(cfg_path, flame_dir, accum, card)
     return launches
+
+
+# a graphed training step against an eager one from identical state (bf16
+# compute, signal weights): the mean loss, and the parameters' update
+# ||ΔP_graph − ΔP_eager|| / ||ΔP_eager||. The forward that sets the loss
+# does not depend on K6's atomic dQ, and the loss came out bit-identical;
+# the update does: eager against eager differed by 3.0e-5–3.6e-5 and
+# graphed against eager by 3.1e-5–4.5e-5 (H100, PERF.md §6). The eager
+# spread is measured again beside each check
+TRAIN_GRAPH_LOSS_REL_TOL = 1e-5
+TRAIN_GRAPH_UPDATE_REL_TOL = 2e-4
+# the stale-weight check's update is made with this learning rate, so that
+# the weights' bf16 casts before and after it differ
+STALE_CHECK_LR = 1e-2
+
+
+def signal_mmdm(cfg_path: Path, flame_dir: Path, device="cuda"):
+    """The MMDM of a training config for training on ``device``: fp32
+    parameters on signal weights (norm scales near 1), bf16 compute, remat."""
+    import torch
+
+    import cap4d_torch.mmdm.model as mmdm_model
+    from cap4d_torch.mmdm.model import MMDM
+    from cap4d_torch.utils.config import load_yaml
+
+    saved, mmdm_model.init_random_ = mmdm_model.init_random_, signal_init_
+    try:
+        return MMDM.from_config(load_yaml(cfg_path), flame_asset_dir=flame_dir,
+                                dtype=torch.bfloat16, device=device, remat=True, trainable=True)
+    finally:
+        mmdm_model.init_random_ = saved
+
+
+def first_update_(state, seed: int = 7) -> None:
+    """One AdamW update from seeded random gradients: an update from fresh
+    moments is about lr·sign(g), which turns the last bits of a near-zero
+    gradient into a whole step; after it the updates are smooth in the
+    gradient."""
+    import torch
+
+    params = list(state.unet.parameters())
+    gen = torch.Generator(device=params[0].device).manual_seed(seed)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device=p.device)
+    state.optimizer.step()
+
+
+def train_graph_vs_eager(cfg_path: Path, flame_dir: Path, accum: int, card: str) -> None:
+    """``make_accum_train_step`` graphed against eager at full width, from
+    identical state (parameters and AdamW moments put back, the same
+    generator seed): eager against eager (the spread), the first graphed
+    step (warm-up, capture, replays) and an all-replayed one against eager;
+    then a replayed step after an AdamW update against an eager step from
+    the same state (stale bf16 weight casts would show), beside the gap such
+    casts would make. Then s per optimizer step graphed | eager, the card's
+    busy share over replayed steps by CUDA events, a loop of graphed steps
+    with the dataset's draws staged by ``BatchStager`` (a fetch every step
+    against one at the end), profiles of both steps, and the AdamW
+    update alone."""
+    import numpy as np
+    import torch
+
+    from cap4d_torch.mmdm.train import BatchStager, SyntheticMMDMDataset, make_accum_train_step
+    from cap4d_torch.mmdm.training import init_train_state
+
+    model = signal_mmdm(cfg_path, flame_dir)
+    state = init_train_state(model.unet, 1e-4)
+    params = list(model.unet.parameters())
+    first_update_(state)
+    steps = {g: make_accum_train_step(model, state.optimizer, accum,
+                                      cfg_probability=model.cfg_probability, graphs=g)
+             for g in (False, True)}
+    data = SyntheticMMDMDataset(model, n_views=model.n_frames, n_ref=4, seed=1).batches(1)
+    stacks = []
+    for _ in range(2):
+        micro = [next(data) for _ in range(accum)]
+        stacks.append((torch.as_tensor(np.stack([m["z"] for m in micro]), device="cuda"),
+                       {k: torch.as_tensor(np.stack([m["cond"][k] for m in micro]),
+                                           device="cuda") for k in micro[0]["cond"]}))
+
+    def snapshot():
+        return ([p.detach().clone() for p in params],
+                [{k: v.clone() for k, v in state.optimizer.state[p].items()} for p in params])
+
+    def restore(snap):
+        with torch.no_grad():
+            for p, s_, st in zip(params, *snap):
+                p.copy_(s_)
+                for k, v in st.items():
+                    state.optimizer.state[p][k].copy_(v)
+
+    def run(graphed: bool, which: int, seed: int) -> float:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        loss = float(steps[graphed](state, *stacks[which], gen))
+        assert math.isfinite(loss), loss
+        return loss
+
+    def update_gap(ref, start) -> float:
+        """||P − ref|| / ||ref − start|| over every parameter."""
+        num = den = 0.0
+        for p, r, s_ in zip(params, ref, start):
+            num += float((p.detach() - r).float().norm()) ** 2
+            den += float((r - s_).float().norm()) ** 2
+        return math.sqrt(num / den)
+
+    rel = lambda a, b: abs(a - b) / abs(b)
+    s0 = snapshot()
+    l_e = run(False, 0, 11)
+    p_e = [p.detach().clone() for p in params]
+    restore(s0)
+    spread = (rel(run(False, 0, 11), l_e), update_gap(p_e, s0[0]))
+    gaps = {}
+    for label in ("first graphed step (warm-up, capture, 3 replays)", "replayed step"):
+        restore(s0)
+        gaps[label] = (rel(run(True, 0, 11), l_e), update_gap(p_e, s0[0]))
+    counters = steps[True].graph.counters()
+    log(f"[train graph] one step of {accum} micro-batches from identical state (signal "
+        f"weights, cfg_probability {model.cfg_probability}): eager vs eager loss "
+        f"{spread[0]:.3e}, update {spread[1]:.3e} | " + " | ".join(
+            f"{k} vs eager loss {g[0]:.3e}, update {g[1]:.3e}" for k, g in gaps.items())
+        + f" (bounds {TRAIN_GRAPH_LOSS_REL_TOL:g}, {TRAIN_GRAPH_UPDATE_REL_TOL:g}) | {counters}, "
+        f"launches a replay {steps[True].graph.replay_launches}")
+    assert counters["captures"] == 1 and counters["replays"] == 2 * accum - 1, counters
+    for g in gaps.values():
+        assert g[0] <= TRAIN_GRAPH_LOSS_REL_TOL and g[1] <= TRAIN_GRAPH_UPDATE_REL_TOL, (gaps,
+                                                                                         spread)
+
+    # stale weights: a replayed step after an AdamW update (made by a replayed
+    # step at STALE_CHECK_LR) against an eager step from the same state
+    restore(s0)
+    del p_e
+    state.optimizer.param_groups[0]["lr"] = STALE_CHECK_LR
+    run(True, 0, 11)
+    state.optimizer.param_groups[0]["lr"] = 1e-4
+    s1 = snapshot()
+    l_g = run(True, 1, 12)
+    p_g = [p.detach().clone() for p in params]
+    restore(s1)
+    l_e1 = run(False, 1, 12)
+    stale_gap = (rel(l_g, l_e1), update_gap(p_g, s1[0]))
+    del p_g
+    restore(s0)
+    l_stale = run(False, 1, 12)    # the loss that the update's old weights give
+    log(f"[train graph] after an AdamW update at lr {STALE_CHECK_LR:g}: replayed vs eager loss "
+        f"{stale_gap[0]:.3e}, update {stale_gap[1]:.3e}; stale weight casts would show a "
+        f"loss gap of {rel(l_stale, l_e1):.3e} | on {card}")
+    assert stale_gap[0] <= TRAIN_GRAPH_LOSS_REL_TOL, stale_gap
+    assert stale_gap[1] <= TRAIN_GRAPH_UPDATE_REL_TOL, stale_gap
+    assert rel(l_stale, l_e1) >= 100 * TRAIN_GRAPH_LOSS_REL_TOL, (l_stale, l_e1)
+    del s0, s1
+    torch.cuda.empty_cache()
+
+    # s per optimizer step graphed | eager in turns, each step alone
+    times = {False: [], True: []}
+    for graphed in (False, True, True, False, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(graphed, 0, 13)
+        times[graphed].append(time.perf_counter() - t0)
+    # the card's busy share: a replayed step's device time by CUDA events,
+    # enqueued while a sleep kernel holds the stream, against the step's
+    # wall time above. The events see idle time only where the host falls
+    # behind the card inside the step
+    hold_ms = 300.0
+    cycles = int(hold_ms * 1e-3 * sm_clock_hz())
+    device_ms, enqueue_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        ev[0].record()
+        steps[True](state, *stacks[0], torch.Generator(device="cuda").manual_seed(13))
+        ev[1].record()
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        device_ms.append(ev[0].elapsed_time(ev[1]))
+    # how far the host gets ahead: three replays of the graph, back to back,
+    # launched while the stream is held (their gradients are thrown away)
+    graph = steps[True].graph.graph
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        graph.replay()
+    launch_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * min(times[True])
+    log(f"[train graph] s per optimizer step of {accum} micro-batches (graphed | eager, in "
+        f"turns): {', '.join(f'{t:.4f}' for t in times[True])} | "
+        f"{', '.join(f'{t:.4f}' for t in times[False])} | a replayed step on the card "
+        f"(CUDA events, the stream held {hold_ms:.0f} ms while it is enqueued): "
+        f"{', '.join(f'{d:.2f}' for d in device_ms)} ms, enqueued in "
+        f"{', '.join(f'{e:.2f}' for e in enqueue_ms)} ms; busy "
+        f"{100 * min(device_ms) / wall_ms:.0f}% of the fastest graphed step's wall "
+        f"({wall_ms:.2f} ms) | three back-to-back replays launched in {launch_ms:.2f} ms "
+        f"with the stream held | on {card}")
+    # the training loop's own overlap: BatchStager draws the next step on its
+    # worker while the card replays this one; a fetch every step, as
+    # train_mmdm logs here, against one at the end
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    loop_s = {}
+    for fetch_each in (True, False, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with BatchStager(data, accum, "cuda", 3) as stage:
+            for _ in range(3):
+                loss = steps[True](state, *stage.next(), gen)
+                if fetch_each:
+                    float(loss)
+        float(loss)
+        loop_s.setdefault(fetch_each, []).append((time.perf_counter() - t0) / 3)
+    log(f"[train graph] loop of 3 graphed steps with the synthetic dataset's draws, staged "
+        f"by BatchStager, s a step: the loss fetched every step "
+        f"{', '.join(f'{t:.4f}' for t in loop_s[True])} | once at the end "
+        f"{', '.join(f'{t:.4f}' for t in loop_s[False])} | on {card}")
+    profile_breakdown(lambda: run(True, 0, 13), "train step profile, graphed")
+    profile_breakdown(lambda: run(False, 0, 13), "train step profile, eager")
+    n_params = sum(p.numel() for p in params)
+    adamw_ms = time_ms(lambda: state.optimizer.step(), iters=3, warmup=1)
+    log(f"[train] AdamW update over {n_params} fp32 parameters: {adamw_ms:.3f} ms")
+    del state, model, steps, stacks
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------- slice 4: K7 and the SMPL body ----
@@ -2677,8 +2878,6 @@ def dp_train(dp, cfg_path: Path, flame_dir: Path, steps: int = 2, accum: int = 4
     import numpy as np
     import torch
 
-    import cap4d_torch.mmdm.model as mmdm_model
-    from cap4d_torch.mmdm.model import MMDM
     from cap4d_torch.mmdm.train import SyntheticMMDMDataset, make_accum_train_step
     from cap4d_torch.mmdm.training import all_reduce_grads_, init_train_state
     from cap4d_torch.mmdm.unet import AttentionModule, GroupNorm32
@@ -2688,22 +2887,10 @@ def dp_train(dp, cfg_path: Path, flame_dir: Path, steps: int = 2, accum: int = 4
     dp = local_dp(dp, "cuda")
     dev = dp.device
     config = load_yaml(cfg_path)
-    saved, mmdm_model.init_random_ = mmdm_model.init_random_, signal_init_
-    try:
-        model = MMDM.from_config(config, flame_asset_dir=flame_dir, dtype=torch.bfloat16,
-                                 device=dev, remat=True, trainable=True)
-    finally:
-        mmdm_model.init_random_ = saved
+    model = signal_mmdm(cfg_path, flame_dir, dev)
     state = init_train_state(model.unet, float(config["learning_rate"]))
     params = list(model.unet.parameters())
-    # one AdamW update from seeded random gradients first: an update from
-    # fresh moments is about lr·sign(g), which turns the last bits of a
-    # near-zero gradient into a whole step; after it the updates compared
-    # below are smooth in the gradient
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for p in params:
-        p.grad = torch.randn(p.shape, generator=gen, device=dev)
-    state.optimizer.step()
+    first_update_(state)
     step_fn = make_accum_train_step(model, state.optimizer, accum, cfg_probability=0.0, dp=dp)
     data = SyntheticMMDMDataset(model, n_views=model.n_frames, n_ref=int(config["n_ref"]),
                                 seed=0).batches(1)
@@ -2728,7 +2915,7 @@ def dp_train(dp, cfg_path: Path, flame_dir: Path, steps: int = 2, accum: int = 4
     torch.cuda.synchronize()
     return {"losses": losses, "grad_norms": norms, "checksum": digest.hexdigest(),
             "allreduce_bytes": moved, "allreduce_s": time.perf_counter() - t0,
-            "n_params": sum(p.numel() for p in params),
+            "n_params": sum(p.numel() for p in params), "graph": step_fn.graph.counters(),
             "n_attn": sum(isinstance(m, AttentionModule) for m in model.unet.modules()),
             "n_gn": sum(isinstance(m, GroupNorm32) for m in model.unet.modules())}
 
@@ -2887,6 +3074,9 @@ def phase_parallel(work: Path, model_path: Path, flame_dir: Path, kernels, card:
     # bf16 forward turns any difference into whole-ulp roundings
     for key in ("losses", "grad_norms"):
         assert gaps[f"{key} step 2"][0] <= DP_STEP2_REL_TOL, (key, tr[0][key], t1[key])
+    # every rank's micro-batches are replays of one captured graph but the first
+    assert [r["graph"]["replays"] for r in (*tr, t1)] == [3, 3, 7], [r["graph"] for r in tr]
+    assert all(r["graph"]["graphed"] and r["graph"]["captures"] == 1 for r in (*tr, t1))
     for res in ranks:
         launches, n_attn, n_gn = res["train"][1], tr[0]["n_attn"], tr[0]["n_gn"]
         micro = 2 * 2      # 2 steps x 2 micro-batches a rank
@@ -2896,6 +3086,7 @@ def phase_parallel(work: Path, model_path: Path, flame_dir: Path, kernels, card:
     log(f"[parallel] training, 4 micro-batches over 2 ranks, 2 AdamW steps, {tr[0]['n_params']} "
         f"parameters: losses {tr[0]['losses']} (one process {t1['losses']}), gradient norms "
         f"{tr[0]['grad_norms']} (one process {t1['grad_norms']}), parameter checksums equal | "
+        f"micro-batch graphs: rank 0 {tr[0]['graph']}, one process {t1['graph']} | "
         f"gradient all-reduce (gloo through host memory, two ranks on one card): "
         f"{tr[0]['allreduce_bytes']} bytes in {tr[0]['allreduce_s']:.3f} / "
         f"{tr[1]['allreduce_s']:.3f} s | on {card}")

@@ -21,7 +21,6 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from cap4d_torch.avatar import gaussians as G
 from cap4d_torch.avatar import step_compiler
@@ -36,6 +35,7 @@ from cap4d_torch.ops.gsplat import N_OUT, TILE
 from cap4d_torch.ops.gsplat_tiles import rasterize_gaussians, tile_pairs
 from cap4d_torch.utils import synthetic_assets as sa
 from tests.test_avatar_e2e import OPT_PARAMS
+from tests.test_torch_capture import HostReads
 from tests.test_torch_avatar_e2e import MODEL_PARAMS, _jax_trainer, _make_stage1_output
 from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
@@ -401,30 +401,6 @@ def test_launch_counts_add_replays():
 
 # -------------------------------------------- capture safety, read on the CPU
 
-class _HostReads(TorchDispatchMode):
-    """Records the operators that read the device on the host or copy an
-    array from it (a capture fails on them): scalar reads, data-dependent
-    sizes, and tensors made from host arrays."""
-    SYNCS = {"_local_scalar_dense", "item", "is_nonzero", "nonzero", "masked_select", "bincount",
-             "_unique2", "unique_dim", "unique_consecutive", "equal", "allclose"}
-
-    def __init__(self):
-        super().__init__()
-        self.found = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.__name__.split(".")[0]
-        bool_index = name.startswith("index") and len(args) > 1 and isinstance(args[1], (list, tuple)) \
-            and any(isinstance(t, torch.Tensor) and t.dtype == torch.bool for t in args[1])
-        # a Python number written into a tensor is lifted to a 0-d tensor here;
-        # on the card it is a fill
-        lifted = name == "lift_fresh" and args[0].dim() > 0
-        unsized = name == "repeat_interleave" and (kwargs or {}).get("output_size") is None
-        if name in self.SYNCS or bool_index or lifted or unsized:
-            self.found.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
 def _compositor_stand_in(packed, pair_gauss, bounds, tiles_x, plain=False):
     """K4/K5's place in the scan: the plain compositor reads its segment
     lengths on the host, the kernels do not."""
@@ -458,7 +434,7 @@ def test_lane_step_reads_nothing_on_the_host(inputs, tmp_path, monkeypatch, vari
                         max_len=2, graphs=False)
     graphs.run([0], 1, 1)                                   # first use: caches, tables
     monkeypatch.setattr(gsplat_tiles, "composite", _compositor_stand_in)
-    with _HostReads() as scan:
+    with HostReads() as scan:
         graphs.lane_step()
     assert scan.found == []
 

@@ -32,9 +32,15 @@ from cap4d_torch.mmdm.convert import (
 )
 from cap4d_torch.mmdm.schedule import make_mmdm_schedule as t_schedule
 from cap4d_torch.mmdm.train import SyntheticMMDMDataset as TData
-from cap4d_torch.mmdm.train import load_train_checkpoint, make_accum_train_step, train_mmdm
+from cap4d_torch.mmdm.train import (
+    BatchStager,
+    load_train_checkpoint,
+    make_accum_train_step,
+    train_mmdm,
+)
 from cap4d_torch.mmdm.unet import MMDMUNet as TUNet
 from cap4d_torch.ops.attention import attention_mode_reshape as t_reshape
+from cap4d_torch.ops.cuda_build import CudaKernel
 from cap4d_torch.ops.flash_attention import flash_attention
 from cap4d_torch.ops.norms import group_norm_silu
 from cap4d_torch.utils import synthetic_assets as sa
@@ -48,6 +54,7 @@ from cap4d_tpu.mmdm.unet import MMDMUNet as JUNet
 from cap4d_tpu.ops.attention import _einsum_attention
 from cap4d_tpu.ops.attention import attention_mode_reshape as j_reshape
 from cap4d_tpu.ops.norms import _gn_silu_jnp
+from tests.test_torch_capture import HostReads
 from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 # the shipped topology's kinds of block at a narrow width: spatial attention
@@ -324,6 +331,195 @@ def test_train_steps_match_jax_composition(nets, n_micro):
         np.testing.assert_allclose(out[path], r, atol=1e-7, err_msg=str(path))
 
 
+# ------------------------------------------- the static (graphed) step ----
+
+def micro_stacks(seed, n_micro, b):
+    """(n_micro, b, T, L, L, ·) latents and conditioning as torch tensors."""
+    z, cond, _, _ = batch(seed, n=n_micro * b)
+    z = tt(z.reshape(n_micro, b, *z.shape[2:]))
+    cond = {k: tt(v.reshape(n_micro, b, *v.shape[2:])) for k, v in cond.items()}
+    return z, cond
+
+
+def interleaved_step(tm, optimizer, sched, z, cond, generator, cfg_probability):
+    """The accumulated step as the eager loop ran it: per micro-batch the
+    unconditional mask, then (inside mmdm_loss) the timesteps and the noise,
+    drawn between the backward passes; .grad set by the first backward.
+    Returns the mean loss and the masks drawn."""
+    consts = T.schedule_consts(sched)
+    optimizer.zero_grad(set_to_none=True)
+    total, masks = torch.zeros(()), []
+    for i in range(z.shape[0]):
+        is_uncond = torch.rand((z.shape[1],), generator=generator) < cfg_probability
+        masks.append(is_uncond)
+
+        def mix(c):
+            return torch.where(is_uncond.reshape(-1, *([1] * (c.ndim - 1))), torch.zeros_like(c), c)
+
+        ci = {"pos_enc": mix(cond["pos_enc"][i]), "z_input": mix(cond["z_input"][i]),
+              "ref_mask": cond["ref_mask"][i]}
+        loss, _ = T.mmdm_loss(tm, consts, z[i], ci, generator,
+                              num_timesteps=sched.num_timesteps)
+        loss.backward()
+        total += loss.detach()
+    for p in tm.parameters():
+        p.grad.div_(z.shape[0])
+    optimizer.step()
+    return total / z.shape[0], torch.cat(masks)
+
+
+def static_step(nets, params, opt_state, cfg_probability, graphs=False):
+    tm, optimizer = port_from_state(params, opt_state)
+    model = SimpleNamespace(unet=tm, schedule=nets.t_sched, device=torch.device("cpu"))
+    step = make_accum_train_step(model, optimizer, 2, cfg_probability=cfg_probability,
+                                 graphs=graphs)
+    return tm, optimizer, step
+
+
+def assert_same_params(a, b):
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+
+
+@pytest.mark.parametrize("draws", ["generator", "global"])
+def test_static_step_equals_interleaved_draws_bit_for_bit(nets, draws):
+    """make_accum_train_step (graphs=False: the body the card captures, run
+    eagerly on its static slots) over 2 micro-batches of 2 samples at
+    cfg_probability 0.5, drawing from a seeded generator, against the eager
+    loop with its draws interleaved: the loss and every parameter bit for
+    bit, the masks mixed. "global": cfg_probability 0 with no generator
+    (chip_smoke.py's data-parallel run), drawing from torch's global RNG."""
+    params, opt_state = carried_state(nets.params, 4)
+    z, cond = micro_stacks(12, 2, 2)
+    p_uncond = 0.5 if draws == "generator" else 0.0
+    tm_ref, opt_ref = port_from_state(params, opt_state)
+    tm, optimizer, step = static_step(nets, params, opt_state, p_uncond)
+    with torch.random.fork_rng():
+        torch.manual_seed(5)
+        gen = torch.Generator().manual_seed(3) if draws == "generator" else None
+        ref_loss, masks = interleaved_step(tm_ref, opt_ref, nets.t_sched, z, cond, gen, p_uncond)
+        torch.manual_seed(5)
+        gen = torch.Generator().manual_seed(3) if draws == "generator" else None
+        loss = step(T.TrainState(tm, optimizer, 1), z, cond, gen)
+    if draws == "generator":
+        assert bool(masks.any()) and not bool(masks.all()), masks
+    assert torch.equal(loss, ref_loss), (float(loss), float(ref_loss))
+    assert_same_params(tm, tm_ref)
+
+
+def test_static_step_keeps_grad_and_slot_addresses(nets):
+    """Two static steps write the same .grad tensors and slots (the
+    addresses a captured graph holds), and each step zeroes its gradients
+    in place: garbage written into them between the steps changes nothing."""
+    params, opt_state = carried_state(nets.params, 5)
+    z, cond = micro_stacks(13, 2, 1)
+    runs = []
+    for poison in (False, True):
+        tm, optimizer, step = static_step(nets, params, opt_state, 0.5)
+        state, gen = T.TrainState(tm, optimizer, 1), torch.Generator().manual_seed(8)
+        ptrs = []
+        for _ in range(2):
+            step(state, z, cond, gen)
+            ptrs.append(([p.grad.data_ptr() for p in tm.parameters()],
+                         {k: v.data_ptr() for k, v in step.graph.slots.items()}))
+            if poison:
+                for p in tm.parameters():
+                    p.grad.fill_(float("nan"))
+        assert ptrs[0] == ptrs[1]
+        runs.append(tm)
+    assert set(ptrs[0][1]) == {"z", "pos_enc", "z_input", "ref_mask", "t", "noise", "uncond"}
+    assert_same_params(runs[1], runs[0])
+    assert state.step == 3 and step.graph.counters() == {
+        "graphed": False, "captures": 0, "capture_s": 0.0, "replays": 0}
+
+
+class _ReplayEagerly:
+    """A stand-in for a captured graph: a replay runs the body eagerly."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+def test_graphed_control_flow_with_a_stand_in_graph(nets, monkeypatch):
+    """The graphed path's control flow on the CPU, with a stand-in graph
+    whose replay runs the body eagerly: the first micro-batch is the
+    warm-up, then one capture and replays for the rest of the step and all
+    of the next; a replaced .grad tensor leads to a new capture; every
+    replay adds the capture's launches; and the result is the eager path's
+    bit for bit."""
+    from cap4d_torch.mmdm import step_graph
+    from cap4d_torch.ops import flash_attention
+
+    monkeypatch.setattr(step_graph, "warm_up", lambda fn: fn())
+    monkeypatch.setattr(step_graph, "capture_graph", lambda fn: (
+        _ReplayEagerly(fn), {k.name: int(k is flash_attention.KERNEL) for k in CudaKernel.registry}))
+    params, opt_state = carried_state(nets.params, 6)
+    z, cond = micro_stacks(14, 2, 1)
+    tm_e, opt_e, eager = static_step(nets, params, opt_state, 0.5)
+    tm_g, opt_g, graphed = static_step(nets, params, opt_state, 0.5)
+    graphed.graph.graphs = True     # on the CPU, only with the stand-in
+    gen_e, gen_g = torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
+    k = flash_attention.KERNEL
+    before = k.launches
+    counts = []
+    for s in range(3):
+        if s == 2:
+            p = next(tm_g.parameters())
+            p.grad = p.grad.clone()
+        le = eager(T.TrainState(tm_e, opt_e, 1), z, cond, gen_e)
+        lg = graphed(T.TrainState(tm_g, opt_g, 1), z, cond, gen_g)
+        assert torch.equal(le, lg), s
+        counts.append((graphed.graph.captures, graphed.graph.replays))
+    assert counts == [(1, 1), (1, 3), (2, 4)]
+    assert k.launches - before == 4
+    k.launches = before
+    assert_same_params(tm_g, tm_e)
+
+
+def test_micro_batch_body_reads_nothing_on_the_host(nets):
+    """The body that the card captures (loss, remat'd forward and backward,
+    the loss sum) calls no operator that reads the device on the host or
+    uploads a host array."""
+    tm = port_unet(nets.params, remat=True)
+    optimizer = T.make_adamw(tm)
+    model = SimpleNamespace(unet=tm, schedule=nets.t_sched, device=torch.device("cpu"))
+    step = make_accum_train_step(model, optimizer, 2, cfg_probability=0.5)
+    z, cond = micro_stacks(15, 2, 1)
+    step(T.TrainState(tm, optimizer, 0), z, cond, torch.Generator().manual_seed(1))
+    with HostReads() as scan:
+        step.graph.body()
+    assert scan.found == []
+
+
+def test_graphs_need_the_card_and_detect_anomaly_runs_eagerly(nets, monkeypatch):
+    """graphs=True raises on the CPU (no fallback); the CLI's
+    --detect_anomaly asks train_mmdm for the eager path, and without it the
+    device's default."""
+    import sys
+
+    from cap4d_torch.mmdm import train as train_mod
+
+    tm = port_unet(nets.params)
+    model = SimpleNamespace(unet=tm, schedule=nets.t_sched, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="CUDA graphs need the card"):
+        make_accum_train_step(model, T.make_adamw(tm), 2, graphs=True)
+    seen = []
+    monkeypatch.setattr(train_mod, "train_mmdm", lambda *a, **kw: seen.append(
+        (kw["graphs"], torch.is_anomaly_enabled())))
+    argv = ["train", "--config_path", "c.yaml", "--output_path", "out", "--device", "cpu"]
+    try:
+        for extra in (["--detect_anomaly"], []):
+            torch.autograd.set_detect_anomaly(False)
+            monkeypatch.setattr(sys, "argv", argv + extra)
+            train_mod.main()
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+    assert seen == [(False, True), (None, False)]
+
+
 # ---------------------------------------------------- data, loop, formats ----
 
 def test_synthetic_dataset_batches_equal_jax():
@@ -334,6 +530,25 @@ def test_synthetic_dataset_batches_equal_jax():
         np.testing.assert_array_equal(a["z"], b["z"])
         for k in a["cond"]:
             np.testing.assert_array_equal(a["cond"][k], b["cond"][k], err_msg=k)
+
+
+def test_batch_stager_draws_each_step_in_order_and_no_more():
+    """BatchStager's worker draws the steps' micro-batches in the order a
+    loop drawing each step in place would, and none past the last step; on
+    the CPU the stacks are np.stack's."""
+    model = SimpleNamespace(latent_size=8, unet=SimpleNamespace(condition_channels=50))
+    ref, batches = TData(model, 8, 4, 3).batches(1), TData(model, 8, 4, 3).batches(1)
+    with BatchStager(batches, 2, "cpu", 3) as stage:
+        for _ in range(3):
+            z, cond = stage.next()
+            micro = [next(ref) for _ in range(2)]
+            np.testing.assert_array_equal(z.numpy(), np.stack([m["z"] for m in micro]))
+            assert set(cond) == set(micro[0]["cond"])
+            for k, v in cond.items():
+                np.testing.assert_array_equal(v.numpy(), np.stack([m["cond"][k] for m in micro]))
+        with pytest.raises(RuntimeError, match="staged"):
+            stage.next()
+    np.testing.assert_array_equal(next(batches)["z"], next(ref)["z"])
 
 
 @pytest.mark.parametrize("temporal_mode", ["3d", "temporal"])

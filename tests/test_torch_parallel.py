@@ -150,8 +150,10 @@ def _train_rank(dp, cfg, sched_kw, start, data):
         else:
             model = SimpleNamespace(unet=tm, schedule=sched, device=torch.device("cpu"))
             step = make_accum_train_step(model, optimizer, 4, cfg_probability=0.0, dp=dp)
+            ptrs = [g.data_ptr() for g in step.graph.grads()]
             loss = step(state, t["z4"], t["cond4"], torch.Generator().manual_seed(0),
                         t_stack=t["t4"], noise_stack=t["noise4"])
+            out["accum_grads_kept"] = [p.grad.data_ptr() for p in tm.parameters()] == ptrs
         out[kind] = (float(loss), flax_from_state_dict(dict(tm.named_parameters()),
                                                        unet_norm_kinds(tm)))
     return out
@@ -379,6 +381,13 @@ def test_train_steps_world2_ranks_bitwise_equal_and_match_world1(train_setup, tr
     for name in p0:
         np.testing.assert_array_equal(p0[name], p1[name], err_msg=name)
         np.testing.assert_allclose(p0[name], one[name], atol=1e-7, err_msg=name)
+
+
+def test_accum_step_world2_keeps_grad_tensors(train_world2):
+    """The bucketed gradient all-reduce copies back in place: after the step
+    on two ranks every .grad is still the static tensor that the step
+    zeroed, the memory a captured micro-batch accumulates into."""
+    assert [rank_out["accum_grads_kept"] for rank_out in train_world2] == [True, True]
 
 
 def test_accum_steps_must_split_evenly():
