@@ -12,7 +12,10 @@ group (0, the default, means every rank; the JAX package's one frame a
 device): frame i is rendered by rank ``i mod n``, and each rank writes its
 own frames' files. Rank 0 builds the animated PLY from every frame's mesh
 (no render needed), and after a barrier assembles the mp4. Without
-``torchrun`` there is one rank:
+``torchrun`` there is one rank. On the card each frame is a replay of the
+captured frame render (``avatar/render_graph.py``) with eight frames
+launched ahead of the one the host writes, as the JAX package's loop
+pipelines them:
 
   python -m torch.distributed.run --standalone --nproc_per_node N \
       -m cap4d_torch.avatar.animate --model_path ... --animation_path ... --output_path ...
@@ -24,9 +27,10 @@ import argparse
 import contextlib
 import subprocess
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,43 +79,137 @@ def load_trained_avatar(model_path: Path, flame_asset_dir: str, scene, device=No
     return trainer
 
 
+# frames launched ahead of the one the host consumes (the JAX loop's PIPELINE)
+PIPELINE = 8
+
+
+class _Ring:
+    """``PIPELINE`` sets of host buffers that a frame's outputs are copied
+    into (pinned on the card, ``non_blocking``), each with the CUDA event
+    behind its copies and the writes that still read it."""
+
+    def __init__(self, device: torch.device, n: int = PIPELINE):
+        self.cuda = device.type == "cuda"
+        self.slots: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        self.events: List[Optional[torch.cuda.Event]] = [None] * n
+        self.writes: List[list] = [[] for _ in range(n)]
+
+    def fill(self, s: int, outs: Dict[str, torch.Tensor]) -> None:
+        """Copy ``outs`` into slot ``s`` once the writes reading it are done."""
+        for f in self.writes[s]:
+            f.result()
+        self.writes[s] = []
+        slot = self.slots[s]
+        for k, v in outs.items():
+            if k not in slot or slot[k].shape != v.shape or slot[k].dtype != v.dtype:
+                slot[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=self.cuda)
+            slot[k].copy_(v, non_blocking=True)
+        if self.cuda:
+            self.events[s] = torch.cuda.Event()
+            self.events[s].record()
+
+    def read(self, s: int) -> Dict[str, np.ndarray]:
+        """Slot ``s`` on the host, once its copies are done."""
+        if self.events[s] is not None:
+            self.events[s].synchronize()
+        return {k: v.numpy() for k, v in self.slots[s].items()}
+
+
 def render_frame_loop(trainer: AvatarTrainer, cams, frame_dir: Path, writer=None,
                       save_alpha: bool = False, save_depth: bool = False,
-                      frames: Optional[Sequence[int]] = None) -> float:
+                      frames: Optional[Sequence[int]] = None,
+                      graphs: Optional[bool] = None) -> float:
     """Render the cameras ``frames`` (all when None) in turn; PNG and npy
     writes run on two threads (animate.py:127-164). ``writer`` takes every
-    camera's mesh, rendered here or not. Returns the loop's wall seconds."""
+    camera's mesh: a rendered frame's own posed vertices, the others'
+    from ``mesh_at_timestep``. Returns the loop's wall seconds; the frame
+    graph's counters are left in ``trainer.frame_graphs``.
+
+    The frames go through :class:`render_graph.FrameGraph` (``graphs``,
+    default on the card: replays of a captured render; False: the same
+    render eagerly) with ``PIPELINE`` frames launched ahead of the one the
+    host consumes, as the JAX package's loop keeps them. Each frame's
+    outputs are copied into a ring of host buffers behind a CUDA event; the
+    host consumes frame i once its event completes. A frame whose candidates
+    overflowed the pair budget (started at the first frame's count) grows
+    it, and the frames from that one on are rendered again (the in-flight
+    ones dropped): no frame drops a pair, so each equals
+    :meth:`AvatarTrainer.render_camera`'s render."""
+    from cap4d_torch.avatar.render_graph import FrameGraph, PoseTable, first_budget
+
     t0 = time.perf_counter()
-    frames = set(range(len(cams)) if frames is None else frames)
+    mine = sorted(range(len(cams)) if frames is None else frames)
+    if graphs is None:
+        graphs = trainer.device.type == "cuda"
     attrs = None
     if writer is not None:
         # gaussian attributes are constant across the sequence: fetch once
         attrs = {k: v.cpu().numpy() for k, v in trainer.gauss.items()}
         attrs["binding"] = trainer.aux["binding"].cpu().numpy()
         remesh_faces = trainer.uv.remesh_faces.cpu().numpy()
+    fg = None
+    if mine:
+        fg = FrameGraph(trainer, PoseTable(cams, trainer.device), mine,
+                        first_budget(trainer, cams[mine[0]]), save_depth, True, graphs)
+    trainer.frame_graphs = fg
+    fed = 0     # frames whose mesh the writer has
+
+    def feed(upto: int) -> None:
+        nonlocal fed
+        while writer is not None and fed < upto:
+            cam = cams[fed]
+            writer.update(trainer.mesh_at_timestep(cam.timestep).verts.cpu().numpy(),
+                          remesh_faces, attrs)
+            fed += 1
+
+    ring = _Ring(trainer.device)
+    outputs = ["image", "n_overflow"] + ["verts"] * (writer is not None) \
+        + ["alpha"] * save_alpha + ["depth"] * save_depth
+    inflight: deque = deque()
+    launched = 0        # frames launched, which picks the ring slot
+    lane = 0
     with ThreadPoolExecutor(max_workers=2) as io_pool:
-        futures = []
-        for i, cam in enumerate(cams):
-            if i in frames:
-                out = trainer.render_camera(cam, cam.timestep, compute_depth=save_depth,
-                                            clip=True)
-                img = np.clip(out["render"].cpu().numpy(), 0, 1)
-                futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}.png",
-                                              (img * 255).astype(np.uint8)))
+        try:
+            while lane < len(mine) or inflight:
+                while lane < len(mine) and len(inflight) < PIPELINE:
+                    s = launched % PIPELINE
+                    out = fg.launch(lane)
+                    ring.fill(s, {k: out[k] for k in outputs})
+                    inflight.append((lane, s))
+                    launched += 1
+                    lane += 1
+                j, s = inflight.popleft()
+                got = ring.read(s)
+                overflow = int(got["n_overflow"][0])
+                if overflow > 0:
+                    fg.grow(overflow)
+                    print(f"[frame {mine[j]}] {overflow} candidates past the pair budget: "
+                          f"budget raised to {fg.budget}, re-rendering")
+                    fg.rerendered += len(inflight) + 1
+                    inflight.clear()
+                    lane = j
+                    continue
+                i = mine[j]
+                w = ring.writes[s]
+                w.append(io_pool.submit(write_png, frame_dir / f"{i:05d}.png", got["image"]))
                 if save_alpha:
-                    a8 = (out["alpha"].cpu().numpy() * 255).astype(np.uint8)
-                    futures.append(io_pool.submit(write_png, frame_dir / f"{i:05d}_alpha.png",
-                                                  a8))
+                    w.append(io_pool.submit(write_png, frame_dir / f"{i:05d}_alpha.png",
+                                            got["alpha"]))
                 if save_depth:
-                    futures.append(io_pool.submit(np.save, frame_dir / f"{i:05d}_depth.npy",
-                                                  out["depth"].cpu().numpy()))
-            if writer is not None:
-                writer.update(trainer.mesh_at_timestep(cam.timestep).verts.cpu().numpy(),
-                              remesh_faces, attrs)
-            if (i + 1) % 10 == 0:
-                print(f"rendered {i + 1}/{len(cams)} frames")
-        for f in futures:
-            f.result()   # surface any write error
+                    w.append(io_pool.submit(np.save, frame_dir / f"{i:05d}_depth.npy",
+                                            got["depth"]))
+                if writer is not None:
+                    feed(i)
+                    writer.update(got["verts"].copy(), remesh_faces, attrs)
+                    fed = i + 1
+                if (i + 1) % 10 == 0:
+                    print(f"rendered {i + 1}/{len(cams)} frames")
+            feed(len(cams))
+        finally:
+            if fg is not None:
+                fg.close()
+        for f in (f for w in ring.writes for f in w):
+            f.result()   # surface any write error (earlier ones surfaced in fill)
     return time.perf_counter() - t0
 
 
@@ -142,7 +240,8 @@ def split_frame_loop(trainer: AvatarTrainer, cams, output_path: Path, dp: DP, n:
     rank ``i mod n``; rank 0 feeds ``writer`` every frame's mesh, then,
     after a barrier, writes the PLY and the mp4. Every frame's mesh, and so
     the PLY, has the same bits in any run (``deterministic_convs``). Returns
-    the frame count, the slowest rank's render seconds and each rank's."""
+    the frame count, the slowest rank's render seconds and each rank's, and
+    this rank's frame graph counters ("frame_graphs", None without frames)."""
     frame_dir = output_path / "frames"
     mine = range(dp.rank, len(cams), n) if dp.rank < n else range(0)
     with deterministic_convs():
@@ -155,7 +254,9 @@ def split_frame_loop(trainer: AvatarTrainer, cams, output_path: Path, dp: DP, n:
             writer.save_ply(output_path / "exported_animation.ply")
             print(f"Wrote {output_path / 'exported_animation.ply'}")
         frames_to_mp4(frame_dir, output_path / "renders.mp4", fps)
-    return {"frames": len(cams), "render_s": max(rank_s), "rank_render_s": rank_s}
+    fg = trainer.frame_graphs
+    return {"frames": len(cams), "render_s": max(rank_s), "rank_render_s": rank_s,
+            "frame_graphs": fg.counters() if fg is not None else None}
 
 
 def render_sequence(
@@ -173,12 +274,14 @@ def render_sequence(
     device=None,
     dp_frames: int = 0,
     dp: Optional[DP] = None,
+    graphs: Optional[bool] = None,
 ) -> dict:
     """Drive the avatar through a target sequence (animate.py:77-171) with
     its frames split over the first ``dp_frames`` ranks of ``dp`` (module
-    docstring; None: this process alone); returns the frame count and the
-    render loop's seconds (the slowest rank's, and each rank's). Runs on the
-    card unless ``device="cpu"``."""
+    docstring; None: this process alone); returns the frame count, the
+    render loop's seconds (the slowest rank's, and each rank's) and the
+    frame graph's counters. Runs on the card unless ``device="cpu"``, its
+    frames replays of a captured render unless ``graphs=False``."""
     dp = local_dp(dp, device)
     n_ranks = frame_ranks(dp_frames, dp)
     output_path = Path(output_path)
@@ -191,7 +294,7 @@ def render_sequence(
     writer = PlyWriter(compress=compress_ply) if export_animation else None
     cams = scene.tgt_cameras[:n_max_frames] if n_max_frames else scene.tgt_cameras
     return split_frame_loop(trainer, cams, output_path, dp, n_ranks, fps, writer=writer,
-                            save_alpha=save_alpha, save_depth=save_depth)
+                            save_alpha=save_alpha, save_depth=save_depth, graphs=graphs)
 
 
 def render_static(model_path: str | Path, animation_path: str | Path, output_path: str | Path,

@@ -3,7 +3,8 @@
 
 Reference: animate_smpl.py: drive a fitted SMPL avatar with an animation npz
 from ``cap4d_torch.tools.generate_animation`` or the CameraHMR merger, on the
-port's render loop (threaded PNG writes) and PLY export. ``--dp_frames``
+port's pipelined render loop (replays of the captured frame render on the
+card, threaded PNG writes) and PLY export. ``--dp_frames``
 splits the frames over the ranks of a ``torchrun`` process group as
 ``cap4d_torch.avatar.animate`` does (0, the default, means every rank). Run
 it with ``python -m cap4d_torch.avatar.animate_smpl``.
@@ -55,12 +56,14 @@ def render_sequence_smpl(
     dp_frames: int = 0,
     device=None,
     dp: Optional[DP] = None,
+    graphs: Optional[bool] = None,
 ) -> dict:
     """Render the animation's frames, its mp4 and (optionally) the animated
     PLY, the frames split over the first ``dp_frames`` ranks of ``dp`` (0:
     all; None: this process alone); returns the frame count and the render
-    loop's seconds (the slowest rank's, and each rank's). Runs on the card
-    unless ``device="cpu"``."""
+    loop's seconds (the slowest rank's, and each rank's) and the frame
+    graph's counters. Runs on the card unless ``device="cpu"``, its frames
+    replays of a captured render unless ``graphs=False``."""
     dp = local_dp(dp, device)
     n_ranks = frame_ranks(dp_frames, dp)
     model_path, output_path = Path(model_path), Path(output_path)
@@ -70,7 +73,8 @@ def render_sequence_smpl(
     trainer = load_trained_smpl_avatar(model_path, smpl_asset_dir, scene, device=dp.device)
     writer = PlyWriter(compress=compress_ply) if export_animation else None
     cams = scene.tgt_cameras[:n_max_frames] if n_max_frames else scene.tgt_cameras
-    return split_frame_loop(trainer, cams, output_path, dp, n_ranks, fps, writer=writer)
+    return split_frame_loop(trainer, cams, output_path, dp, n_ranks, fps, writer=writer,
+                            graphs=graphs)
 
 
 def main():

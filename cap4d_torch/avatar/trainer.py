@@ -170,6 +170,7 @@ class AvatarTrainer:
         self.active_sh_degree = 0
         self.iteration = 0
         self.step_graphs = None   # the fit's dispatcher (avatar/step_compiler.py), when it had one
+        self.frame_graphs = None  # the animation's frame render (avatar/render_graph.py)
         self._tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
@@ -518,6 +519,25 @@ class AvatarTrainer:
 
     # ------------------------------------------------------------- render
 
+    def _render_view(self, rt, K, t, width: int, height: int, sh_degree: int,
+                     compute_depth: bool, clip: bool, plain: bool = False,
+                     budget: Optional[int] = None):
+        """The inference render of camera (rt, K) at timestep ``t`` (an int or
+        a one-element index tensor) → (render output, mesh)."""
+        mesh = self.variant.mesh_props(self.deform_net, self.flame_bank, t, self._neck_offset(t))
+        far = 1e3
+        if clip:
+            v = mesh.verts
+            center = (v.max(dim=0).values + v.min(dim=0).values) / 2.0
+            cam_pos = -(rt[:3, :3].T @ rt[:3, 3])
+            far = torch.linalg.norm(center - cam_pos) + 0.025
+        world = G.world_gaussians(self.gauss, self.aux, mesh.face_pack)
+        out = rasterize_gaussians(world["means3d"], world["quats"], world["scales"],
+                                  world["opacities"], world["sh"], rt, K, width, height,
+                                  sh_degree=sh_degree, far=far, render_depth=compute_depth,
+                                  plain=plain, budget=budget)
+        return out, mesh
+
     @torch.no_grad()
     def render_camera(self, cam, timestep: int, sh_degree: Optional[int] = None,
                       compute_depth: bool = False, clip: bool = False,
@@ -528,18 +548,29 @@ class AvatarTrainer:
         compositor instead of K4 (an independent ground truth)."""
         ct = self.camera_tensors(cam)
         sh = self.active_sh_degree if sh_degree is None else sh_degree
-        mesh = self.mesh_at_timestep(timestep)
-        far = 1e3
-        if clip:
-            v = mesh.verts
-            center = (v.max(dim=0).values + v.min(dim=0).values) / 2.0
-            cam_pos = -(ct["rt"][:3, :3].T @ ct["rt"][:3, 3])
-            far = torch.linalg.norm(center - cam_pos) + 0.025
-        world = G.world_gaussians(self.gauss, self.aux, mesh.face_pack)
-        return rasterize_gaussians(world["means3d"], world["quats"], world["scales"],
-                                   world["opacities"], world["sh"], ct["rt"], ct["K"],
-                                   cam.width, cam.height, sh_degree=sh, far=far,
-                                   render_depth=compute_depth, plain=plain)
+        out, _ = self._render_view(ct["rt"], ct["K"], int(timestep), cam.width, cam.height, sh,
+                                   compute_depth, clip, plain)
+        return out
+
+    @torch.no_grad()
+    def render_frame(self, cam: Dict[str, torch.Tensor], width: int, height: int, budget: int,
+                     compute_depth: bool = False, clip: bool = True) -> Dict[str, torch.Tensor]:
+        """:meth:`render_camera` from device inputs (``cam``: rt, K and the
+        one-element timestep t) with the static pair ``budget``, nothing read
+        on the host (``avatar/render_graph.py`` captures it). Returns the
+        frame quantised on the device ("image", (H, W, 3) uint8: clamped to
+        [0, 1], times 255, truncated, as the host's numpy quantisation), the
+        float "render", "alpha" (H, W) uint8 (alpha·255 truncated), "depth"
+        with ``compute_depth``, the (1,) int32 "n_overflow" (a frame whose
+        count is not 0 is incomplete) and the posed mesh's "verts"."""
+        out, mesh = self._render_view(cam["rt"], cam["K"], cam["t"], width, height,
+                                      self.active_sh_degree, compute_depth, clip, budget=budget)
+        res = {"image": (torch.clamp(out["render"], 0, 1) * 255).to(torch.uint8),
+               "render": out["render"], "alpha": (out["alpha"] * 255).to(torch.uint8),
+               "n_overflow": out["n_overflow"], "verts": mesh.verts}
+        if compute_depth:
+            res["depth"] = out["depth"]
+        return res
 
     @torch.no_grad()
     def candidate_count(self, cam) -> torch.Tensor:

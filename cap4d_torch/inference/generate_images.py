@@ -17,7 +17,12 @@ files and decodes, as the JAX package decodes on one device. Without
 ``--detect_anomaly`` checks the latents, the conditioning banks, every
 round's eps, every DDIM update and the decoded images for non-finite values
 and raises ``FloatingPointError`` naming the stage (``torch.autograd``'s
-anomaly mode does nothing under ``no_grad``); each check is a device sync.
+anomaly mode does nothing under ``no_grad``); each check is a device sync,
+so the sampler then runs eagerly. Otherwise, on the card, every round and
+DDIM update of the sampler is a replay of a captured CUDA graph
+(``mmdm/sampler_graph.py``), in blocks of
+``--max_dispatch_group_steps // n_rounds`` DDIM steps (at least 1, at most
+the checkpoint interval), as the JAX package dispatches them.
 
   python -m cap4d_torch.inference.generate_images --config_path ... \
       --reference_data_path ... --output_path ... [--allow_random_weights 1]
@@ -95,6 +100,8 @@ def run_generation(
     groups_per_device: int = 1,
     detect_anomaly: bool = False,
     dp: Optional[DP] = None,
+    max_group_steps_per_dispatch: int = 200,
+    graphs: Optional[bool] = None,
 ) -> Dict[str, object]:
     """Run stage 1 end to end; returns the latents, images and timings.
 
@@ -106,7 +113,11 @@ def run_generation(
     ``FloatingPointError`` at the first non-finite value (module docstring).
     ``dp``: the process group the groups split over (None: this process
     alone, on ``device``); ranks other than 0 write nothing and return after
-    sampling, without images."""
+    sampling, without images. ``max_group_steps_per_dispatch`` bounds the
+    group-steps of a sampler block; ``graphs`` (default: on the card unless
+    ``detect_anomaly``) replays the sampler's rounds and updates as CUDA
+    graphs, False runs them eagerly. The result's "sampler_graphs" holds the
+    sampler's graph counters."""
     dp = local_dp(dp, device)
     dev = dp.device
     main = dp.rank == 0
@@ -184,7 +195,9 @@ def run_generation(
 
     # --- sampling ---
     sampler = StochasticIOSampler(model, groups_per_device=groups_per_device,
-                                  detect_anomaly=detect_anomaly, dp=dp)
+                                  detect_anomaly=detect_anomaly, dp=dp,
+                                  max_group_steps_per_dispatch=max_group_steps_per_dispatch,
+                                  graphs=graphs)
     S = int(gen_config["n_ddim_steps"])
     t_sample = time.perf_counter()
     with profile_trace(profile_dir if main else None):
@@ -200,7 +213,8 @@ def run_generation(
     group_steps = S * (z_gen_host.shape[0] // G)
     if not main:
         return {"z_gen": z_gen_host, "images": None, "sampler_s": sampler_s,
-                "decode_s": None, "group_steps": group_steps}
+                "decode_s": None, "group_steps": group_steps,
+                "sampler_graphs": sampler.counters}
 
     t_decode = time.perf_counter()
     print(f"Saving reference images to {out_ref}/images")
@@ -213,7 +227,8 @@ def run_generation(
     print(f"Timing: sampler {sampler_s:.1f}s ({group_steps} group-steps), "
           f"decode+save {decode_s:.1f}s")
     return {"z_gen": z_gen_host, "images": imgs,
-            "sampler_s": sampler_s, "decode_s": decode_s, "group_steps": group_steps}
+            "sampler_s": sampler_s, "decode_s": decode_s, "group_steps": group_steps,
+            "sampler_graphs": sampler.counters}
 
 
 def main():
@@ -235,7 +250,9 @@ def main():
                         help="view-groups sampled together in one UNet call on each card "
                              "(a round holds world x groups_per_device groups)")
     parser.add_argument("--max_dispatch_group_steps", type=int, default=200,
-                        help="kept for CLI parity; no effect (each step is launched eagerly)")
+                        help="group-steps of one sampler block: blocks of "
+                             "max(1, this // rounds a step) DDIM steps, at most the checkpoint "
+                             "interval (10) unless --no_resume")
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="raise FloatingPointError at the first non-finite value")
     args = parser.parse_args()
@@ -254,6 +271,7 @@ def main():
             groups_per_device=args.groups_per_device,
             detect_anomaly=args.detect_anomaly,
             dp=dp,
+            max_group_steps_per_dispatch=args.max_dispatch_group_steps,
         )
     finally:
         dp.close()

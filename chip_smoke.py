@@ -45,9 +45,16 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      random weights that carry signal (norm scales near 1) and one set of
      initial latents at ``groups_per_device`` 1, 2 and 4, and 8 at 56
      samples, each run counted, timed and its peak memory while sampling
-     read; z_gen at 4 held against 1 (relative norm gap within
-     ``BATCHED_REL_TOL``), and K1/K2 against their plain versions at the
-     shapes the batched run launched them at;
+     read; every round and DDIM update of these runs is a replay of a
+     captured CUDA graph (the sampler's default on the card; its captures
+     and replays asserted, launches counted through the replays), and the
+     runs at 1, 4 and 8 are repeated with ``graphs=False``: z_gen graphed
+     against eager bit for bit, s per group-step both ways (the whole
+     sampler, and from the second round on by CUDA events), the rounds'
+     busy share, peak memory while sampling within 10 % of eager; z_gen at
+     4 held against 1 (relative norm gap within ``BATCHED_REL_TOL``), and
+     K1/K2 against their plain versions at the shapes the batched run
+     launched them at;
   6b. the native runtime (``loader``): the machine's codec headers and
      libraries (none are needed), a timed g++ build, PNG and JPEG round
      trips (PNG decode bit for bit against ``read_png``), 64 frames through
@@ -82,8 +89,14 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      eager (K5's atomic spread) and replayed against eager (within
      ``GRAPH_*_REL_TOL``), and dispatches of ten replays timed by CUDA
      events against their wall time (the card's busy share);
-  9. the stage-3 main path: ``render_sequence`` of that checkpoint driven by
-     a synthetic 48-frame fit.npz at 512², with the animated PLY;
+  9. the stage-3 main path: ``render_sequence`` of that checkpoint (of a
+     fresh avatar when the fit did not run) driven by a synthetic 48-frame
+     fit.npz at 512², with the animated PLY, each frame a replay of the
+     captured frame render with eight frames in flight (captures, replays,
+     pair budget and regrowths asserted, K4 counted through the replays);
+     then the same with ``graphs=False`` (every PNG and the PLY
+     byte-identical) and graphed without PNG writes: FPS each way, a
+     replayed frame's device ms and the loop's busy share by CUDA events;
   9b. the head fit's held-out quality (``quality``): ``fit_holdout_quality``
      cut to 300 iterations (27 orbit views that see the head, 3 held out;
      the oracle rendered by the plain compositor, the fit through K4/K5);
@@ -101,7 +114,8 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      replayed steps by CUDA events, profiles of both, the AdamW update alone;
  11. the op-mix micro-benchmark (K7) and the full-body SMPL path (``op_mix``,
      ``smpl``; its 300-iteration fit graphed and per step, and the replay
-     against the eager step, as in 8);
+     against the eager step, as in 8; its 48-frame wave at 1080² graphed
+     and eager as in 9);
  12. several cards through ``cap4d_torch.parallel`` (``parallel``), on the one
      card: NCCL at world 1 (a bucketed all-reduce and a barrier), and NCCL
      for two ranks on the card refused; then two ranks sharing the card over
@@ -136,10 +150,12 @@ Times are CUDA-event times on the card, with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import ctypes
 import json
 import math
 import os
+import pstats
 import re
 import shutil
 import subprocess
@@ -839,17 +855,95 @@ def signal_init_(module, seed: int) -> None:
                 p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
 
 
+class timed_calls:
+    """CUDA events around every call of ``cls.<name>`` inside the block (a
+    graph owner's launch of one unit: a replay, an eager run, or the warm-up
+    and capture): the device span from the second call of ``kind`` (the
+    first after a capture) to the last call's end, the device time inside
+    those calls, and so the card's busy share of the span. With
+    ``window=(i, n)``, torch.profiler records calls i..i+n-1: the kernels'
+    device time inside them against their span by CUDA events (the busy
+    share inside the units themselves)."""
+
+    def __init__(self, cls, name: str, window=None):
+        self.cls, self.name, self.calls, self.window = cls, name, [], window
+        self.prof, self.inside = None, None
+
+    def __enter__(self):
+        import torch
+
+        self.orig = orig = getattr(self.cls, self.name)
+
+        def wrapped(obj, *args, **kw):
+            i = len(self.calls)
+            if self.window and i == self.window[0]:
+                from torch.profiler import ProfilerActivity, profile
+
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = orig(obj, *args, **kw)
+            b.record()
+            self.calls.append((args[0] if args else None, a, b))
+            if self.prof is not None and i == sum(self.window) - 1:
+                torch.cuda.synchronize()
+                self.prof.__exit__(None, None, None)
+                kernel_ms = sum(e.self_device_time_total for e in self.prof.key_averages()
+                                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                first, last = self.calls[self.window[0]], self.calls[-1]
+                self.inside = (kernel_ms, first[1].elapsed_time(last[2]))
+                self.prof = None
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+    def profiled(self) -> str:
+        """The profiled window's kernel time against its span."""
+        if self.inside is None:
+            return "profiled window: not measured"
+        k, span = self.inside
+        if k == 0:
+            return "profiled window: the profiler saw no device time"
+        return (f"profiled window of {self.window[1]} calls: kernels {k:.2f} ms of a "
+                f"{span:.2f} ms span ({100 * k / span:.1f} % busy)")
+
+    def summary(self, kind=None) -> dict:
+        """{"n": calls of ``kind`` in the span, "unit_ms": their mean device
+        ms, "span_ms", "busy"} (None where there are fewer than two)."""
+        import torch
+
+        torch.cuda.synchronize()
+        first = [i for i, c in enumerate(self.calls) if kind is None or c[0] == kind]
+        if len(first) < 2:
+            return {"n": 0, "unit_ms": None, "span_ms": None, "busy": None}
+        calls = self.calls[first[1]:]
+        span = calls[0][1].elapsed_time(calls[-1][2])
+        inside = sum(a.elapsed_time(b) for _, a, b in calls)
+        units = [a.elapsed_time(b) for k, a, b in calls if kind is None or k == kind]
+        return {"n": len(units), "unit_ms": sum(units) / len(units), "span_ms": span,
+                "busy": inside / span}
+
+
 def generation_run(a: SimpleNamespace, out: Path, kernels, card: str, label: str,
-                   groups_per_device: int = 1, init_noise=None, cfg=None) -> dict:
+                   groups_per_device: int = 1, init_noise=None, cfg=None,
+                   graphs=None, window=None) -> dict:
     """One counted ``run_generation``: every launch count set to 0 just
-    before it and read just after; its wall, s per group-step, peak memory."""
+    before it and read just after; its wall, s per group-step (the whole
+    sampler, and from the second round on by CUDA events), the sampler's
+    graph counters, the busy share of its rounds, peak memory. ``window``:
+    torch.profiler over those calls of the sampler (``timed_calls``), which
+    slows the run: its times are not compared."""
     import numpy as np
     import torch
 
     from cap4d_torch.inference.generate_images import run_generation
-    from cap4d_torch.mmdm.sampler import parallel_groups
-
-    from cap4d_torch.mmdm.sampler import StochasticIOSampler
+    from cap4d_torch.mmdm.sampler import StochasticIOSampler, parallel_groups
+    from cap4d_torch.mmdm.sampler_graph import BlockGraphs
 
     sample, sampler_peak = StochasticIOSampler.sample, []
 
@@ -858,7 +952,8 @@ def generation_run(a: SimpleNamespace, out: Path, kernels, card: str, label: str
         torch.cuda.reset_peak_memory_stats()
         z = sample(self, *args, **kw)
         torch.cuda.synchronize()
-        sampler_peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        sampler_peak.append((torch.cuda.max_memory_allocated() / 2 ** 30,
+                             torch.cuda.max_memory_reserved() / 2 ** 30))
         return z
 
     for k in kernels:
@@ -867,24 +962,38 @@ def generation_run(a: SimpleNamespace, out: Path, kernels, card: str, label: str
     StochasticIOSampler.sample = measured
     t0 = time.perf_counter()
     try:
-        res = run_generation(cfg or a.cfg, a.ref_dir, out, allow_random_weights=True,
-                             flame_asset_dir=a.flame_dir, dtype=torch.bfloat16,
-                             init_noise=init_noise, groups_per_device=groups_per_device)
+        with timed_calls(BlockGraphs, "run", window=window) as timer:
+            res = run_generation(cfg or a.cfg, a.ref_dir, out, allow_random_weights=True,
+                                 flame_asset_dir=a.flame_dir, dtype=torch.bfloat16,
+                                 init_noise=init_noise, groups_per_device=groups_per_device,
+                                 graphs=graphs)
     finally:
         StochasticIOSampler.sample = sample
     wall = time.perf_counter() - t0
-    peak = max(torch.cuda.max_memory_allocated() / 2 ** 30, sampler_peak[0])
+    peak = max(torch.cuda.max_memory_allocated() / 2 ** 30, sampler_peak[0][0])
     launches = {k.name: k.launches for k in kernels}
     n = res["z_gen"].shape[0]
     n_groups = n // 7                                   # one reference: G = 7
-    n_calls = res["group_steps"] // parallel_groups(n_groups, groups_per_device)
-    res.update(launches=launches, peak_gib=peak, sampler_peak_gib=sampler_peak[0],
-               s_per_group_step=res["sampler_s"] / res["group_steps"])
-    log(f"[{label}] groups_per_device {groups_per_device}: run_generation wall {wall:.1f} s | "
-        f"sampler {res['sampler_s']:.2f} s, {res['s_per_group_step']:.4f} s per group-step "
-        f"({res['group_steps']} group-steps in {n_calls} UNet calls of batch "
-        f"{2 * res['group_steps'] // n_calls}) | decode+save {res['decode_s']:.2f} s | peak "
-        f"allocated {peak:.2f} GiB, while sampling {sampler_peak[0]:.2f} GiB | on {card}")
+    n_par = parallel_groups(n_groups, groups_per_device)
+    n_calls = res["group_steps"] // n_par
+    rounds = timer.summary("round")
+    steady = rounds["span_ms"] / 1e3 / (rounds["n"] * n_par) if rounds["n"] else None
+    g = res["sampler_graphs"]
+    res.update(launches=launches, peak_gib=peak, sampler_peak_gib=sampler_peak[0][0],
+               sampler_reserved_gib=sampler_peak[0][1], s_per_group_step=res["sampler_s"]
+               / res["group_steps"], steady_s_per_group_step=steady, rounds=rounds)
+    mode = "graphed" if g["graphed"] else "eager"
+    log(f"[{label}] groups_per_device {groups_per_device}, {mode}: run_generation wall "
+        f"{wall:.1f} s | sampler {res['sampler_s']:.2f} s, {res['s_per_group_step']:.4f} s per "
+        f"group-step ({res['group_steps']} group-steps in {n_calls} UNet calls of batch "
+        f"{2 * n_par}), from the second round on {shown(steady, ' s')} per group-step by "
+        f"CUDA events | sampler graphs {g} | rounds after the first: {rounds['n']}, "
+        f"{shown(rounds['unit_ms'])} each, "
+        + (f"busy {100 * rounds['busy']:.1f} % of their span" if g["graphed"] and rounds["n"]
+           else "busy not measured (eager)")
+        + (f" | {timer.profiled()}" if window else "")
+        + f" | decode+save {res['decode_s']:.2f} s | peak allocated {peak:.2f} GiB, while "
+        f"sampling {sampler_peak[0][0]:.2f} GiB (reserved {sampler_peak[0][1]:.2f}) | on {card}")
     log(f"[{label}] launches {launches}")
     for sub, n_img in (("reference_images", 1), ("generated_images", n)):
         assert len(list((out / sub / "images").glob("*.png"))) == n_img, sub
@@ -893,9 +1002,16 @@ def generation_run(a: SimpleNamespace, out: Path, kernels, card: str, label: str
     assert res["z_gen"].shape == (n, 64, 64, 4), res["z_gen"].shape
     assert np.isfinite(res["z_gen"]).all(), "non-finite latents"
     assert res["images"].shape == (n, 512, 512, 3)
+    # launches inside replays are counted through them: the same counts as eager
     assert launches["flash_attention"] == 16 * n_calls, launches
     assert launches["group_norm"] == 61 * n_calls, launches
     assert launches["rasterize"] > 0, launches
+    S = res["group_steps"] // n_groups
+    if g["graphed"]:
+        # the first round and the first update are the warm-ups of the two captures
+        assert g["captures"] == 2 and g["replays"] == (n_calls - 1) + (S - 1), g
+    else:
+        assert g["captures"] == 0 and g["replays"] == 0, g
     return res
 
 
@@ -1020,8 +1136,35 @@ def phase_main_path(work: Path, kernels, card: str):
             c["generation_data"], n_samples=56, data_path=str(bank))), cfg8)
         big = generation_run(a, a.root / "batched_8", kernels, card, "batched", 8, cfg=cfg8)
         runs.append(big["launches"])
+        # the same runs with every round and update eager (not counted)
+        eager = {g: generation_run(a, a.root / f"eager_{g}", kernels, card, "eager", g,
+                                   noise if g < 8 else None, cfg8 if g == 8 else None,
+                                   graphs=False) for g in (1, 4, 8)}
+        # the kernels' share of three rounds (torch.profiler), graphed and eager
+        for graphs in (None, False):
+            generation_run(a, a.root / f"profiled_{graphs}", kernels, card, "profiled", 1,
+                           noise, graphs=graphs, window=(6, 3))
     finally:
         mmdm_model.init_random_ = saved_init
+    graphed = {**batched, 8: big}
+    for g, e in eager.items():
+        zg, ze = graphed[g]["z_gen"], e["z_gen"]
+        same = bool(np.array_equal(zg, ze))
+        peak_ratio = graphed[g]["sampler_peak_gib"] / e["sampler_peak_gib"]
+        log(f"[graph vs eager] groups_per_device {g}: z_gen "
+            f"{'bit-identical' if same else 'differs'} (max |diff| "
+            f"{float(np.abs(zg - ze).max()):.4g}) | s per group-step graphed | eager "
+            f"{graphed[g]['s_per_group_step']:.4f} | {e['s_per_group_step']:.4f} (whole sampler), "
+            f"{shown(graphed[g]['steady_s_per_group_step'], '')} | "
+            f"{shown(e['steady_s_per_group_step'], '')} (second round on) | busy "
+            f"{100 * graphed[g]['rounds']['busy']:.1f} % | peak GiB while sampling "
+            f"{graphed[g]['sampler_peak_gib']:.2f} | {e['sampler_peak_gib']:.2f} (ratio "
+            f"{peak_ratio:.3f}), reserved {graphed[g]['sampler_reserved_gib']:.2f} | "
+            f"{e['sampler_reserved_gib']:.2f} | on {card}")
+        # eps sums per frame from one group of one round (the atomics add to
+        # zero), and a replay runs the eager kernels: the bits must agree
+        assert same, f"graphed z_gen differs from eager at groups_per_device {g}"
+        assert peak_ratio <= 1.10, (g, graphed[g]["sampler_peak_gib"], e["sampler_peak_gib"])
     z1, z4 = batched[1]["z_gen"], batched[4]["z_gen"]
     gap = float(np.abs(z4 - z1).max())
     rel = float(np.linalg.norm(z4 - z1) / np.linalg.norm(z1))
@@ -2027,29 +2170,116 @@ def phase_fit(work: Path, stage1_out: Path, flame_dir: Path, kernels, card: str)
     return work / "avatar", launches
 
 
-def phase_animate(work: Path, model_path: Path, flame_dir: Path, kernels, card: str):
-    from cap4d_torch.avatar.animate import render_sequence
-    from cap4d_torch.utils import synthetic_assets as sa
+def animation_runs(tag: str, run, out: Path, kernels, card: str, frames: int, size: str) -> dict:
+    """``run(out, graphs=...)`` (a ``render_sequence``) counted and graphed
+    as by default, then eagerly (not counted) and graphed without PNG
+    writes: FPS each way, the replayed frame's device ms and the busy share
+    of the graphed loop's frames by CUDA events, the pair budget and its
+    regrowths; every PNG and the PLY of the graphed run byte-identical to
+    the eager run's. Then, not timed against anything, graphed runs under
+    torch.profiler (four frames' kernels against their span) and under
+    cProfile (the loop's host time by function). Returns the counted run's
+    launches."""
+    from cap4d_torch.avatar import animate as animate_mod
+    from cap4d_torch.avatar.render_graph import FrameGraph
     from cap4d_torch.utils.plyio import read_ply
 
-    drv = sa.make_driving_sequence(work, n_frames=48, resolution=512)
-    out = work / "animation"
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    res = render_sequence(model_path, drv, out, flame_asset_dir=str(flame_dir), compress_ply=True)
+    with timed_calls(FrameGraph, "launch") as timer:
+        res = run(out, None)
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    frames = sorted((out / "frames").glob("*.png"))
-    assert res["frames"] == 48 and len(frames) == 48, (res, len(frames))
+    fg, frames_t = res["frame_graphs"], timer.summary()
+    pngs = sorted((out / "frames").glob("*.png"))
+    assert res["frames"] == frames and len(pngs) == frames, (res, len(pngs))
     ply = read_ply(out / "exported_animation.ply")
-    assert "delta_vertex_00047" in ply, sorted(ply)[:5]
-    log(f"[animate] 48 frames at 512x512: render loop {res['render_s']:.2f} s = "
-        f"{48 / res['render_s']:.2f} FPS (PNG writes and PLY vertex capture included) | wall "
-        f"{wall:.1f} s | on {card}")
-    log(f"[animate] launches {launches}")
-    assert launches["gsplat_fwd"] == 48, launches
+    assert f"delta_vertex_{frames - 1:05d}" in ply, sorted(ply)[:5]
+    assert fg["graphed"] and fg["captures"] == 1 + len(fg["regrowths"]), fg
+    assert fg["replays"] == frames + fg["rerendered"] - fg["captures"], fg
+    # K4 once a frame, through the replays; the template's UV layout once (K3)
+    assert launches["gsplat_fwd"] == frames + fg["rerendered"], launches
+    eager_out = out.parent / (out.name + "_eager")
+    t0 = time.perf_counter()
+    eager = run(eager_out, False)
+    eager_wall = time.perf_counter() - t0
+    assert not eager["frame_graphs"]["graphed"]
+    for png in pngs:
+        assert png.read_bytes() == (eager_out / "frames" / png.name).read_bytes(), \
+            f"{tag}: graphed {png.name} differs from the eager loop's"
+    ply_name = "exported_animation.ply"
+    if (out / ply_name).read_bytes() != (eager_out / ply_name).read_bytes():
+        raise AssertionError(f"{tag}: the graphed PLY differs from the eager loop's: "
+                             + ply_diff(out / ply_name, eager_out / ply_name))
+    write_png = animate_mod.write_png
+    animate_mod.write_png = lambda path, img: None
+    try:
+        with timed_calls(FrameGraph, "launch") as bare_timer:
+            bare = run(out.parent / (out.name + "_nopng"), None)
+    finally:
+        animate_mod.write_png = write_png
+    bare_t = bare_timer.summary()
+    with timed_calls(FrameGraph, "launch", window=(10, 4)) as prof_timer:
+        run(out.parent / (out.name + "_profiled"), None)
+    host = cProfile.Profile()
+    host.enable()
+    hosted = run(out.parent / (out.name + "_cprofile"), None)
+    host.disable()
+    stats = pstats.Stats(host)
+    top = sorted(stats.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:10]
+    log(f"[{tag}] host seconds by function (cProfile, self time; the loop "
+        f"{hosted['render_s']:.2f} s): " + ", ".join(
+            f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {st[2]:.3f}" for fn, st in top))
+    log(f"[{tag}] {frames} frames at {size}, graphed | eager: render loop "
+        f"{res['render_s']:.2f} | {eager['render_s']:.2f} s = {frames / res['render_s']:.2f} | "
+        f"{frames / eager['render_s']:.2f} FPS (PNG writes and PLY vertex capture included), "
+        f"graphed without PNG writes {frames / bare['render_s']:.2f} FPS | replayed frames: "
+        f"{frames_t['n']} after the first, {shown(frames_t['unit_ms'])} each on the card, busy "
+        f"{100 * frames_t['busy']:.1f} % of their span ({shown(frames_t['span_ms'])}); "
+        f"without PNG writes {shown(bare_t['unit_ms'])} each, busy "
+        f"{100 * bare_t['busy']:.1f} % of {shown(bare_t['span_ms'])}; "
+        f"{prof_timer.profiled()} | frame "
+        f"graph {fg} | every PNG and the PLY byte-identical to the eager loop's | wall "
+        f"{wall:.1f} | {eager_wall:.1f} s | on {card}")
+    log(f"[{tag}] launches {launches}")
     return launches
+
+
+def fresh_avatar(work: Path):
+    """A freshly initialised full-width head avatar (``configs/avatar/
+    default.yaml`` model_params on phase 6's reference camera) written as an
+    iteration-0 checkpoint with its config: what the animate phase drives
+    when the fit did not run. Returns (model path, FLAME asset dir)."""
+    from cap4d_torch.avatar.scene import load_cap4d_dataset
+    from cap4d_torch.avatar.trainer import AvatarTrainer
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.config import dump_yaml
+
+    stage1_out = reference_stage1(work)
+    model, opt = avatar_params()
+    flame_dir = sa.make_asset_dir(work / "avatar_assets", sphere_radius=0.09)
+    scene = load_cap4d_dataset([str(stage1_out / "reference_images")])
+    trainer = AvatarTrainer.create(scene, model, opt, flame_asset_dir=flame_dir)
+    trainer.active_sh_degree = model["sh_degree"]
+    path = work / "fresh_avatar"
+    path.mkdir()
+    dump_yaml({"model_params": model, "opt_params": opt}, path / "config_dump.yaml")
+    trainer.save_checkpoint(path, 0)
+    log(f"[animate] no fit in this run: a fresh avatar of {trainer.n_active} splats")
+    return path, flame_dir
+
+
+def phase_animate(work: Path, model_path: Path, flame_dir: Path, kernels, card: str):
+    from cap4d_torch.avatar.animate import render_sequence
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    drv = sa.make_driving_sequence(work, n_frames=48, resolution=512)
+    return animation_runs(
+        "animate", lambda out, graphs: render_sequence(
+            model_path, drv, out, flame_asset_dir=str(flame_dir), compress_ply=True,
+            graphs=graphs),
+        work / "animation", kernels, card, 48, "512x512")
 
 
 # --------------------------------------------- slice 3: MMDM training ----
@@ -2679,7 +2909,6 @@ def phase_smpl(work: Path, kernels, card: str):
     from cap4d_torch.tools.generate_animation import make_wave_animation
     from cap4d_torch.utils import synthetic_assets as sa
     from cap4d_torch.utils.config import dump_yaml
-    from cap4d_torch.utils.plyio import read_ply
 
     root = work / "smpl"
     smpl_dir = sa.make_smpl_asset_dir(root)
@@ -2747,23 +2976,14 @@ def phase_smpl(work: Path, kernels, card: str):
     anim = root / "wave.npz"
     np.savez(anim, **make_wave_animation(48, (1080, 1080)))
     out = root / "animation"
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    res = render_sequence_smpl(model_path, anim, out, smpl_asset_dir=smpl_dir, compress_ply=True)
-    wall = time.perf_counter() - t0
-    anim_launches = {k.name: k.launches for k in kernels}
-    frames = sorted((out / "frames").glob("*.png"))
-    assert res["frames"] == 48 and len(frames) == 48, (res, len(frames))
-    ply = read_ply(out / "exported_animation.ply")
-    assert "delta_vertex_00047" in ply, sorted(ply)[:5]
+    anim_launches = animation_runs(
+        "smpl animate", lambda o, graphs: render_sequence_smpl(
+            model_path, anim, o, smpl_asset_dir=smpl_dir, compress_ply=True, graphs=graphs),
+        out, kernels, card, 48, "1080x1080")
     mp4 = out / "renders.mp4"
-    log(f"[smpl animate] 48 frames at 1080x1080: render loop {res['render_s']:.2f} s = "
-        f"{48 / res['render_s']:.2f} FPS (PNG writes and PLY vertex capture included) | wall "
-        f"{wall:.1f} s | mp4 {mp4.stat().st_size if mp4.exists() else 'not written'} bytes "
-        f"(ffmpeg {'found' if shutil.which('ffmpeg') else 'absent'}) | on {card}")
-    log(f"[smpl animate] launches {anim_launches}")
-    assert anim_launches["gsplat_fwd"] == 48 and anim_launches["rasterize"] == 1, anim_launches
+    log(f"[smpl animate] mp4 {mp4.stat().st_size if mp4.exists() else 'not written'} bytes "
+        f"(ffmpeg {'found' if shutil.which('ffmpeg') else 'absent'})")
+    assert anim_launches["rasterize"] == 1, anim_launches
     scene_a = load_smpl_dataset(None, target_animation_path=str(anim))
     tr = load_trained_smpl_avatar(model_path, smpl_dir, scene_a)
     cam = scene_a.tgt_cameras[24]
@@ -3140,9 +3360,8 @@ def main() -> int:
     phases = parser.parse_args().phases.split(",")
     assert set(phases) <= set(PHASES), phases
     # the fit trains on stage 1's images from the gsplat phase's assets; the
-    # animation drives the fit's checkpoint
+    # animation drives the fit's checkpoint (a fresh avatar's without the fit)
     assert "fit" not in phases or {"generate", "gsplat"} <= set(phases), phases
-    assert "animate" not in phases or "fit" in phases, phases
     # the parallel phase compares with the animation's frames and drives its checkpoint
     assert "parallel" not in phases or "animate" in phases, phases
     sys.path.insert(0, str(REPO))
@@ -3204,6 +3423,8 @@ def main() -> int:
         model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
         main_paths.extend(fit_launches)
     if "animate" in phases:
+        if "fit" not in phases:
+            model_path, flame_dir = fresh_avatar(work)
         main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
     if "quality" in phases:
         main_paths.append(phase_quality(work, kernels, card))
