@@ -6,20 +6,23 @@ so ``rescale_image`` carries numpy copies of OpenCV's ``INTER_AREA``
 and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
 (``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
-(the port's own mp4/mov demuxer, ``data/mp4.py``).
+(the port's own mp4/mov demuxer, ``data/mp4.py``; Motion-JPEG, PNG and H.264
+decode on the host through the runtime).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from cap4d_torch.data.mp4 import read_track
+from cap4d_torch.runtime.h264 import H264Decoder
 from cap4d_torch.runtime.loader import decode_bytes, decode_image
-from cap4d_torch.runtime.nvdec import CODEC_NAMES, nvdec_refusal
+from cap4d_torch.runtime.nvdec import CODEC_NAMES, nv12_to_rgb, nvdec_refusal
 from cap4d_torch.utils.device import resolve_device
 
 CROP_MARGIN = 0.2
@@ -147,20 +150,35 @@ class VideoFrameReader:
     index in presentation order (the JAX package's cv2 reader, same name,
     ``len`` and indexing).
 
-    Motion-JPEG and PNG samples decode on the host through the runtime,
-    whatever ``device`` is. H.264 and VP9 need the card's NVDEC: ``device``
-    None resolves through ``resolve_device`` (which raises without CUDA),
-    ``device="cpu"`` raises ``ValueError`` (the port has no software
-    decoder), and on the card the reader raises ``RuntimeError`` with
-    NVDEC's answer (``runtime/nvdec.py``: the port does not drive its decoder
-    yet). Other codecs raise ``ValueError`` naming the four-character code
+    Motion-JPEG, PNG and H.264 samples decode on the host through the
+    runtime, whatever ``device`` is. H.264 (``runtime/h264.py``: I and P
+    slices, CAVLC and CABAC, progressive 8-bit 4:2:0) is read as cv2's
+    ``CAP_PROP_POS_FRAMES`` seek reads it: frame k is the sample
+    ``order[k]``, decoded from the last sync sample at or before it, or
+    onward from where the decoder stands when that lies between the two (so
+    sequential reads decode each sample once); its planes go through
+    :func:`nv12_to_rgb` with the matrix and range the SPS's VUI signals
+    (BT.601 and limited range without one), as cv2 converts them. A stream
+    the decoder does not take raises ``ValueError`` naming the file, the
+    frame and the tool or syntax element. VP9 needs the card's NVDEC:
+    ``device`` None resolves through ``resolve_device`` (which raises
+    without CUDA),
+    ``device="cpu"`` raises ``ValueError``, and on the card the reader
+    raises ``RuntimeError`` with NVDEC's answer (``runtime/nvdec.py``).
+    Other codecs raise ``ValueError`` naming the four-character code
     (``data/mp4.py``). No file handle stays open between reads."""
 
     def __init__(self, video_path, device=None):
         self.path = Path(video_path)
         self.track = read_track(self.path)
         t = self.track
-        if t.codec in CODEC_NAMES:
+        self._h264 = None
+        if t.codec == "h264":
+            self._h264 = H264Decoder(t.avc, str(self.path))
+            self._next = None      # the decode index the decoder would take next
+            self._last = None      # (decode index, planes) of the last picture
+            self._lock = threading.Lock()
+        elif t.codec == "vp9":
             what = f"{self.path}: {CODEC_NAMES[t.codec]} ({t.fourcc!r}, {t.width}x{t.height})"
             dev = resolve_device(device)
             if dev.type != "cuda":
@@ -175,8 +193,41 @@ class VideoFrameReader:
     def __getitem__(self, index: int) -> np.ndarray:
         if not 0 <= index < len(self):
             raise IndexError(index)
-        return decode_bytes(self.track.sample(int(self.track.order[index])),
-                            f"{self.path} frame {index}", (self.track.height, self.track.width))
+        sample = int(self.track.order[index])
+        if self._h264 is None:
+            return decode_bytes(self.track.sample(sample), f"{self.path} frame {index}",
+                                (self.track.height, self.track.width))
+        y, u, v = self.h264_planes(index)
+        uv = torch.stack([torch.from_numpy(u), torch.from_numpy(v)], -1)
+        return nv12_to_rgb(torch.from_numpy(y), uv, self._h264.matrix, self._h264.full_range)
+
+    def h264_planes(self, index: int):
+        """Frame ``index`` of an H.264 track as its decoded (Y, U, V) uint8
+        planes."""
+        if self._h264 is None:
+            raise ValueError(f"{self.path} is not an H.264 track ({self.track.codec})")
+        t = self.track
+        sample = int(t.order[index])
+        sync = int(np.flatnonzero(t.sync[:sample + 1])[-1]) if t.sync[:sample + 1].any() else 0
+        with self._lock:
+            if self._last is not None and self._last[0] == sample:
+                return self._last[1]
+            if self._next is not None and sync <= self._next <= sample:
+                start = self._next
+            else:
+                self._h264.reset()
+                self._next = None
+                start = sync
+            planes = None
+            try:
+                for j in range(start, sample + 1):
+                    planes = self._h264.decode(t.sample(j), f"frame {index} (sample {j})")
+                    self._next = j + 1
+            except ValueError:
+                self._next = self._last = None
+                raise
+            self._last = (sample, planes)
+            return planes
 
 
 @functools.lru_cache(maxsize=2)

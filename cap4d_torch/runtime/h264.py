@@ -1,0 +1,83 @@
+"""ctypes wrapper of the runtime's H.264 decoder (``h264.cpp``).
+
+The JAX package decodes H.264 on the host through cv2 (ffmpeg); this is the
+port's counterpart, in the runtime's library, so it needs no codec library
+on either machine. It decodes I and P slices (CAVLC and CABAC, the High
+profile's 8x8 transform and scaling matrices, explicit weighted prediction,
+long-term references) of progressive 8-bit 4:2:0 streams, and raises
+``ValueError`` naming the tool or syntax element for anything else (B
+slices, fields, other chroma formats or bit depths, FMO, a broken stream).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+
+from cap4d_torch.runtime.loader import _U8_P, lib
+
+_ERR_BYTES = 512
+# matrix_coefficients (H.264 Table E-5) -> nv12_to_rgb's matrix, as cv2's
+# swscale maps them (0, 2 and 3: BT.601). swscale refuses 8 (YCgCo), 10 and
+# up, and cv2's frames then follow no matrix; the port takes BT.2020 for 10
+# and BT.601 for the others
+MATRIX_CODES = {1: "bt709", 4: "fcc", 5: "bt601", 6: "bt601", 7: "smpte240m", 9: "bt2020",
+                10: "bt2020"}
+
+
+class H264Decoder:
+    """A decoder of one track: ``avc_config`` is the track's
+    :class:`cap4d_torch.data.mp4.AvcConfig` (SPS and PPS with start codes,
+    NAL length size). :meth:`decode` takes the samples in decode order from
+    a sync sample on (after :meth:`reset` when it jumps), and returns each
+    sample's picture as (Y, U, V) uint8 planes of the cropped size."""
+
+    def __init__(self, avc_config, name: str = "H.264 stream"):
+        self.name = name
+        self._lib = lib()
+        err = ctypes.create_string_buffer(_ERR_BYTES)
+        params = b"".join(avc_config.sps) + b"".join(avc_config.pps)
+        self._dec = self._lib.c4d_h264_open(params, len(params), int(avc_config.length_size), err,
+                                            _ERR_BYTES)
+        if not self._dec:
+            raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
+        w, h = ctypes.c_int(0), ctypes.c_int(0)
+        if self._lib.c4d_h264_size(self._dec, ctypes.byref(w), ctypes.byref(h)) != 0:
+            self.close()
+            raise ValueError(f"{name}: the avcC holds no sequence parameter set")
+        self.width, self.height = w.value, h.value
+        full, matrix = ctypes.c_int(0), ctypes.c_int(2)
+        self._lib.c4d_h264_colour(self._dec, ctypes.byref(full), ctypes.byref(matrix))
+        self.full_range = bool(full.value)
+        # the VUI's matrix_coefficients as nv12_to_rgb's name (BT.601 when unspecified)
+        self.matrix = MATRIX_CODES.get(matrix.value, "bt601")
+
+    def decode(self, sample: bytes, what: str = "") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One sample (an access unit of length-prefixed NAL units) → its
+        picture; raises ValueError naming ``what`` (e.g. the frame) and the
+        reason, after which the decoder holds no references."""
+        y = np.empty((self.height, self.width), np.uint8)
+        u = np.empty((self.height // 2, self.width // 2), np.uint8)
+        v = np.empty_like(u)
+        err = ctypes.create_string_buffer(_ERR_BYTES)
+        status = self._lib.c4d_h264_decode(self._dec, sample, len(sample), y.ctypes.data_as(_U8_P),
+                                           u.ctypes.data_as(_U8_P), v.ctypes.data_as(_U8_P),
+                                           self.width, self.height, err, _ERR_BYTES)
+        if status != 0:
+            where = f"{self.name} {what}".strip()
+            raise ValueError(f"{where}: {err.value.decode(errors='replace')}")
+        return y, u, v
+
+    def reset(self) -> None:
+        """Drop every reference picture (before decoding from a sync sample)."""
+        self._lib.c4d_h264_reset(self._dec)
+
+    def close(self) -> None:
+        if getattr(self, "_dec", None):
+            self._lib.c4d_h264_close(self._dec)
+            self._dec = None
+
+    def __del__(self):
+        self.close()

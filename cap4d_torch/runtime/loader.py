@@ -1,11 +1,13 @@
-"""ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``).
+"""ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``
+and the H.264 decoder ``h264.cpp``).
 
 Counterpart of ``cap4d_tpu/runtime/loader.py``, with its own copy of the
 C++ source. The library carries its own PNG and JPEG codecs (the card's
 machine has neither libpng nor libjpeg), so it needs only g++ and pthreads.
-It is compiled at first use, never at import, with
-``g++ -O3 -march=native -fPIC -shared`` into ``cap4d_torch/_build/``, named by
-a hash of the source, the flags and the host CPU's features. There is no fallback: if the build fails,
+Its sources are compiled at first use, never at import, with
+``g++ -O3 -march=native -fPIC -shared`` into one library under
+``cap4d_torch/_build/``, named by a hash of the sources, the flags and the
+host CPU's features. There is no fallback: if the build fails,
 the error carries g++'s output, and a frame that cannot be decoded raises
 with the file's name and the reason (the JAX package's loader switches to
 cv2 instead, which changes pixels).
@@ -24,8 +26,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "cap4d_runtime.cpp"
-BUILD_DIR = SOURCE.parent.parent / "_build"
+_HERE = Path(__file__).resolve().parent
+SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp"]
+BUILD_DIR = _HERE.parent / "_build"
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
 # the C4D_* status codes of cap4d_runtime.cpp
@@ -61,6 +64,14 @@ _SIGNATURES = {
     "c4d_pool_submit": ([ctypes.c_void_p, ctypes.c_char_p, _INT_P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int], ctypes.c_int),
     "c4d_pool_wait": ([ctypes.c_void_p, ctypes.c_int, _FLOAT_P, ctypes.c_int], ctypes.c_int),
+    "c4d_h264_open": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_char_p, ctypes.c_int],
+                      ctypes.c_void_p),
+    "c4d_h264_size": ([ctypes.c_void_p, _INT_P, _INT_P], ctypes.c_int),
+    "c4d_h264_colour": ([ctypes.c_void_p, _INT_P, _INT_P], ctypes.c_int),
+    "c4d_h264_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _U8_P, _U8_P, _U8_P,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+    "c4d_h264_reset": ([ctypes.c_void_p], None),
+    "c4d_h264_close": ([ctypes.c_void_p], None),
 }
 
 
@@ -74,8 +85,10 @@ def _cpu_flags() -> str:
 
 
 def so_path() -> Path:
-    """The library's path, named by the source, the flags and the host CPU."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """The library's path, named by the sources, the flags and the host CPU."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(FLAGS).encode())
     h.update(_cpu_flags().encode())
     return BUILD_DIR / f"cap4d_runtime-{h.hexdigest()[:16]}.so"
@@ -88,13 +101,14 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *FLAGS, str(SOURCE), "-o", str(tmp), "-lpthread"]
+    cmd = ["g++", *FLAGS, *map(str, SOURCES), "-o", str(tmp), "-lpthread"]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError(f"cannot build {SOURCE.name}: g++ not found") from e
+        raise RuntimeError("cannot build the runtime: g++ not found") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stderr}")
+        names = ", ".join(src.name for src in SOURCES)
+        raise RuntimeError(f"g++ failed to build {names}:\n{proc.stderr}")
     os.replace(tmp, so)
     return so
 

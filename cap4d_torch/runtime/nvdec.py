@@ -1,25 +1,25 @@
-"""H.264 and VP9 on the card: NVDEC's decoder caps and the NV12 → RGB
-conversion.
+"""VP9 on the card (NVDEC's decoder caps), and the NV12 → RGB conversion
+that every decoded YUV picture goes through.
 
-The JAX package decodes video with cv2 (ffmpeg, on the host). The port has
-no software decoder for H.264 or VP9 and is not to have one: those codecs
-are NVDEC's (``libnvcuvid.so.1``, which ships with NVIDIA's GPU libraries
-and which a container can use when its ``NVIDIA_DRIVER_CAPABILITIES``
-include ``video``).
+The JAX package decodes video with cv2 (ffmpeg, on the host). The port
+decodes H.264 on the host too, in its runtime (``runtime/h264.py``); VP9 has
+no software decoder in the port and is NVDEC's (``libnvcuvid.so.1``, which
+ships with NVIDIA's GPU libraries and which a container can use when its
+``NVIDIA_DRIVER_CAPABILITIES`` include ``video``).
 
 :func:`decoder_caps` asks ``cuvidGetDecoderCaps`` (through ctypes, on the
 card's primary context, the one torch uses) what the card's NVDEC takes,
-and :func:`nvdec_refusal` turns its answer into the error that
-``VideoFrameReader`` raises for an H.264 or VP9 file on the card. The
-decoder itself (``cuvidCreateVideoParser`` / ``cuvidCreateDecoder``) is not
-driven yet: on the H100 machine it was developed for, the container grants
-``compute,utility`` only, and every ``cuvidGetDecoderCaps`` and
-``cuvidCreateDecoder`` call returns ``CUDA_ERROR_OUT_OF_MEMORY`` (2), for
-every codec. ROADMAP keeps the item.
+for either codec (H.264 stays a probe), and :func:`nvdec_refusal` turns its
+answer into the error that ``VideoFrameReader`` raises for a VP9 file on
+the card. The decoder itself (``cuvidCreateVideoParser`` /
+``cuvidCreateDecoder``) is not driven: on the H100 machine it was developed
+for, the container grants ``compute,utility`` only, and every
+``cuvidGetDecoderCaps`` and ``cuvidCreateDecoder`` call returns
+``CUDA_ERROR_OUT_OF_MEMORY`` (2), for every codec. ROADMAP keeps the item.
 
-:func:`nv12_to_rgb` is the colour conversion such a decoder's NV12 planes
-need: plain PyTorch, on whatever device the planes are on, tested on the
-CPU against cv2's decode of the port's own H.264 stream.
+:func:`nv12_to_rgb` is the colour conversion of decoded 4:2:0 planes: plain
+PyTorch, on whatever device the planes are on, tested on the CPU against
+cv2's decode of the port's own H.264 streams.
 """
 
 from __future__ import annotations
@@ -30,12 +30,17 @@ from typing import Dict
 import numpy as np
 import torch
 
-# cudaVideoCodec (cuviddec.h)
+# cudaVideoCodec (cuviddec.h); VideoFrameReader sends only VP9 to NVDEC
 CODEC_IDS = {"h264": 4, "vp9": 10}
 CODEC_NAMES = {"h264": "H.264", "vp9": "VP9"}
 CHROMA_420 = 1          # cudaVideoChromaFormat_420
-# (Kr, Kb) of each matrix: Rec. ITU-R BT.601, BT.709, BT.2020
-MATRICES = {"bt601": (0.299, 0.114), "bt709": (0.2126, 0.0722), "bt2020": (0.2627, 0.0593)}
+# swscale's YCbCr -> RGB coefficients (crv, cbu, cgu, cgv), 16.16 fixed point
+# for limited-range chroma, of each matrix (Rec. ITU-R BT.601, BT.709, the
+# FCC's, SMPTE 240M, BT.2020 non-constant luminance): the integers the
+# JAX package's cv2 reader converts with, so nv12_to_rgb equals its RGB
+MATRICES = {"bt601": (104597, 132201, 25675, 53279), "bt709": (117489, 138438, 13975, 34925),
+            "fcc": (104448, 132798, 24759, 53109), "smpte240m": (117579, 136230, 16907, 35559),
+            "bt2020": (110013, 140363, 12277, 42626)}
 CUDA_ERRORS = {2: "CUDA_ERROR_OUT_OF_MEMORY", 100: "CUDA_ERROR_NO_DEVICE",
                801: "CUDA_ERROR_NOT_SUPPORTED", 1: "CUDA_ERROR_INVALID_VALUE"}
 
@@ -110,6 +115,22 @@ def nvdec_refusal(codec: str, width: int, height: int, card: int = 0) -> str:
             "its decoder yet")
 
 
+def _fixed_point(matrix: str, full_range: bool):
+    """swscale's 16-bit multipliers for ``matrix``: (luma, luma offset,
+    V→R, U→B, U→G, V→G), each a 16.16 coefficient times 2**13, rounded."""
+    crv, cbu, cgu, cgv = MATRICES[matrix]
+    cgu, cgv = -cgu, -cgv
+    cy, oy = 1 << 16, 0
+    if full_range:      # chroma 0..255 instead of 16..240 (C division truncates)
+        crv, cbu = crv * 224 // 255, cbu * 224 // 255
+        cgu, cgv = -(-cgu * 224 // 255), -(-cgv * 224 // 255)
+    else:               # luma 16..235 to 0..255
+        cy, oy = cy * 255 // 219, 16 << 16
+    r16 = lambda x: (x + (1 << 15)) >> 16  # noqa: E731
+    return (r16(cy << 13), r16(oy << 3), r16(crv << 13), r16(cbu << 13), r16(cgu << 13),
+            r16(cgv << 13))
+
+
 def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
                 full_range: bool = False) -> np.ndarray:
     """NV12 planes → RGB uint8 (H, W, 3) numpy, as ``VideoFrameReader``
@@ -117,10 +138,11 @@ def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
 
     ``y`` (H, W) and ``uv`` (ceil(H/2), ceil(W/2), 2) uint8 tensors (NV12's
     interleaved chroma plane), on any device. Chroma is repeated over each
-    2x2 block of luma (what swscale's unscaled 4:2:0 converter does);
-    ``matrix`` names the YCbCr matrix (:data:`MATRICES`), and limited range
-    scales luma 16..235 and chroma 16..240 to 0..255. Computed in float32,
-    rounded to nearest."""
+    2x2 block of luma; ``matrix`` names the YCbCr matrix (:data:`MATRICES`),
+    and limited range scales luma 16..235 and chroma 16..240 to 0..255.
+    The arithmetic is swscale's unscaled 4:2:0 → BGR24 converter's (samples
+    times 8, each term a signed 16 x 16 multiply keeping the high 16 bits,
+    the sum clamped to 0..255), so the RGB equals cv2's bit for bit."""
     if matrix not in MATRICES:
         raise ValueError(f"matrix must be one of {sorted(MATRICES)}, got {matrix!r}")
     if y.dtype != torch.uint8 or uv.dtype != torch.uint8 or uv.shape[-1] != 2:
@@ -129,18 +151,13 @@ def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
     h, w = y.shape
     if uv.shape[:2] != ((h + 1) // 2, (w + 1) // 2):
         raise ValueError(f"chroma plane {tuple(uv.shape)} does not fit luma {h}x{w}")
-    kr, kb = MATRICES[matrix]
-    kg = 1.0 - kr - kb
-    c = uv.float() - 128.0
+    cy, oy, vr, ub, ug, vg = _fixed_point(matrix, full_range)
+    c = (uv.int() << 3) - (128 << 3)
     c = c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :w]
     u, v = c[..., 0], c[..., 1]
-    luma = y.float()
-    if not full_range:
-        luma = (luma - 16.0) * (255.0 / 219.0)
-        u, v = u * (255.0 / 224.0), v * (255.0 / 224.0)
-    r = luma + 2.0 * (1.0 - kr) * v
-    g = luma - (2.0 * kb * (1.0 - kb) / kg) * u - (2.0 * kr * (1.0 - kr) / kg) * v
-    b = luma + 2.0 * (1.0 - kb) * u
-    rgb = torch.stack([r, g, b], -1).round_().clamp_(0.0, 255.0).to(torch.uint8)
+    luma = (((y.int() << 3) - oy) * cy) >> 16
+    r = luma + ((v * vr) >> 16)
+    g = luma + ((u * ug) >> 16) + ((v * vg) >> 16)
+    b = luma + ((u * ub) >> 16)
+    rgb = torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
     return rgb.cpu().numpy()
-

@@ -624,7 +624,7 @@ def h264_frames(n_frames: int, width: int, height: int, seed: int = 0):
 
 
 def write_h264_mp4(path, n_frames: int, width: int, height: int, gop: int = 8,
-                   seed: int = 0):
+                   seed: int = 0, frames=None):
     """An H.264 mp4 whose every decoded frame is known exactly.
 
     Baseline profile, CAVLC, ``pic_order_cnt_type`` 2, no VUI (so BT.601
@@ -635,8 +635,8 @@ def write_h264_mp4(path, n_frames: int, width: int, height: int, gop: int = 8,
     of the IDR before it. ``stss`` lists the IDRs; samples carry 4-byte NAL
     lengths. Width and height must be even; the coded picture is padded to
     whole macroblocks by repeating the last row and column, and cropped
-    back. Returns the decoded frames, (Y, U, V) uint8 each
-    (:func:`h264_frames` for the IDRs)."""
+    back. ``frames``, when given, are the IDRs' (Y, U, V) planes in place of
+    :func:`h264_frames`'. Returns the decoded frames, (Y, U, V) uint8 each."""
     if width % 2 or height % 2 or not 2 <= gop <= 16:
         raise ValueError(f"even width and height, gop 2..16 (got {width}x{height}, gop {gop})")
     mbw, mbh = -(-width // 16), -(-height // 16)
@@ -651,7 +651,7 @@ def write_h264_mp4(path, n_frames: int, width: int, height: int, gop: int = 8,
     pps = _Bits().ue(0).ue(0).u(1, 0).u(1, 0).ue(0).ue(0).ue(0).u(1, 0).u(2, 0)
     pps = nal_unit(0x68, pps.se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, 0).trailing().tobytes())
 
-    idrs = h264_frames(-(-n_frames // gop), width, height, seed)
+    idrs = frames if frames is not None else h264_frames(-(-n_frames // gop), width, height, seed)
     samples, frames = [], []
     for k in range(n_frames):
         if k % gop == 0:

@@ -63,9 +63,14 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      which must raise ``FloatingPointError``;
   6c. video input (``video``): the probe of NVDEC (``libnvcuvid``,
      ``NVIDIA_DRIVER_CAPABILITIES``, ``cuvidGetDecoderCaps`` for H.264 and
-     VP9, ``cuvidCreateDecoder`` for H.264); the port's H.264 stream at 1920x1080 and 1080x1920 through the demuxer,
-     ``nv12_to_rgb`` on the card against the CPU, and its read on the card,
-     which raises NVDEC's answer (the port drives no decoder yet);
+     VP9, ``cuvidCreateDecoder`` for H.264); the port's I_PCM + P_Skip H.264
+     streams at 1920x1080 and 1080x1920 decoded on the host by the runtime
+     (``runtime/h264.cpp``), every plane equal to the frames written, and
+     ``nv12_to_rgb`` on the card against the CPU; the random-syntax CAVLC
+     and CABAC streams of tier-1 decoded to ffmpeg's pinned luma SHA-256; a
+     1080x1920 CABAC random-syntax stream of 60 frames timed (frames/s,
+     random access);
+     a VP9 read on the card, which raises NVDEC's answer;
      Motion-JPEG at 1080p (.mp4 and .mov) through the runtime, sequential
      and random access, timed; stage 1's reference loader on a Motion-JPEG
      video against the same frames as a PNG directory;
@@ -1382,27 +1387,37 @@ VIDEO_SIZES = ((1920, 1080), (1080, 1920))   # 1080p, and portrait phone video
 
 
 def phase_video(work: Path, card: str):
-    """Video input on the card's machine: the probe; the port's H.264 stream
-    at 1920x1080 and 1080x1920 (24 frames, an IDR every 8) through the
-    demuxer, ``nv12_to_rgb`` on the card against the CPU on its planes, and
-    its read on the card, which raises NVDEC's answer; Motion-JPEG at 1080p
-    (.mp4 and .mov) through the runtime, sequential and random access,
-    timed; stage 1's reference loader on a Motion-JPEG video against the
-    same frames as a PNG directory."""
+    """Video input on the card's machine: the probe; the port's I_PCM +
+    P_Skip H.264 streams at 1920x1080 and 1080x1920 (24 frames, an IDR every
+    8) through the demuxer and the runtime's H.264 decoder, every plane equal
+    to the frames written, in order and shuffled, and ``nv12_to_rgb`` on the
+    card against the CPU; the random-syntax CAVLC and CABAC streams of
+    tests/test_torch_h264.py decoded to the luma SHA-256 that the tests pin
+    to ffmpeg's decode; a 1080x1920 CABAC random-syntax stream of 60 frames
+    timed (sequential frames/s, a random-access read); VP9 on the
+    card, which raises NVDEC's answer; Motion-JPEG at 1080p (.mp4 and .mov)
+    through the runtime, sequential and random access, timed; stage 1's
+    reference loader on a Motion-JPEG video against the same frames as a PNG
+    directory."""
+    import hashlib
+    import struct
+
     import numpy as np
     import torch
 
     from cap4d_torch.data import mp4
     from cap4d_torch.data.datasets import build_frame_set, load_reference_items
-    from cap4d_torch.data.utils import VideoFrameReader, load_frame
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
     from cap4d_torch.flame.compute import load_cap4d_flame_model
     from cap4d_torch.runtime.nvdec import nv12_to_rgb
+    from cap4d_torch.utils import h264_writer as hw
     from cap4d_torch.utils import synthetic_assets as sa
     from cap4d_torch.utils.png import read_png, write_png
 
     caps = video_probe()
     d = work / "video"
     d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
     for w, h in VIDEO_SIZES:
         path = d / f"h264_{w}x{h}.mp4"
         t0 = time.perf_counter()
@@ -1415,29 +1430,101 @@ def phase_video(work: Path, card: str):
         assert list(np.flatnonzero(t.sync)) == [0, 8, 16], t.sync
         assert [mp4.annexb(t.sample(i), t.avc.length_size)[4] & 0x1F for i in range(24)] == [
             5 if i % 8 == 0 else 1 for i in range(24)]
+        reader = VideoFrameReader(path, device="cuda")
+        t0 = time.perf_counter()
+        seq = [reader.h264_planes(k) for k in range(24)]
+        seq_ms = 1e3 * (time.perf_counter() - t0) / 24
+        shuffled = VideoFrameReader(path, device="cuda")
+        for k in rng.permutation(24):
+            for got, want in zip(shuffled.h264_planes(int(k)), planes[k]):
+                assert np.array_equal(got, want), f"{path.name} frame {k} (shuffled)"
+        for k in range(24):
+            for got, want in zip(seq[k], planes[k]):
+                assert np.array_equal(got, want), f"{path.name} frame {k}"
+        rgb = load_frame(path, 3, device="cuda")
         worst, differing = 0, 0
         for k in (0, 8, 16):
             y, u, v = (torch.from_numpy(p) for p in planes[k])
             uv = torch.stack([u, v], -1)
             diff = np.abs(nv12_to_rgb(y.cuda(), uv.cuda()).astype(int) - nv12_to_rgb(y, uv))
             worst, differing = max(worst, int(diff.max())), differing + int((diff > 0).sum())
-        # the same float32 ops on both devices; a value within an ulp of .5
-        # may round the other way
-        assert worst <= 1, worst
-        try:
-            load_frame(path, 3)
-        except RuntimeError as e:
-            refusal = str(e)
-        else:
-            raise AssertionError(f"{path.name}: an H.264 read on the card returned a frame")
-        assert "H.264" in refusal and "NVDEC" in refusal, refusal
-        log(f"[video] H.264 {w}x{h}, 24 frames, IDR every 8: written in {write_s:.2f} s "
-            f"({path.stat().st_size} bytes), demuxed in {demux_ms:.2f} ms; nv12_to_rgb card vs "
-            f"CPU max |diff| {worst} ({differing} values differ of {3 * 3 * w * h}) | read on "
-            f"the card raises: {refusal}")
+        y, u, v = (torch.from_numpy(p) for p in planes[3])
+        assert np.array_equal(rgb, nv12_to_rgb(y, torch.stack([u, v], -1))), "load_frame's RGB"
+        # integer arithmetic: the card's RGB equals the CPU's
+        assert worst == 0, worst
+        log(f"[video] H.264 I_PCM + P_Skip {w}x{h}, 24 frames, IDR every 8: written in "
+            f"{write_s:.2f} s ({path.stat().st_size} bytes), demuxed in {demux_ms:.2f} ms, "
+            f"decoded on the host {seq_ms:.2f} ms a frame; Y, U, V equal to the frames written "
+            f"in order and shuffled; nv12_to_rgb card vs CPU max |diff| {worst} ({differing} "
+            f"values differ of {3 * 3 * w * h}) | on {card}")
+
+    # random syntax: the luma SHA-256 that tier-1 pins to ffmpeg's decode
+    for (entropy, seed, w, h, n), want in sorted(hw.PINNED_LUMA_SHA256.items()):
+        path = d / f"syntax_{entropy}_{seed}.mp4"
+        stats = hw.write_h264_syntax_mp4(path, w, h, n, seed, entropy)
+        reader = VideoFrameReader(path, device="cuda")
+        got = hashlib.sha256(b"".join(reader.h264_planes(k)[0].tobytes()
+                                      for k in range(n))).hexdigest()
+        assert got == want, f"{entropy} seed {seed}: luma SHA-256 {got}, ffmpeg's {want}"
+        log(f"[video] H.264 random syntax {entropy} seed {seed} {w}x{h}x{n} "
+            f"({path.stat().st_size} bytes, {stats['mb']}): luma SHA-256 equals ffmpeg's "
+            f"({want[:16]}...)")
+
+    # a synthetic load, timed on the host: random syntax with the tier-1
+    # streams' statistics (h264_writer.MIX), CABAC, at 1080x1920
+    w, h, n = 1080, 1920, 60
+    path = d / "syntax_cabac_1080x1920.mp4"
+    t0 = time.perf_counter()
+    stats = hw.write_h264_syntax_mp4(path, w, h, n, 5, "cabac",
+                                     workers=min(8, os.cpu_count() or 1))
+    write_s = time.perf_counter() - t0
+    mbps = path.stat().st_size * 8 / (n / 30) / 1e6
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    for k in range(n):
+        reader.h264_planes(k)
+    decode_s = time.perf_counter() - t0
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    frames = [reader[k] for k in range(n)]
+    rgb_s = time.perf_counter() - t0
+    assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    order = rng.permutation(n)[:12]
+    cached = open_video(path, "cuda")             # the reader load_frame reads through
+    decode, decoded = cached._h264.decode, [0]
+
+    def counted(*args):
+        decoded[0] += 1
+        return decode(*args)
+
+    cached._h264.decode = counted
+    t0 = time.perf_counter()
+    for k in order:
+        assert np.array_equal(load_frame(path, int(k), device="cuda"), frames[k]), k
+    rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+    gops = int(np.count_nonzero(reader.track.sync))
+    log(f"[video] H.264 CABAC 1080x1920 of random syntax (tier-1's statistics, a synthetic "
+        f"load), {n} frames ({path.stat().st_size} bytes, {mbps:.1f} Mbit/s at 30 fps, "
+        f"{gops} IDRs, up to {stats['slices_max']} slices a picture; written in {write_s:.1f} s): "
+        f"decode {n / decode_s:.1f} frames/s ({1e3 * decode_s / n:.1f} ms a frame), with the RGB "
+        f"conversion {n / rgb_s:.1f} frames/s, a random-access load_frame {rand_ms:.1f} ms "
+        f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
+        f"{decode_s:.2f} | on {card}")
+
+    # VP9 still needs NVDEC: a vp09 track raises its answer on the card
+    vpcc = sa._full_box(b"vpcC", 1, 0, bytes([0, 40, 0x80, 1, 1, 1]), struct.pack(">H", 0))
+    sa.write_mp4(d / "vp9.mp4", [b"\x82\x49\x83\x42\x00"], sa.visual_sample_entry(
+        b"vp09", 1920, 1080, vpcc), 1920, 1080)
+    try:
+        VideoFrameReader(d / "vp9.mp4", device="cuda")
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a VP9 read on the card returned a reader")
+    assert "VP9" in refusal and "NVDEC" in refusal, refusal
     usable = all(c.get("status") == 0 and c.get("supported") for c in caps.values())
-    log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'}: H.264 and "
-        f"VP9 decode not measured; VP9 has no encoder on this machine")
+    log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'}: a VP9 read on "
+        f"the card raises: {refusal}")
 
     # Motion-JPEG at 1080p through the runtime, in both sample entries
     frames = [test_image(1080, 1920, k) for k in range(24)]

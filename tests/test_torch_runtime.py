@@ -190,7 +190,7 @@ def test_errors_name_the_file(tmp_path, files):
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
     src = tmp_path / "broken.cpp"
     src.write_text("int f( {\n")
-    monkeypatch.setattr(tl, "SOURCE", src)
+    monkeypatch.setattr(tl, "SOURCES", [src])
     monkeypatch.setattr(tl, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(tl, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed to build broken.cpp:\n.*error"):
