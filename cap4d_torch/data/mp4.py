@@ -217,6 +217,20 @@ def annexb(sample: bytes, length_size: int) -> bytes:
     return bytes(out)
 
 
+def slice_ref_idc(sample: bytes, length_size: int) -> int:
+    """nal_ref_idc of the first slice NAL unit (type 1 or 5) of an H.264
+    sample of length-prefixed NAL units; -1 if it holds none (a cut or
+    corrupt sample: the decoder then names what is wrong)."""
+    pos = 0
+    while pos + length_size <= len(sample):
+        n = int.from_bytes(sample[pos:pos + length_size], "big")
+        pos += length_size
+        if n and pos < len(sample) and sample[pos] & 0x1F in (1, 5):
+            return (sample[pos] >> 5) & 3
+        pos += n
+    return -1
+
+
 def parse_vpcc(p: bytes) -> VpcConfig:
     """``vpcC``'s payload (a full box, version 1) → :class:`VpcConfig`."""
     if len(p) < 12 or p[0] != 1:

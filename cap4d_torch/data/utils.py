@@ -12,6 +12,7 @@ decode on the host through the runtime).
 
 from __future__ import annotations
 
+import bisect
 import functools
 import threading
 from pathlib import Path
@@ -19,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cap4d_torch.data.mp4 import read_track
+from cap4d_torch.data.mp4 import read_track, slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
 from cap4d_torch.runtime.loader import decode_bytes, decode_image
 from cap4d_torch.runtime.nvdec import CODEC_NAMES, nv12_to_rgb, nvdec_refusal
@@ -151,16 +152,25 @@ class VideoFrameReader:
     ``len`` and indexing).
 
     Motion-JPEG, PNG and H.264 samples decode on the host through the
-    runtime, whatever ``device`` is. H.264 (``runtime/h264.py``: I and P
-    slices, CAVLC and CABAC, progressive 8-bit 4:2:0) is read as cv2's
-    ``CAP_PROP_POS_FRAMES`` seek reads it: frame k is the sample
-    ``order[k]``, decoded from the last sync sample at or before it, or
-    onward from where the decoder stands when that lies between the two (so
-    sequential reads decode each sample once); its planes go through
-    :func:`nv12_to_rgb` with the matrix and range the SPS's VUI signals
-    (BT.601 and limited range without one), as cv2 converts them. A stream
-    the decoder does not take raises ``ValueError`` naming the file, the
-    frame and the tool or syntax element. VP9 needs the card's NVDEC:
+    runtime, whatever ``device`` is. H.264 (``runtime/h264.py``: I, P and B
+    slices, CAVLC and CABAC, progressive 8-bit 4:2:0) is read as cv2 counts
+    frames: frame k is the sample ``order[k]`` (``ctts`` order, the edit
+    list applied), decoded from the last sync sample at or before it, or
+    onward from where the decoder stands when that lies between the two.
+    Pictures decoded on the way that show later are held (by decode index,
+    at most the SPS's max_dec_frame_buffering, 16 without one), so a
+    sequential read decodes each sample once; a random read skips the
+    non-reference samples that show before its frame. Within a run of
+    decoding, the order by picture order count must be the order by
+    presentation time, else ``ValueError`` names both frames and both
+    orders. The planes go through :func:`nv12_to_rgb` with the matrix and
+    range the SPS's VUI signals (BT.601 and limited range without one), as
+    cv2 converts them. A stream the decoder does not take raises
+    ``ValueError`` naming the file, the frame and the tool or syntax
+    element. An open GOP's leading picture (decoded after a non-IDR sync
+    sample, shown before it) read from that sync sample raises the
+    missing-reference error and returns no picture; on the way to a later
+    frame it is decoded as any other. VP9 needs the card's NVDEC:
     ``device`` None resolves through ``resolve_device`` (which raises
     without CUDA),
     ``device="cpu"`` raises ``ValueError``, and on the card the reader
@@ -175,8 +185,15 @@ class VideoFrameReader:
         self._h264 = None
         if t.codec == "h264":
             self._h264 = H264Decoder(t.avc, str(self.path))
+            self._frame_of = np.full(len(t), -1, np.int64)   # -1: outside the edit list
+            self._frame_of[t.order] = np.arange(len(t.order))
+            self._hold_max = self._h264.dpb_frames or 16
             self._next = None      # the decode index the decoder would take next
-            self._last = None      # (decode index, planes) of the last picture
+            self._origin = 0       # composition time of the sync sample decoding started at
+            self._last = None      # (decode index, planes) of the last picture returned
+            self._held = {}        # decode index -> planes, decoded and not yet shown
+            self._run = []         # ((epoch, POC), pts, decode index) decoded since the reset
+            self._epoch = 0        # IDR pictures and MMCO 5 start a new order count
             self._lock = threading.Lock()
         elif t.codec == "vp9":
             what = f"{self.path}: {CODEC_NAMES[t.codec]} ({t.fourcc!r}, {t.width}x{t.height})"
@@ -208,26 +225,74 @@ class VideoFrameReader:
             raise ValueError(f"{self.path} is not an H.264 track ({self.track.codec})")
         t = self.track
         sample = int(t.order[index])
-        sync = int(np.flatnonzero(t.sync[:sample + 1])[-1]) if t.sync[:sample + 1].any() else 0
         with self._lock:
             if self._last is not None and self._last[0] == sample:
                 return self._last[1]
-            if self._next is not None and sync <= self._next <= sample:
-                start = self._next
-            else:
-                self._h264.reset()
-                self._next = None
-                start = sync
-            planes = None
-            try:
-                for j in range(start, sample + 1):
-                    planes = self._h264.decode(t.sample(j), f"frame {index} (sample {j})")
-                    self._next = j + 1
-            except ValueError:
-                self._next = self._last = None
-                raise
+            planes = self._held.pop(sample, None)
+            if planes is None:
+                syncs = np.flatnonzero(t.sync[:sample + 1])
+                sync = int(syncs[-1]) if len(syncs) else 0
+                if self._next is None or not sync <= self._next <= sample:
+                    self._restart()
+                    self._next, self._origin = sync, int(t.pts[sync])
+                try:
+                    while self._next <= sample:
+                        j, self._next = self._next, self._next + 1
+                        shown = self._frame_of[j]
+                        if j == sample and t.pts[j] < self._origin:
+                            # an open GOP's leading picture, decoded from the
+                            # sync sample after it: its references lie before
+                            raise ValueError(
+                                f"{self.path} frame {index} (sample {j}): a leading picture of "
+                                f"the open GOP at sync sample {sync} refers to pictures before "
+                                f"it (a reference the DPB does not hold); reading it from the "
+                                f"GOP before is not supported")
+                        if (j < sample and shown < index
+                                and slice_ref_idc(t.sample(j), t.avc.length_size) == 0):
+                            continue          # shown before this frame; nothing refers to it
+                        got = self._decode(j, f"frame {index} (sample {j})")
+                        if j == sample:
+                            planes = got
+                        elif shown > index:
+                            self._hold(j, got)
+                except ValueError:
+                    self._restart()
+                    raise
             self._last = (sample, planes)
             return planes
+
+    def _restart(self) -> None:
+        self._h264.reset()
+        self._next, self._last = None, None
+        self._held.clear()
+        self._run.clear()
+        self._epoch = 0
+
+    def _hold(self, j: int, planes) -> None:
+        self._held[j] = planes
+        if len(self._held) > self._hold_max:     # drop the one shown last
+            del self._held[max(self._held, key=lambda k: self._frame_of[k])]
+
+    def _decode(self, j: int, what: str):
+        """Decode sample ``j``, and hold its picture order count against
+        the presentation times of the run's pictures."""
+        t = self.track
+        planes = self._h264.decode(t.sample(j), what)
+        pic = self._h264.picture
+        if (pic.idr and self._run) or pic.mmco5:
+            self._epoch += 1
+        key, pts = (self._epoch, pic.poc), int(t.pts[j])
+        at = bisect.bisect_left(self._run, (key,))
+        for other in self._run[max(at - 1, 0):at + 1]:
+            if (other[0] < key) != (other[1] < pts) or other[0] == key:
+                (ke, pe, e), (kl, pl, l) = sorted([(key, pts, j), other], key=lambda r: r[1])
+                raise ValueError(
+                    f"{self.path}: frame {self._frame_of[e]} (sample {e}) shows before frame "
+                    f"{self._frame_of[l]} (sample {l}) by the container's composition times "
+                    f"({pe} < {pl}), but not by picture order count ({ke[1]} and {kl[1]}, "
+                    f"after {ke[0]} and {kl[0]} order-count resets)")
+        self._run.insert(at, (key, pts, j))
+        return planes
 
 
 @functools.lru_cache(maxsize=2)

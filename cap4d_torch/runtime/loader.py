@@ -68,8 +68,10 @@ _SIGNATURES = {
                       ctypes.c_void_p),
     "c4d_h264_size": ([ctypes.c_void_p, _INT_P, _INT_P], ctypes.c_int),
     "c4d_h264_colour": ([ctypes.c_void_p, _INT_P, _INT_P], ctypes.c_int),
+    "c4d_h264_buffering": ([ctypes.c_void_p, _INT_P], ctypes.c_int),
     "c4d_h264_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _U8_P, _U8_P, _U8_P,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+                         ctypes.c_int, ctypes.c_int, _INT_P, ctypes.c_char_p, ctypes.c_int],
+                        ctypes.c_int),
     "c4d_h264_reset": ([ctypes.c_void_p], None),
     "c4d_h264_close": ([ctypes.c_void_p], None),
 }

@@ -25,10 +25,31 @@ What a draw may take is limited only where the standard limits it:
 
 The writer keeps only the state coding needs: the neighbours' total
 coefficient counts (CAVLC's nC), the CABAC context neighbours (skip, type,
-cbp, coded_block_flag, |mvd|, ref_idx, transform size, chroma mode), the
-intra modes for their prediction, and the DPB. It never reconstructs a
-pixel. Slices are coded independently of each other (neighbours in another
-slice are unavailable), so ``workers`` > 1 codes them in a process pool.
+cbp, coded_block_flag, |mvd| and ref_idx of each list, direct mode,
+transform size, chroma mode), the intra modes for their prediction, and the
+DPB. It never reconstructs a pixel. Slices are coded independently of each
+other (neighbours in another slice are unavailable), so ``workers`` > 1
+codes them in a process pool.
+
+With ``b_frames`` the stream has B pictures (7.3.4, 7.3.5): groups of 0-3
+between anchors, decoded after the anchor that closes them, a reference B
+picture in a group's middle (a pyramid) or none; low-delay B pictures
+(both lists from the past) with POC type 2. B slices draw B_Skip,
+B_Direct_16x16, the 21 partition types and B_8x8 with every sub_mb_type,
+ref_idx and mvd for both lists, spatial or temporal direct prediction,
+list-1 modifications, and explicit weights where the PPS's
+weighted_bipred_idc is 1 (|w| <= 64, so that w0 + w1 stays in range). The
+order count comes from pic_order_cnt_lsb (type 0) or delta_pic_order_cnt[0]
+against the SPS's cycle (type 1). The container follows what ffmpeg reads:
+``ctts`` offsets from the display order, an edit list whose media time is
+the first sample's offset, and a VUI bitstream restriction with the true
+max_num_reorder_frames (ffmpeg's output delay) and max_dec_frame_buffering.
+Where ffmpeg departs from the standard on B syntax, the writer steers
+clear (``_b_pictures``, ``_marking``): no MMCO 5, at most one long-term
+reference, the lists shared by a picture's slices with an inter slice
+first, and temporal direct only where ffmpeg's frame_num matching finds
+the co-located picture's references. Without ``b_frames`` the files are
+what they were before B pictures existed.
 """
 
 from __future__ import annotations
@@ -134,7 +155,7 @@ _LAST8 = [
     2, 3, 3, 3, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4, 4, 4, 4, 5, 5, 5, 5, 6, 6, 6, 6, 7, 7, 7, 7, 8, 8, 8
 ]
 # Tables 9-12 to 9-25: (m, n) of ctxIdx 0-459 for I slices and cabac_init_idc 0-2 (the
-# field and B-only contexts, never used, are 0), as m0, n0, m1, n1, ...
+# field contexts, never used, are 0), as m0, n0, m1, n1, ...
 _CABAC_I = [
     20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104, -6, 53, -1, 54, 7, 51, 0, 0,
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
@@ -176,118 +197,118 @@ _CABAC_I = [
 _CABAC_P0 = [
     20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104, -6, 53, -1, 54, 7, 51, 23,
     33, 23, 2, 21, 0, 1, 9, 0, 49, -37, 118, 5, 57, -13, 78, -11, 65, 1, 62, 12, 49, -4, 73, 17,
-    50, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, -3, 69, -6, 81, -11, 96, 6, 55, 7, 67, -5, 86, 2, 88, 0, 58, -3, 76, -10, 94, 5, 54, 4,
-    69, -3, 81, 0, 88, -7, 67, -5, 74, -4, 74, -5, 80, -7, 72, 1, 58, 0, 41, 0, 63, 0, 63, 0, 63,
-    -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 0, 45, -4, 78, -3, 96, -27, 126, -28, 98, -25,
-    101, -23, 67, -28, 82, -20, 94, -16, 83, -22, 110, -21, 91, -18, 102, -13, 93, -29, 127, -7,
-    92, -5, 89, -7, 96, -13, 108, -3, 46, -1, 65, -1, 57, -9, 93, -3, 74, -9, 92, -8, 87, -23,
-    126, 5, 54, 6, 60, 6, 59, 6, 69, -1, 48, 0, 68, -4, 69, -8, 88, -2, 85, -6, 78, -1, 75, -7,
-    77, 2, 54, 5, 50, -3, 68, 1, 50, 6, 42, -4, 81, 1, 63, -4, 70, 0, 67, 2, 57, -2, 76, 11, 35,
-    4, 64, 1, 61, 11, 35, 18, 25, 12, 24, 13, 29, 13, 36, -10, 93, -7, 73, -2, 73, 13, 46, 9, 49,
-    -7, 100, 9, 53, 2, 53, 5, 53, -2, 61, 0, 56, 0, 56, -13, 63, -5, 60, -1, 62, 4, 57, -6, 69, 4,
-    57, 14, 39, 4, 51, 13, 68, 3, 64, 1, 61, 9, 63, 7, 50, 16, 39, 5, 44, 4, 52, 11, 48, -5, 60,
-    -1, 59, 0, 59, 22, 33, 5, 44, 14, 43, -1, 78, 0, 60, 9, 69, 11, 28, 2, 40, 3, 44, 0, 49, 0,
-    46, 2, 44, 2, 51, 0, 47, 4, 39, 2, 62, 6, 46, 0, 54, 3, 54, 2, 58, 4, 63, 6, 51, 6, 57, 7, 53,
-    6, 52, 6, 55, 11, 45, 14, 36, 8, 53, -1, 82, 7, 55, -3, 78, 15, 46, 22, 31, -1, 84, 25, 7, 30,
-    -7, 28, 3, 28, 4, 32, 0, 34, -1, 30, 6, 30, 6, 32, 9, 31, 19, 26, 27, 26, 30, 37, 20, 28, 34,
-    17, 70, 1, 67, 5, 59, 9, 67, 16, 30, 18, 32, 18, 35, 22, 29, 24, 31, 23, 38, 18, 43, 20, 41,
-    11, 63, 9, 59, 9, 64, -1, 94, -2, 89, -9, 108, -6, 76, -2, 44, 0, 45, 0, 52, -3, 64, -2, 59,
-    -4, 70, -4, 75, -8, 82, -17, 102, -9, 77, 3, 24, 0, 42, 0, 48, 0, 55, -6, 59, -7, 71, -12, 83,
-    -11, 87, -30, 119, 1, 58, -3, 29, -1, 36, 1, 38, 2, 43, -6, 55, 0, 58, 0, 64, -3, 74, -10, 90,
-    0, 70, -4, 29, 5, 31, 7, 42, 1, 59, -2, 58, -3, 72, -3, 81, -11, 97, 0, 58, 8, 5, 10, 14, 14,
-    18, 13, 27, 2, 40, 0, 58, -3, 70, -6, 79, -8, 85, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    50, 18, 64, 9, 43, 29, 0, 26, 67, 16, 90, 9, 104, -46, 127, -20, 104, 1, 67, -13, 78, -11, 65,
+    1, 62, -6, 86, -17, 95, -6, 61, 9, 45, -3, 69, -6, 81, -11, 96, 6, 55, 7, 67, -5, 86, 2, 88, 0,
+    58, -3, 76, -10, 94, 5, 54, 4, 69, -3, 81, 0, 88, -7, 67, -5, 74, -4, 74, -5, 80, -7, 72, 1,
+    58, 0, 41, 0, 63, 0, 63, 0, 63, -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 0, 45, -4, 78, -3,
+    96, -27, 126, -28, 98, -25, 101, -23, 67, -28, 82, -20, 94, -16, 83, -22, 110, -21, 91, -18,
+    102, -13, 93, -29, 127, -7, 92, -5, 89, -7, 96, -13, 108, -3, 46, -1, 65, -1, 57, -9, 93, -3,
+    74, -9, 92, -8, 87, -23, 126, 5, 54, 6, 60, 6, 59, 6, 69, -1, 48, 0, 68, -4, 69, -8, 88, -2,
+    85, -6, 78, -1, 75, -7, 77, 2, 54, 5, 50, -3, 68, 1, 50, 6, 42, -4, 81, 1, 63, -4, 70, 0, 67,
+    2, 57, -2, 76, 11, 35, 4, 64, 1, 61, 11, 35, 18, 25, 12, 24, 13, 29, 13, 36, -10, 93, -7, 73,
+    -2, 73, 13, 46, 9, 49, -7, 100, 9, 53, 2, 53, 5, 53, -2, 61, 0, 56, 0, 56, -13, 63, -5, 60, -1,
+    62, 4, 57, -6, 69, 4, 57, 14, 39, 4, 51, 13, 68, 3, 64, 1, 61, 9, 63, 7, 50, 16, 39, 5, 44, 4,
+    52, 11, 48, -5, 60, -1, 59, 0, 59, 22, 33, 5, 44, 14, 43, -1, 78, 0, 60, 9, 69, 11, 28, 2, 40,
+    3, 44, 0, 49, 0, 46, 2, 44, 2, 51, 0, 47, 4, 39, 2, 62, 6, 46, 0, 54, 3, 54, 2, 58, 4, 63, 6,
+    51, 6, 57, 7, 53, 6, 52, 6, 55, 11, 45, 14, 36, 8, 53, -1, 82, 7, 55, -3, 78, 15, 46, 22, 31,
+    -1, 84, 25, 7, 30, -7, 28, 3, 28, 4, 32, 0, 34, -1, 30, 6, 30, 6, 32, 9, 31, 19, 26, 27, 26,
+    30, 37, 20, 28, 34, 17, 70, 1, 67, 5, 59, 9, 67, 16, 30, 18, 32, 18, 35, 22, 29, 24, 31, 23,
+    38, 18, 43, 20, 41, 11, 63, 9, 59, 9, 64, -1, 94, -2, 89, -9, 108, -6, 76, -2, 44, 0, 45, 0,
+    52, -3, 64, -2, 59, -4, 70, -4, 75, -8, 82, -17, 102, -9, 77, 3, 24, 0, 42, 0, 48, 0, 55, -6,
+    59, -7, 71, -12, 83, -11, 87, -30, 119, 1, 58, -3, 29, -1, 36, 1, 38, 2, 43, -6, 55, 0, 58, 0,
+    64, -3, 74, -10, 90, 0, 70, -4, 29, 5, 31, 7, 42, 1, 59, -2, 58, -3, 72, -3, 81, -11, 97, 0,
+    58, 8, 5, 10, 14, 14, 18, 13, 27, 2, 40, 0, 58, -3, 70, -6, 79, -8, 85, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 40, 11, 51, 14, 59, -4, 79, -7, 71, -5, 69, -9,
     70, -8, 66, -10, 68, -19, 73, -12, 69, -16, 70, -15, 67, -20, 62, -19, 70, -16, 66, -22, 65,
     -20, 63, 9, -2, 26, -9, 33, -9, 39, -7, 41, -2, 45, 3, 49, 9, 45, 27, 36, 59, -6, 66, -7, 35,
     -7, 42, -8, 45, -5, 48, -12, 56, -6, 60, -5, 62, -8, 66, -8, 76, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0
 ]
 _CABAC_P1 = [
     20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104, -6, 53, -1, 54, 7, 51, 22,
-    25, 34, 0, 16, 0, -2, 9, 4, 41, -29, 118, 2, 65, -6, 71, -13, 79, 5, 52, 9, 50, -3, 70, 10,
-    54, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, -2, 69, -5, 82, -10, 96, 2, 59, 2, 75, -3, 87, -3, 100, 1, 56, -3, 74, -6, 85, 0, 59,
-    -3, 81, -7, 86, -5, 95, -1, 66, -1, 77, 1, 70, -2, 86, -5, 72, 0, 61, 0, 41, 0, 63, 0, 63, 0,
-    63, -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 13, 15, 7, 51, 2, 80, -39, 127, -18, 91, -17,
-    96, -26, 81, -35, 98, -24, 102, -23, 97, -27, 119, -24, 99, -21, 110, -18, 102, -36, 127, 0,
-    80, -5, 89, -7, 94, -4, 92, 0, 39, 0, 65, -15, 84, -35, 127, -2, 73, -12, 104, -9, 91, -31,
-    127, 3, 55, 7, 56, 7, 55, 8, 61, -3, 53, 0, 68, -7, 74, -9, 88, -13, 103, -13, 91, -9, 89,
-    -14, 92, -8, 76, -12, 87, -23, 110, -24, 105, -10, 78, -20, 112, -17, 99, -78, 127, -70, 127,
-    -50, 127, -46, 127, -4, 66, -5, 78, -4, 71, -8, 72, 2, 59, -1, 55, -7, 70, -6, 75, -8, 89,
-    -34, 119, -3, 75, 32, 20, 30, 22, -44, 127, 0, 54, -5, 61, 0, 58, -1, 60, -3, 61, -8, 67, -25,
-    84, -14, 74, -5, 65, 5, 52, 2, 57, 0, 61, -9, 69, -11, 70, 18, 55, -4, 71, 0, 58, 7, 61, 9,
-    41, 18, 25, 9, 32, 5, 43, 9, 47, 0, 44, 0, 51, 2, 46, 19, 38, -4, 66, 15, 38, 12, 42, 9, 34,
-    0, 89, 4, 45, 10, 28, 10, 31, 33, -11, 52, -43, 18, 15, 28, 0, 35, -22, 38, -25, 34, 0, 39,
-    -18, 32, -12, 102, -94, 0, 0, 56, -15, 33, -4, 29, 10, 37, -5, 51, -29, 39, -9, 52, -34, 69,
-    -58, 67, -63, 44, -5, 32, 7, 55, -29, 32, 1, 0, 0, 27, 36, 33, -25, 34, -30, 36, -28, 38, -28,
-    38, -27, 34, -18, 35, -16, 34, -14, 32, -8, 37, -6, 35, 0, 30, 10, 28, 18, 26, 25, 29, 41, 0,
-    75, 2, 72, 8, 77, 14, 35, 18, 31, 17, 35, 21, 30, 17, 45, 20, 42, 18, 45, 27, 26, 16, 54, 7,
+    25, 34, 0, 16, 0, -2, 9, 4, 41, -29, 118, 2, 65, -6, 71, -13, 79, 5, 52, 9, 50, -3, 70, 10, 54,
+    26, 34, 19, 22, 40, 0, 57, 2, 41, 36, 26, 69, -45, 127, -15, 101, -4, 76, -6, 71, -13, 79, 5,
+    52, 6, 69, -13, 90, 0, 52, 8, 43, -2, 69, -5, 82, -10, 96, 2, 59, 2, 75, -3, 87, -3, 100, 1,
+    56, -3, 74, -6, 85, 0, 59, -3, 81, -7, 86, -5, 95, -1, 66, -1, 77, 1, 70, -2, 86, -5, 72, 0,
+    61, 0, 41, 0, 63, 0, 63, 0, 63, -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 13, 15, 7, 51, 2,
+    80, -39, 127, -18, 91, -17, 96, -26, 81, -35, 98, -24, 102, -23, 97, -27, 119, -24, 99, -21,
+    110, -18, 102, -36, 127, 0, 80, -5, 89, -7, 94, -4, 92, 0, 39, 0, 65, -15, 84, -35, 127, -2,
+    73, -12, 104, -9, 91, -31, 127, 3, 55, 7, 56, 7, 55, 8, 61, -3, 53, 0, 68, -7, 74, -9, 88, -13,
+    103, -13, 91, -9, 89, -14, 92, -8, 76, -12, 87, -23, 110, -24, 105, -10, 78, -20, 112, -17, 99,
+    -78, 127, -70, 127, -50, 127, -46, 127, -4, 66, -5, 78, -4, 71, -8, 72, 2, 59, -1, 55, -7, 70,
+    -6, 75, -8, 89, -34, 119, -3, 75, 32, 20, 30, 22, -44, 127, 0, 54, -5, 61, 0, 58, -1, 60, -3,
+    61, -8, 67, -25, 84, -14, 74, -5, 65, 5, 52, 2, 57, 0, 61, -9, 69, -11, 70, 18, 55, -4, 71, 0,
+    58, 7, 61, 9, 41, 18, 25, 9, 32, 5, 43, 9, 47, 0, 44, 0, 51, 2, 46, 19, 38, -4, 66, 15, 38, 12,
+    42, 9, 34, 0, 89, 4, 45, 10, 28, 10, 31, 33, -11, 52, -43, 18, 15, 28, 0, 35, -22, 38, -25, 34,
+    0, 39, -18, 32, -12, 102, -94, 0, 0, 56, -15, 33, -4, 29, 10, 37, -5, 51, -29, 39, -9, 52, -34,
+    69, -58, 67, -63, 44, -5, 32, 7, 55, -29, 32, 1, 0, 0, 27, 36, 33, -25, 34, -30, 36, -28, 38,
+    -28, 38, -27, 34, -18, 35, -16, 34, -14, 32, -8, 37, -6, 35, 0, 30, 10, 28, 18, 26, 25, 29, 41,
+    0, 75, 2, 72, 8, 77, 14, 35, 18, 31, 17, 35, 21, 30, 17, 45, 20, 42, 18, 45, 27, 26, 16, 54, 7,
     66, 16, 56, 11, 73, 10, 67, -10, 116, -23, 112, -15, 71, -7, 61, 0, 53, -5, 66, -11, 77, -9,
     80, -9, 84, -10, 87, -34, 127, -21, 101, -3, 39, -5, 53, -7, 61, -11, 75, -15, 77, -17, 91,
     -25, 107, -25, 111, -28, 122, -11, 76, -10, 44, -10, 52, -10, 57, -9, 58, -16, 72, -7, 69, -4,
     69, -5, 74, -9, 86, 2, 66, -9, 34, 1, 32, 11, 31, 5, 52, -2, 55, -2, 67, 0, 73, -8, 89, 3, 52,
     7, 4, 10, 8, 17, 8, 16, 19, 3, 37, -1, 61, -5, 73, -1, 70, -4, 78, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 25, 32, 21, 49, 21, 54, -5, 85,
-    -6, 81, -10, 77, -7, 81, -17, 80, -18, 73, -4, 74, -10, 83, -9, 71, -9, 67, -1, 61, -8, 66,
-    -14, 66, 0, 59, 2, 59, 17, -10, 32, -13, 42, -9, 49, -5, 53, 0, 64, 3, 68, 10, 66, 27, 47, 57,
-    -5, 71, 0, 24, -1, 36, -2, 42, -2, 52, -9, 57, -6, 63, -4, 65, -4, 67, -7, 82, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 25, 32, 21, 49, 21, 54, -5, 85, -6, 81, -10, 77, -7, 81,
+    -17, 80, -18, 73, -4, 74, -10, 83, -9, 71, -9, 67, -1, 61, -8, 66, -14, 66, 0, 59, 2, 59, 17,
+    -10, 32, -13, 42, -9, 49, -5, 53, 0, 64, 3, 68, 10, 66, 27, 47, 57, -5, 71, 0, 24, -1, 36, -2,
+    42, -2, 52, -9, 57, -6, 63, -4, 65, -4, 67, -7, 82, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0
 ]
 _CABAC_P2 = [
     20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104, -6, 53, -1, 54, 7, 51, 29,
     16, 25, 0, 14, 0, -10, 51, -3, 62, -27, 99, 26, 16, -4, 85, -24, 102, 5, 57, 6, 57, -17, 73,
-    14, 57, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, -11, 89, -15, 103, -21, 116, 19, 57, 20, 58, 4, 84, 6, 96, 1, 63, -5, 85, -13, 106,
-    5, 63, 6, 75, -3, 90, -1, 101, 3, 55, -4, 79, -2, 75, -12, 97, -7, 50, 1, 60, 0, 41, 0, 63, 0,
-    63, 0, 63, -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 7, 34, -9, 88, -20, 127, -36, 127,
-    -17, 91, -14, 95, -25, 84, -25, 86, -12, 89, -17, 91, -31, 127, -14, 76, -18, 103, -13, 90,
-    -37, 127, 11, 80, 5, 76, 2, 84, 5, 78, -6, 55, 4, 61, -14, 83, -37, 127, -5, 79, -11, 104,
-    -11, 91, -30, 127, 0, 65, -2, 79, 0, 72, -4, 92, -6, 56, 3, 68, -8, 71, -13, 98, -4, 86, -12,
-    88, -5, 82, -3, 72, -4, 67, -8, 72, -16, 89, -9, 69, -1, 59, 5, 66, 4, 57, -4, 71, -2, 71, 2,
-    58, -1, 74, -4, 44, -1, 69, 0, 62, -7, 51, -4, 47, -6, 42, -3, 41, -6, 53, 8, 76, -9, 78, -11,
-    83, 9, 52, 0, 67, -5, 90, 1, 67, -15, 72, -5, 75, -8, 80, -21, 83, -21, 64, -13, 31, -25, 64,
-    -29, 94, 9, 75, 17, 63, -8, 74, -5, 35, -2, 27, 13, 91, 3, 65, -7, 69, 8, 77, -10, 66, 3, 62,
-    -3, 68, -20, 81, 0, 30, 1, 7, -3, 23, -21, 74, 16, 66, -23, 124, 17, 37, 44, -18, 50, -34,
-    -22, 127, 4, 39, 0, 42, 7, 34, 11, 29, 8, 31, 6, 37, 7, 42, 3, 40, 8, 33, 13, 43, 13, 36, 4,
-    47, 3, 55, 2, 58, 6, 60, 8, 44, 11, 44, 14, 42, 7, 48, 4, 56, 4, 52, 13, 37, 9, 49, 19, 58,
-    10, 48, 12, 45, 0, 69, 20, 33, 8, 63, 35, -18, 33, -25, 28, -3, 24, 10, 27, 0, 34, -14, 52,
-    -44, 39, -24, 19, 17, 31, 25, 36, 29, 24, 33, 34, 15, 30, 20, 22, 73, 20, 34, 19, 31, 27, 44,
-    19, 16, 15, 36, 15, 36, 21, 28, 25, 21, 30, 20, 31, 12, 27, 16, 24, 42, 0, 93, 14, 56, 15, 57,
-    26, 38, -24, 127, -24, 115, -22, 82, -9, 62, 0, 53, 0, 59, -14, 85, -13, 89, -13, 94, -11, 92,
-    -29, 127, -21, 100, -14, 57, -12, 67, -11, 71, -10, 77, -21, 85, -16, 88, -23, 104, -15, 98,
-    -37, 127, -10, 82, -8, 48, -8, 61, -8, 66, -7, 70, -14, 75, -10, 79, -9, 83, -12, 92, -18,
-    108, -4, 79, -22, 69, -16, 75, -2, 58, 1, 58, -13, 78, -9, 83, -4, 81, -13, 99, -13, 81, -6,
-    38, -13, 62, -6, 58, -2, 59, -16, 73, -10, 76, -13, 86, -9, 83, -10, 87, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 21, 33, 19, 50, 17, 61, -3,
-    78, -8, 74, -9, 72, -10, 72, -18, 75, -12, 71, -11, 63, -5, 70, -17, 75, -14, 72, -16, 67, -8,
-    53, -14, 59, -9, 52, -11, 68, 9, -2, 30, -10, 31, -4, 33, -1, 33, 7, 31, 12, 37, 23, 31, 38,
-    20, 64, -9, 71, -7, 37, -8, 44, -11, 49, -10, 56, -12, 59, -8, 63, -9, 67, -6, 68, -10, 79, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+    14, 57, 20, 40, 20, 10, 29, 0, 54, 0, 37, 42, 12, 97, -32, 127, -22, 117, -2, 74, -4, 85, -24,
+    102, 5, 57, -6, 93, -14, 88, -6, 44, 4, 55, -11, 89, -15, 103, -21, 116, 19, 57, 20, 58, 4, 84,
+    6, 96, 1, 63, -5, 85, -13, 106, 5, 63, 6, 75, -3, 90, -1, 101, 3, 55, -4, 79, -2, 75, -12, 97,
+    -7, 50, 1, 60, 0, 41, 0, 63, 0, 63, 0, 63, -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 7, 34,
+    -9, 88, -20, 127, -36, 127, -17, 91, -14, 95, -25, 84, -25, 86, -12, 89, -17, 91, -31, 127,
+    -14, 76, -18, 103, -13, 90, -37, 127, 11, 80, 5, 76, 2, 84, 5, 78, -6, 55, 4, 61, -14, 83, -37,
+    127, -5, 79, -11, 104, -11, 91, -30, 127, 0, 65, -2, 79, 0, 72, -4, 92, -6, 56, 3, 68, -8, 71,
+    -13, 98, -4, 86, -12, 88, -5, 82, -3, 72, -4, 67, -8, 72, -16, 89, -9, 69, -1, 59, 5, 66, 4,
+    57, -4, 71, -2, 71, 2, 58, -1, 74, -4, 44, -1, 69, 0, 62, -7, 51, -4, 47, -6, 42, -3, 41, -6,
+    53, 8, 76, -9, 78, -11, 83, 9, 52, 0, 67, -5, 90, 1, 67, -15, 72, -5, 75, -8, 80, -21, 83, -21,
+    64, -13, 31, -25, 64, -29, 94, 9, 75, 17, 63, -8, 74, -5, 35, -2, 27, 13, 91, 3, 65, -7, 69, 8,
+    77, -10, 66, 3, 62, -3, 68, -20, 81, 0, 30, 1, 7, -3, 23, -21, 74, 16, 66, -23, 124, 17, 37,
+    44, -18, 50, -34, -22, 127, 4, 39, 0, 42, 7, 34, 11, 29, 8, 31, 6, 37, 7, 42, 3, 40, 8, 33, 13,
+    43, 13, 36, 4, 47, 3, 55, 2, 58, 6, 60, 8, 44, 11, 44, 14, 42, 7, 48, 4, 56, 4, 52, 13, 37, 9,
+    49, 19, 58, 10, 48, 12, 45, 0, 69, 20, 33, 8, 63, 35, -18, 33, -25, 28, -3, 24, 10, 27, 0, 34,
+    -14, 52, -44, 39, -24, 19, 17, 31, 25, 36, 29, 24, 33, 34, 15, 30, 20, 22, 73, 20, 34, 19, 31,
+    27, 44, 19, 16, 15, 36, 15, 36, 21, 28, 25, 21, 30, 20, 31, 12, 27, 16, 24, 42, 0, 93, 14, 56,
+    15, 57, 26, 38, -24, 127, -24, 115, -22, 82, -9, 62, 0, 53, 0, 59, -14, 85, -13, 89, -13, 94,
+    -11, 92, -29, 127, -21, 100, -14, 57, -12, 67, -11, 71, -10, 77, -21, 85, -16, 88, -23, 104,
+    -15, 98, -37, 127, -10, 82, -8, 48, -8, 61, -8, 66, -7, 70, -14, 75, -10, 79, -9, 83, -12, 92,
+    -18, 108, -4, 79, -22, 69, -16, 75, -2, 58, 1, 58, -13, 78, -9, 83, -4, 81, -13, 99, -13, 81,
+    -6, 38, -13, 62, -6, 58, -2, 59, -16, 73, -10, 76, -13, 86, -9, 83, -10, 87, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 21, 33, 19, 50, 17, 61, -3, 78, -8, 74, -9, 72,
+    -10, 72, -18, 75, -12, 71, -11, 63, -5, 70, -17, 75, -14, 72, -16, 67, -8, 53, -14, 59, -9, 52,
+    -11, 68, 9, -2, 30, -10, 31, -4, 33, -1, 33, 7, 31, 12, 37, 23, 31, 38, 20, 64, -9, 71, -7, 37,
+    -8, 44, -11, 49, -10, 56, -12, 59, -8, 63, -9, 67, -6, 68, -10, 79, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0
 ]
 
 _INV_CBP_INTRA = {c: i for i, c in enumerate(_CBP_INTRA)}
@@ -295,14 +316,26 @@ _INV_CBP_INTER = {c: i for i, c in enumerate(_CBP_INTER)}
 _CABAC_INIT = [_CABAC_I, _CABAC_P0, _CABAC_P1, _CABAC_P2]
 
 SKIP, INTER, I4, I8, I16, PCM = range(6)
-SLICE_P, SLICE_I = 0, 2
+SLICE_P, SLICE_B, SLICE_I = 0, 1, 2
+
+# B mb_type 1-21 (Table 7-14): shape (0 16x16, 1 16x8, 2 8x16) and each
+# partition's prediction (bit 0 list 0, bit 1 list 1); B sub_mb_type (Table
+# 7-18): prediction (0 direct), width, height
+B_TYPES = [(0, 0, 0), (0, 1, 0), (0, 2, 0), (0, 3, 0), (1, 1, 1), (2, 1, 1), (1, 2, 2), (2, 2, 2),
+           (1, 1, 2), (2, 1, 2), (1, 2, 1), (2, 2, 1), (1, 1, 3), (2, 1, 3), (1, 2, 3), (2, 2, 3),
+           (1, 3, 1), (2, 3, 1), (1, 3, 2), (2, 3, 2), (1, 3, 3), (2, 3, 3)]
+B_SUBS = [(0, 4, 4), (1, 8, 8), (2, 8, 8), (3, 8, 8), (1, 8, 4), (1, 4, 8), (2, 8, 4), (2, 4, 8),
+          (3, 8, 4), (3, 4, 8), (1, 4, 4), (2, 4, 4), (3, 4, 4)]
 
 # what the random macroblocks are made of: (skip, inter, intra) weights in P
 # slices, the I_PCM share of intra macroblocks, the P_8x8 share of inter ones,
 # the probability of a coded 8x8 block, the mean non-zero levels a block, the
-# share of large levels, the spread of mvds; slice QPs are drawn from QP_RANGE
-# and a picture has 1..MAX_SLICES slices
-MIX = dict(mb=(2, 5, 3), pcm=0.08, p8x8=0.3, coded=0.6, levels=3.0, large=0.06, mvd=6)
+# share of large levels, the spread of mvds; in B slices the B_Direct_16x16
+# share of inter macroblocks (B_8x8 takes p8x8's) and the direct share of
+# B_8x8's sub-macroblocks; slice QPs are drawn from QP_RANGE and a picture
+# has 1..MAX_SLICES slices
+MIX = dict(mb=(2, 5, 3), pcm=0.08, p8x8=0.3, coded=0.6, levels=3.0, large=0.06, mvd=6,
+           b_direct=0.15, b_direct8=0.3)
 QP_RANGE = (0, 44)
 MAX_SLICES = 3
 
@@ -448,7 +481,8 @@ class _Cabac:
 class _Mb:
     """What later macroblocks' coding reads of a coded one."""
 
-    __slots__ = ("kind", "t8", "cbp", "cmode", "nz", "nzc", "cbf_dc", "ipred", "ref", "mvd")
+    __slots__ = ("kind", "t8", "cbp", "cmode", "nz", "nzc", "cbf_dc", "ipred", "ref", "mvd",
+                 "ref1", "mvd1", "direct8", "direct16")
 
     def __init__(self):
         self.kind = SKIP
@@ -461,6 +495,10 @@ class _Mb:
         self.ipred = [2] * 16              # intra 4x4 / 8x8 modes (raster)
         self.ref = [-1] * 4                # ref_idx_l0 per 8x8
         self.mvd = [(0, 0)] * 16           # |mvd| per 4x4, for CABAC
+        self.ref1 = [-1] * 4               # the same for list 1 (B slices)
+        self.mvd1 = [(0, 0)] * 16
+        self.direct8 = 0                   # B: the 8x8s in direct mode (bit per raster 8x8)
+        self.direct16 = False              # B_Skip or B_Direct_16x16
 
 
 def level_scales(sl4, sl8) -> Tuple[list, list]:
@@ -519,7 +557,10 @@ class _SliceCoder:
         self.mbw, self.mbh = job["mbw"], job["mbh"]
         self.cabac_mode = job["cabac"]
         self.islice = job["slice_type"] == SLICE_I
+        self.bslice = job["slice_type"] == SLICE_B
         self.n_ref = job["num_ref"]
+        self.n_ref1 = job.get("num_ref1", 0)
+        self.direct8x8 = job.get("direct8x8", True)
         self.t8mode = job["t8mode"]
         self.cip = job["constrained_intra"]
         self.qp = job["qp"]
@@ -577,7 +618,7 @@ class _SliceCoder:
                 if not self.islice:
                     a, b = self.nb(-1, 0), self.nb(0, -1)
                     inc = (a is not None and a.kind != SKIP) + (b is not None and b.kind != SKIP)
-                    self.cab.bin(11 + inc, int(skip))
+                    self.cab.bin((24 if self.bslice else 11) + inc, int(skip))
                 if skip:
                     self.skip()
                 else:
@@ -608,12 +649,18 @@ class _SliceCoder:
         self.cur.ref = [0] * 4
         self.prev_qpd_nz = False
         self.stats["skip"] += 1
+        if self.bslice:
+            self.cur.direct8, self.cur.direct16 = 15, True
+            self._count("b_skip")
+
+    def _count(self, key: str) -> None:
+        self.stats[key] = self.stats.get(key, 0) + 1
 
     def macroblock(self) -> None:
         r = self.rng
         s, i, n = self.mix["mb"]
         if not self.islice and r.random() < i / (i + n):
-            return self.inter()
+            return self.inter_b() if self.bslice else self.inter()
         if r.random() < self.mix["pcm"]:
             return self.pcm()
         kinds = [I4, I16] + ([I8] if self.t8mode else [])
@@ -623,7 +670,7 @@ class _SliceCoder:
     def mb_type_intra(self, t: int) -> None:
         """mb_type of an intra macroblock: 0 I_NxN, 1-24 I_16x16, 25 I_PCM."""
         if not self.cabac_mode:
-            self.w.ue(t if self.islice else 5 + t)
+            self.w.ue(t if self.islice else (23 if self.bslice else 5) + t)
             return
         c = self.cab
         if self.islice:
@@ -631,6 +678,10 @@ class _SliceCoder:
             inc = (a is not None and a.kind not in (I4, I8)) + (b is not None and b.kind not in (I4, I8))
             c.bin(3 + inc, int(t != 0))
             off = (3, 6, 7, 8, 9, 10)
+        elif self.bslice:
+            self._b_prefix(13)                  # the prefix 1 1 1 1 0 1, then the I suffix
+            c.bin(32, int(t != 0))
+            off = (32, 33, 34, 34, 35, 35)
         else:
             c.bin(14, 1)
             c.bin(17, int(t != 0))
@@ -811,26 +862,26 @@ class _SliceCoder:
                 w.u(1, m.t8)
         self.residual(i16=False)
 
-    def code_ref(self, ref: int, x: int, y: int) -> None:
+    def code_ref(self, ref: int, x: int, y: int, lst: int = 0) -> None:
+        n_ref = self.n_ref1 if lst else self.n_ref
         if not self.cabac_mode:
-            if self.n_ref == 2:
+            if n_ref == 2:
                 self.w.u(1, 1 - ref)
             else:
                 self.w.ue(ref)
             return
         inc = 0
-        a, xa, ya = self.locate(x - 1, y)
-        if a is not None and a.kind == INTER and a.ref[(ya >> 3) * 2 + (xa >> 3)] > 0:
-            inc += 1
-        b, xb, yb = self.locate(x, y - 1)
-        if b is not None and b.kind == INTER and b.ref[(yb >> 3) * 2 + (xb >> 3)] > 0:
-            inc += 2
+        for n, xn, yn, bit in (self.locate(x - 1, y) + (1,), self.locate(x, y - 1) + (2,)):
+            b8 = (yn >> 3) * 2 + (xn >> 3)
+            if (n is not None and n.kind == INTER and not (n.direct8 >> b8) & 1
+                    and (n.ref1 if lst else n.ref)[b8] > 0):
+                inc += bit
         c = self.cab
         c.bin(54 + inc, int(ref > 0))
         for k in range(1, ref + 1):
             c.bin(58 if k == 1 else 59, int(k < ref))
 
-    def code_mvd(self, x: int, y: int, pw: int, ph: int) -> None:
+    def code_mvd(self, x: int, y: int, pw: int, ph: int, lst: int = 0) -> None:
         r, m = self.rng, self.cur
         spread = self.mix["mvd"]
         mvd = []
@@ -843,9 +894,9 @@ class _SliceCoder:
             for comp in range(2):
                 s = 0
                 if a is not None and a.kind == INTER:
-                    s += a.mvd[(ya >> 2) * 4 + (xa >> 2)][comp]
+                    s += (a.mvd1 if lst else a.mvd)[(ya >> 2) * 4 + (xa >> 2)][comp]
                 if b is not None and b.kind == INTER:
-                    s += b.mvd[(yb >> 2) * 4 + (xb >> 2)][comp]
+                    s += (b.mvd1 if lst else b.mvd)[(yb >> 2) * 4 + (xb >> 2)][comp]
                 inc = 0 if s < 3 else (2 if s > 32 else 1)
                 base = 47 if comp else 40
                 v = mvd[comp]
@@ -863,9 +914,139 @@ class _SliceCoder:
         else:
             self.w.se(mvd[0]).se(mvd[1])
         am = (min(abs(mvd[0]), 64), min(abs(mvd[1]), 64))
+        store = m.mvd1 if lst else m.mvd
         for yy in range(y >> 2, (y + ph) >> 2):
             for xx in range(x >> 2, (x + pw) >> 2):
-                m.mvd[yy * 4 + xx] = am
+                store[yy * 4 + xx] = am
+
+    # ----------------------------------------------------------- B inter --
+    def _b_prefix(self, v: int) -> None:
+        """The CABAC bins of a B mb_type from 3 on (Table 9-37 (b), as ffmpeg
+        reads them): 1 1, then the four bits of ``v``."""
+        c, a, b = self.cab, self.nb(-1, 0), self.nb(0, -1)
+        c.bin(27 + (a is not None and not a.direct16) + (b is not None and not b.direct16), 1)
+        c.bin(30, 1)
+        c.bin(31, (v >> 3) & 1)
+        for k in (2, 1, 0):
+            c.bin(32, (v >> k) & 1)
+
+    def mb_type_b(self, t: int) -> None:
+        """mb_type of an inter macroblock of a B slice (0 B_Direct_16x16, 1-21,
+        22 B_8x8)."""
+        if not self.cabac_mode:
+            self.w.ue(t)
+            return
+        c, a, b = self.cab, self.nb(-1, 0), self.nb(0, -1)
+        if t < 3:
+            inc = (a is not None and not a.direct16) + (b is not None and not b.direct16)
+            c.bin(27 + inc, int(t > 0))
+            if t:
+                c.bin(30, 0)
+                c.bin(32, t - 1)
+        elif t <= 10:
+            self._b_prefix(t - 3)
+        elif t in (11, 22):
+            self._b_prefix(14 if t == 11 else 15)
+        else:
+            self._b_prefix((t + 4) >> 1)
+            c.bin(32, (t + 4) & 1)
+
+    def sub_mb_type_b(self, t: int) -> None:
+        if not self.cabac_mode:
+            self.w.ue(t)
+            return
+        c = self.cab
+        c.bin(36, int(t > 0))
+        if not t:
+            return
+        c.bin(37, int(t > 2))
+        if t <= 2:
+            c.bin(39, t - 1)
+            return
+        c.bin(38, int(t >= 7))
+        if t >= 7:
+            c.bin(39, int(t >= 11))
+            if t >= 11:
+                c.bin(39, t - 11)
+                return
+        v = t - (7 if t >= 7 else 3)
+        c.bin(39, v >> 1)
+        c.bin(39, v & 1)
+
+    def inter_b(self) -> None:
+        """An inter macroblock of a B slice: B_Direct_16x16, the 21 partition
+        types, or B_8x8 (direct and every sub-partition)."""
+        r, m, w, mix = self.rng, self.cur, self.w, self.mix
+        m.kind = INTER
+        self.stats["inter"] += 1
+        u = r.random()
+        if u < mix["b_direct"]:
+            t = 0
+        else:
+            t = 22 if u < mix["b_direct"] + mix["p8x8"] else r.randint(1, 21)
+        self.mb_type_b(t)
+        self._count(f"b_type_{t}")
+        small = False
+        if t == 0:
+            m.direct8, m.direct16 = 15, True
+        elif t == 22:
+            subs = [0 if r.random() < mix["b_direct8"] else r.randint(1, 12) for _ in range(4)]
+            for i, sub in enumerate(subs):
+                self.sub_mb_type_b(sub)
+                self._count(f"b_sub_{sub}")
+                if sub == 0:
+                    m.direct8 |= 1 << i
+                    small |= not self.direct8x8
+                else:
+                    small |= B_SUBS[sub][1] < 8 or B_SUBS[sub][2] < 8
+            for lst in range(2):
+                n_ref = self.n_ref1 if lst else self.n_ref
+                for i, sub in enumerate(subs):
+                    if (B_SUBS[sub][0] >> lst) & 1:
+                        ref = r.randrange(n_ref)
+                        if n_ref > 1:
+                            self.code_ref(ref, (i & 1) * 8, (i >> 1) * 8, lst)
+                        (m.ref1 if lst else m.ref)[i] = ref
+                        self._ref_max(ref)
+            for lst in range(2):
+                for i, sub in enumerate(subs):
+                    if (B_SUBS[sub][0] >> lst) & 1:
+                        _, pw, ph = B_SUBS[sub]
+                        for y in range(0, 8, ph):
+                            for x in range(0, 8, pw):
+                                self.code_mvd((i & 1) * 8 + x, (i >> 1) * 8 + y, pw, ph, lst)
+        else:
+            shape, p0, p1 = B_TYPES[t]
+            parts = {0: [(0, 0, 16, 16)], 1: [(0, 0, 16, 8), (0, 8, 16, 8)],
+                     2: [(0, 0, 8, 16), (8, 0, 8, 16)]}[shape]
+            preds = (p0, p1)
+            for lst in range(2):
+                n_ref = self.n_ref1 if lst else self.n_ref
+                for (x, y, pw, ph), pred in zip(parts, preds):
+                    if (pred >> lst) & 1:
+                        ref = r.randrange(n_ref)
+                        if n_ref > 1:
+                            self.code_ref(ref, x, y, lst)
+                        for yy in range(y // 8, (y + ph) // 8):
+                            for xx in range(x // 8, (x + pw) // 8):
+                                (m.ref1 if lst else m.ref)[yy * 2 + xx] = ref
+                        self._ref_max(ref)
+            for lst in range(2):
+                for (x, y, pw, ph), pred in zip(parts, preds):
+                    if (pred >> lst) & 1:
+                        self.code_mvd(x, y, pw, ph, lst)
+        m.cbp = self.draw_cbp()
+        self.code_cbp(_INV_CBP_INTER)
+        if (m.cbp & 15) and self.t8mode and not small and (t != 0 or self.direct8x8):
+            m.t8 = int(r.random() < 0.5)
+            if self.cabac_mode:
+                self.cab.bin(399 + self.t8_inc(), m.t8)
+            else:
+                w.u(1, m.t8)
+        self.residual(i16=False)
+
+    def _ref_max(self, ref: int) -> None:
+        self.stats["ref_max"] = max(self.stats.get("ref_max", 0), ref)
 
     # ---------------------------------------------------------------- cbp --
     def draw_cbp(self) -> int:
@@ -1315,6 +1496,12 @@ def _sps(sp: dict, refuse: Optional[str] = None) -> bytes:
     b.ue(sp["log2_mfn"] - 4).ue(sp["poc_type"])
     if sp["poc_type"] == 0:
         b.ue(sp["log2_poc"] - 4)
+    elif sp["poc_type"] == 1 and sp.get("poc1"):
+        # delta_pic_order_cnt[0] in every slice header, the drawn cycle
+        poc1 = sp["poc1"]
+        b.u(1, 0).se(poc1["non_ref"]).se(0).ue(len(poc1["cycle"]))
+        for v in poc1["cycle"]:
+            b.se(v)
     elif sp["poc_type"] == 1:
         # one reference frame a cycle, 2 apart; a non-reference frame 1 after
         b.u(1, 1).se(1).se(0).ue(1).se(2)
@@ -1323,18 +1510,25 @@ def _sps(sp: dict, refuse: Optional[str] = None) -> bytes:
         b.ue(sp["mbh"] // 2 - 1).u(1, 0).u(1, 1)
     else:
         b.ue(sp["mbh"] - 1).u(1, 1)
-    b.u(1, 1)                                   # direct_8x8_inference_flag
+    b.u(1, int(sp.get("direct8x8", True)))     # direct_8x8_inference_flag
     crop = sp["crop"]
     b.u(1, int(any(crop)))
     if any(crop):
         for v in crop:
             b.ue(v)
-    vui = sp.get("vui")
-    b.u(1, int(vui is not None))
-    if vui is not None:
-        b.u(1, 0).u(1, 0).u(1, 1).u(3, 5).u(1, int(vui["full_range"])).u(1, 1)
-        b.u(8, 1).u(8, 1).u(8, vui["matrix"])
-        b.u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0)
+    vui, restrict = sp.get("vui"), sp.get("restrict")
+    b.u(1, int(vui is not None or restrict is not None))
+    if vui is not None or restrict is not None:
+        b.u(1, 0).u(1, 0).u(1, int(vui is not None))
+        if vui is not None:
+            b.u(3, 5).u(1, int(vui["full_range"])).u(1, 1)
+            b.u(8, 1).u(8, 1).u(8, vui["matrix"])
+        b.u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, int(restrict is not None))
+        if restrict is not None:
+            # motion vectors over picture boundaries; no byte or bit limits;
+            # log2 of the longest mvs; max_num_reorder_frames,
+            # max_dec_frame_buffering, as libx264 writes them
+            b.u(1, 1).ue(0).ue(0).ue(11).ue(11).ue(restrict[0]).ue(restrict[1])
     return nal_unit(0x67, b.trailing().tobytes())
 
 
@@ -1344,7 +1538,8 @@ def _pps(pp: dict, refuse: Optional[str] = None) -> bytes:
         b.ue(1).ue(0).ue(0).ue(0)               # two slice groups, interleaved runs
     else:
         b.ue(0)
-    b.ue(pp["num_ref_default"] - 1).ue(0).u(1, int(pp["weighted"])).u(2, 0)
+    b.ue(pp["num_ref_default"] - 1).ue(pp.get("num_ref_default1", 1) - 1)
+    b.u(1, int(pp["weighted"])).u(2, pp.get("bipred", 0))
     b.se(pp["init_qp"] - 26).se(0).se(pp["cqp"][0]).u(1, 1).u(1, int(pp["cip"])).u(1, 0)
     if pp["high"]:
         b.u(1, int(pp["t8mode"])).u(1, int(pp["lists"] is not None))
@@ -1365,10 +1560,14 @@ def _pic_num(fn: int, cur_fn: int, max_fn: int) -> int:
 
 
 def _marking(rng: random.Random, refs: list, max_lt: int, cur_fn: int, max_fn: int,
-             max_refs: int, p_adaptive: float):
+             max_refs: int, p_adaptive: float, b_stream: bool = False):
     """dec_ref_pic_marking( ) of a non-IDR reference picture drawn against
     the DPB model: (adaptive ops or None, refs after, MaxLongTermFrameIdx
-    after, the current picture's entry)."""
+    after, the current picture's entry). ``b_stream`` draws no MMCO 5
+    (ffmpeg keeps such a picture's order count from before the reset, which
+    B slices read) and keeps at most one long-term reference (ffmpeg's
+    deblocking tells two long-term pictures apart only while their
+    LongTermFrameIdx lie below their number)."""
     refs = [dict(r) for r in refs]
     cur = {"fn": cur_fn, "long": False, "lt": 0}
     shorts = [r for r in refs if not r["long"]]
@@ -1379,7 +1578,7 @@ def _marking(rng: random.Random, refs: list, max_lt: int, cur_fn: int, max_fn: i
             refs.remove(oldest)
         return None, refs + [cur], max_lt, cur
     ops = []
-    if rng.random() < 0.05:
+    if rng.random() < 0.05 and not b_stream:
         ops.append((5,))
         refs, max_lt = [], -1
     else:
@@ -1404,13 +1603,13 @@ def _marking(rng: random.Random, refs: list, max_lt: int, cur_fn: int, max_fn: i
                 ops.append((4, new + 1))
                 max_lt = new
                 refs = [r for r in refs if not (r["long"] and r["lt"] > new)]
-            elif choice == 3 and shorts and max_lt >= 0:
+            elif choice == 3 and shorts and max_lt >= 0 and not (b_stream and longs):
                 r = rng.choice(shorts)
                 idx = rng.randint(0, max_lt)
                 ops.append((3, cur_fn - _pic_num(r["fn"], cur_fn, max_fn) - 1, idx))
                 refs = [x for x in refs if not (x["long"] and x["lt"] == idx)]
                 r["long"], r["lt"] = True, idx
-            elif choice == 6 and max_lt >= 0 and not cur["long"]:
+            elif choice == 6 and max_lt >= 0 and not cur["long"] and not (b_stream and longs):
                 idx = rng.randint(0, max_lt)
                 ops.append((6, idx))
                 refs = [x for x in refs if not (x["long"] and x["lt"] == idx)]
@@ -1437,26 +1636,36 @@ def _header(sp: dict, pp: dict, s: dict) -> List[int]:
         w.ue(s["idr_pic_id"])
     if sp["poc_type"] == 0:
         w.u(sp["log2_poc"], s["poc_lsb"])
-    if s["slice_type"] == SLICE_P:
-        override = s["num_ref"] != pp["num_ref_default"]
+    elif sp["poc_type"] == 1 and sp.get("poc1"):
+        w.se(s["delta_poc"])
+    bslice = s["slice_type"] == SLICE_B
+    if bslice:
+        w.u(1, int(s["direct_spatial"]))
+    if s["slice_type"] in (SLICE_P, SLICE_B):
+        override = s["num_ref"] != pp["num_ref_default"] or (
+            bslice and s["num_ref1"] != pp.get("num_ref_default1", 1))
         w.u(1, int(override))
         if override:
             w.ue(s["num_ref"] - 1)
-        w.u(1, int(bool(s["mods"])))
-        if s["mods"]:
-            for idc, v in s["mods"]:
-                w.ue(idc).ue(v)
-            w.ue(3)
-        if pp["weighted"]:
+            if bslice:
+                w.ue(s["num_ref1"] - 1)
+        for mods in [s["mods"]] + ([s["mods1"]] if bslice else []):
+            w.u(1, int(bool(mods)))
+            if mods:
+                for idc, v in mods:
+                    w.ue(idc).ue(v)
+                w.ue(3)
+        if (pp["weighted"] and not bslice) or (bslice and pp.get("bipred") == 1):
             w.ue(s["luma_wd"]).ue(s["chroma_wd"])
-            for lw, cw in s["weights"]:
-                w.u(1, int(lw is not None))
-                if lw is not None:
-                    w.se(lw[0]).se(lw[1])
-                w.u(1, int(cw is not None))
-                if cw is not None:
-                    for v in cw:
-                        w.se(v)
+            for weights in [s["weights"]] + ([s["weights1"]] if bslice else []):
+                for lw, cw in weights:
+                    w.u(1, int(lw is not None))
+                    if lw is not None:
+                        w.se(lw[0]).se(lw[1])
+                    w.u(1, int(cw is not None))
+                    if cw is not None:
+                        for v in cw:
+                            w.se(v)
     if s["nal_ref_idc"]:
         if s["idr"]:
             w.u(1, 0).u(1, int(s["ltrf"]))
@@ -1468,7 +1677,7 @@ def _header(sp: dict, pp: dict, s: dict) -> List[int]:
                     for v in op[1:]:
                         w.ue(v)
                 w.ue(0)
-    if pp["cabac"] and s["slice_type"] == SLICE_P:
+    if pp["cabac"] and s["slice_type"] != SLICE_I:
         w.ue(s["cabac_init_idc"])
     w.se(s["qp"] - pp["init_qp"])
     w.ue(s["deblock"][0])
@@ -1477,18 +1686,278 @@ def _header(sp: dict, pp: dict, s: dict) -> List[int]:
     return w.bits()
 
 
+def _b_plan(rng: random.Random, n: int, poc_type: int) -> List[Tuple[str, int]]:
+    """The pictures of a B stream in decode order: (kind, display index).
+    Kinds: "idr", "i", "p", "p_nonref" (anchors), "b" (a reference B
+    picture), "b_nonref". With POC type 2 output order is decode order
+    (low-delay B pictures: both lists from the past); otherwise groups of
+    0-3 B pictures sit between anchors, each group decoded after the anchor
+    that follows it, a pyramid's middle reference B picture first. A group
+    never precedes an IDR picture (a closed GOP)."""
+    plan = [("idr", 0)]
+    if poc_type == 2:
+        prev_nonref = False
+        for d in range(1, n):
+            u = rng.random()
+            if u < 0.06:
+                kind = "idr"
+            elif u < 0.14:
+                kind = "i"
+            elif u < 0.6:
+                kind = "b_nonref" if not prev_nonref and rng.random() < 0.4 else "b"
+            elif u < 0.75 and not prev_nonref:
+                kind = "p_nonref"
+            else:
+                kind = "p"
+            prev_nonref = kind.endswith("nonref")
+            plan.append((kind, d))
+        return plan
+    d = 0
+    while d < n - 1:
+        u = rng.random()
+        if u < 0.06:
+            plan.append(("idr", d + 1))
+            d += 1
+            continue
+        g = min(rng.choice([0, 1, 2, 2, 3, 3]), n - 2 - d)
+        kind = "i" if u < 0.18 else "p"
+        if g == 0 and kind == "p" and rng.random() < 0.25:
+            kind = "p_nonref"
+        plan.append((kind, d + g + 1))
+        group = list(range(d + 1, d + g + 1))
+        if len(group) >= 2 and rng.random() < 0.6:
+            mid = group[(len(group) - 1) // 2]
+            plan.append(("b", mid))
+            plan += [("b" if rng.random() < 0.15 else "b_nonref", x) for x in group if x != mid]
+        else:
+            plan += [("b" if rng.random() < 0.25 else "b_nonref", x) for x in group]
+        d += g + 1
+    return plan
+
+
+def _ref_lists(refs: list, frame_num: int, poc: int, max_fn: int, bslice: bool, nums, mods):
+    """RefPicList0 and RefPicList1 (8.2.4) of the DPB model ``refs`` as
+    lists of reference entries (None where a list has no picture): the
+    initial lists (P by PicNum, B by order count, the swap of 8.2.4.2.3),
+    then ``mods``."""
+    st = [r for r in refs if not r["long"]]
+    lt = sorted((r for r in refs if r["long"]), key=lambda r: r["lt"])
+    if not bslice:
+        init = [sorted(st, key=lambda r: -_pic_num(r["fn"], frame_num, max_fn)) + lt]
+    else:
+        past = sorted((r for r in st if r["poc"] < poc), key=lambda r: -r["poc"])
+        future = sorted((r for r in st if r["poc"] > poc), key=lambda r: r["poc"])
+        init = [past + future + lt, future + past + lt]
+        if len(init[1]) > 1 and [r["id"] for r in init[1]] == [r["id"] for r in init[0]]:
+            init[1][0], init[1][1] = init[1][1], init[1][0]
+    out = []
+    for lst, n, mod in zip(init, nums, mods):
+        lst = (lst[:n] + [None] * (n + 1))[:n + 1]
+        pred, idx = frame_num, 0
+        for idc, v in mod:
+            if idc == 2:
+                pic = next(r for r in refs if r["long"] and r["lt"] == v)
+            else:
+                pred = (pred - (v + 1) if idc == 0 else pred + (v + 1)) % max_fn
+                num = pred - max_fn if pred > frame_num else pred
+                pic = next(r for r in refs if not r["long"] and _pic_num(r["fn"], frame_num,
+                                                                          max_fn) == num)
+            lst = lst[:idx] + [pic] + [r for r in lst[idx:] if r is None or r["id"] != pic["id"]]
+            lst = (lst + [None])[:n + 1]
+            idx += 1
+        out.append(lst[:n])
+    return out
+
+
+def _draw_mods(rng: random.Random, refs: list, frame_num: int, max_fn: int, n: int) -> list:
+    """ref_pic_list_modification( ) naming 1..n pictures of ``refs``."""
+    mods, pred = [], frame_num
+    for _ in range(rng.randint(1, n)):
+        r = rng.choice(refs)
+        if r["long"]:
+            mods.append((2, r["lt"]))
+            continue
+        p = _pic_num(r["fn"], frame_num, max_fn)
+        nowrap = p if p >= 0 else p + max_fn
+        idc = rng.randrange(2)
+        d = ((pred - nowrap) if idc == 0 else (nowrap - pred)) % max_fn or max_fn
+        mods.append((idc, d - 1))
+        pred = nowrap
+    return mods
+
+
+def _poc1_expected(fn_offset: int, frame_num: int, is_ref: bool, poc1: dict) -> int:
+    """expectedPicOrderCnt of POC type 1 (8-6 to 8-10) for frames."""
+    cycle = poc1["cycle"]
+    abs_fn = fn_offset + frame_num if cycle else 0
+    if not is_ref and abs_fn > 0:
+        abs_fn -= 1
+    expected = 0
+    if abs_fn > 0:
+        count, in_cycle = divmod(abs_fn - 1, len(cycle))
+        expected = count * sum(cycle) + sum(cycle[:in_cycle + 1])
+    return expected + (0 if is_ref else poc1["non_ref"])
+
+
+def _b_pictures(rng, sp, pps_list, scales, plan, cabac, mbw, mbh, stats, spatial):
+    """The slices of a B stream's pictures (``plan``, decode order) against
+    the DPB model, as :func:`write_h264_syntax_mp4`'s jobs and pictures.
+    All P or B slices of a picture share its reference lists, and its first
+    slice is one of them (ffmpeg, with frame threads, maps a co-located
+    picture's references, and the current picture's, through the first
+    slice's lists); a slice codes temporal direct prediction where
+    ``spatial`` is False and every picture the co-located picture refers to
+    sits in its list 0 ahead of any other picture of the same frame_num
+    (ffmpeg's identity), else spatial."""
+    n_mbs = mbw * mbh
+    qp_lo, qp_hi = QP_RANGE
+    max_fn = 1 << sp["log2_mfn"]
+    max_lsb = 1 << sp["log2_poc"]
+    refs, max_lt, prev_ref_fn, idr_id = [], -1, 0, 0
+    prev_ref_poc, prev_fno, prev_fn, epoch = 0, 0, 0, 0
+    pics: Dict[int, dict] = {}
+    jobs, pictures = [], []
+    for idx, (kind, disp) in enumerate(plan):
+        idr = kind == "idr"
+        is_ref = not kind.endswith("nonref")
+        nal_ref_idc = rng.randint(1, 3) if is_ref else 0
+        if idr:
+            frame_num, idr_id, epoch = 0, (idr_id + 1) % 65536, disp
+        else:
+            frame_num = (prev_ref_fn + 1) % max_fn
+        ops = None
+        if is_ref and not idr:
+            ops, new_refs, new_max_lt, cur = _marking(rng, refs, max_lt, frame_num, max_fn,
+                                                     sp["max_refs"], 0.35, b_stream=True)
+        reset = bool(ops) and ops[0][0] == 5
+        # the order count, and the syntax that gives it
+        fno = 0 if idr else prev_fno + (max_fn if prev_fn > frame_num else 0)
+        delta_poc = 0
+        if sp["poc_type"] == 2:
+            poc = 0 if idr else 2 * (fno + frame_num) - (0 if is_ref else 1)
+        else:
+            poc = 2 * (disp - epoch)
+            if sp["poc_type"] == 1:
+                delta_poc = poc - _poc1_expected(fno, frame_num, is_ref, sp["poc1"])
+            elif abs(poc - (0 if idr else prev_ref_poc)) >= max_lsb // 2:
+                raise RuntimeError(f"POC {poc} lies too far from the previous reference's")
+        pic = dict(id=idx, fn=0 if reset else frame_num, poc=0 if reset else poc, uses=set())
+        pics[idx] = pic
+        cls = SLICE_B if kind.startswith("b") else (SLICE_P if kind.startswith("p") else SLICE_I)
+        pp = pps_list[rng.randrange(2)]
+        ltrf = idr and rng.random() < 0.3
+        n_sl = rng.randint(1, min(MAX_SLICES, n_mbs))
+        cuts = sorted(rng.sample(range(1, n_mbs), n_sl - 1)) if n_sl > 1 else []
+        bounds = [0] + cuts + [n_mbs]
+        stats["slices_max"] = max(stats["slices_max"], n_sl)
+        # the picture's lists, shared by its P or B slices
+        nums, mods, lists, direct_spatial = [1, 0], [[], []], [[], []], True
+        if cls != SLICE_I:
+            bs = cls == SLICE_B
+            most = min(4, len(refs))
+            nums = [rng.randint(1, most), rng.randint(1, most) if bs else 0]
+            if bs and not spatial and rng.random() < 0.5:
+                nums[0] = min(4, len(refs))           # room for the co-located's references
+            for lst in range(2 if bs else 1):
+                if rng.random() < 0.4:
+                    mods[lst] = _draw_mods(rng, refs, frame_num, max_fn, nums[lst])
+                    stats["mods_l1" if lst else "mods"] += 1
+            lists = _ref_lists(refs, frame_num, poc, max_fn, bs, nums[:2 if bs else 1], mods)
+            if bs:
+                col = pics[lists[1][0]["id"]]
+                l0 = [r for r in lists[0] if r is not None]
+                direct_spatial = spatial or not all(
+                    next((r["id"] for r in l0 if r["fn"] == pics[u]["fn"]), None) == u
+                    for u in col["uses"])
+                if any(r is not None and r["long"] for r in lists[1]):
+                    stats["long_term_l1"] += 1
+        pic_jobs, any_inter = [], False
+        for si in range(n_sl):
+            # the first slice of a P or B picture is one: ffmpeg takes a
+            # picture's lists for direct prediction from its first slice
+            st = cls if (cls != SLICE_I and (si == 0 or rng.random() < 0.85)) else SLICE_I
+            s = dict(first_mb=bounds[si], slice_type=st, frame_num=frame_num, idr=idr,
+                     idr_pic_id=idr_id, poc_lsb=poc % max_lsb, delta_poc=delta_poc,
+                     nal_ref_idc=nal_ref_idc, ltrf=ltrf, ops=ops, mods=mods[0], mods1=mods[1],
+                     weights=[], weights1=[], direct_spatial=direct_spatial,
+                     qp=rng.randint(qp_lo, qp_hi), cabac_init_idc=rng.randrange(3),
+                     deblock=(rng.choice([0, 0, 1, 2]), rng.randint(-6, 6), rng.randint(-6, 6)),
+                     num_ref=nums[0], num_ref1=nums[1])
+            if st != SLICE_I:
+                any_inter = True
+                if (st == SLICE_P and pp["weighted"]) or (st == SLICE_B and pp["bipred"] == 1):
+                    # B: |weights| <= 64 keeps w0 + w1 within [-128, 128] (7.4.3.2)
+                    top = 64 if st == SLICE_B else 127
+                    s["luma_wd"] = rng.randint(0, 6 if st == SLICE_B else 7)
+                    s["chroma_wd"] = rng.randint(0, 6 if st == SLICE_B else 7)
+                    n1 = nums[1] if st == SLICE_B else 0
+                    for key, n in (("weights", nums[0]), ("weights1", n1)):
+                        for _ in range(n):
+                            lw = ((max(-top, min(top, (1 << s["luma_wd"]) + rng.randint(-40, 40))),
+                                   rng.randint(-20, 20)) if rng.random() < 0.6 else None)
+                            cw = ([v for _ in range(2) for v in (
+                                max(-top, min(top, (1 << s["chroma_wd"]) + rng.randint(-40, 40))),
+                                rng.randint(-20, 20))] if rng.random() < 0.5 else None)
+                            s[key].append((lw, cw))
+                    stats["weighted_b" if st == SLICE_B else "weighted_p"] += 1
+                if st == SLICE_B:
+                    stats["b_slices"] += 1
+                    stats["bipred"].add(pp["bipred"])
+                    stats["temporal" if not direct_spatial else "spatial"] += 1
+                    if disp < max(d for _, d in plan[:idx + 1]):
+                        stats["reordered_b"] += 1
+                elif nums[0] >= 2:
+                    stats["p_slices_2refs"] += 1
+            if s["deblock"][0] != 1 and (s["deblock"][1] or s["deblock"][2]):
+                stats["deblock"].add(s["deblock"][0])
+            job = dict(head=_header(sp, pp, s), slice_type=st, first_mb=bounds[si],
+                       end_mb=bounds[si + 1], mbw=mbw, mbh=mbh, cabac=cabac,
+                       cabac_init_idc=s["cabac_init_idc"], qp=s["qp"],
+                       num_ref=nums[0], num_ref1=nums[1], direct8x8=sp["direct8x8"],
+                       t8mode=pp["t8mode"], constrained_intra=pp["cip"],
+                       cqp_offset=pp["cqp"], ls=scales[pp["id"]],
+                       seed=rng.getrandbits(64), nal=(nal_ref_idc << 5) | (5 if idr else 1),
+                       matrix=pp["lists"] is not None or sp["lists"] is not None)
+            pic_jobs.append(job)
+        if any_inter:
+            pic["uses"] = {r["id"] for lst in lists for r in lst if r is not None}
+        jobs += pic_jobs
+        pictures.append((len(pic_jobs), idr, rng.random() < 0.2))
+        stats["frames"].append(kind)
+        stats["pictures"].append(dict(kind=kind, display=disp, poc=pic["poc"], mods=any(mods)))
+        # the model after this picture
+        if is_ref:
+            if idr:
+                refs = [{"fn": 0, "long": ltrf, "lt": 0, "poc": 0, "id": idx}]
+                max_lt = 0 if ltrf else -1
+            else:
+                cur.update(poc=pic["poc"], id=idx)
+                refs, max_lt = new_refs, new_max_lt
+                for op in ops or ():
+                    stats["mmco"].add(op[0])
+            prev_ref_fn = pic["fn"]
+            prev_ref_poc = pic["poc"]
+            stats["long_term"] += sum(r["long"] for r in refs)
+        if reset:
+            epoch = disp
+        prev_fno, prev_fn = (0, 0) if reset else (fno, frame_num)
+    return jobs, pictures
+
+
 def write_h264_syntax_mp4(path, width: int, height: int, n_frames: int, seed: int,
                           entropy: str = "cavlc", full_range: Optional[bool] = None,
-                          matrix: int = 1, workers: int = 1) -> dict:
+                          matrix: int = 1, workers: int = 1, b_frames: bool = False) -> dict:
     """Write an mp4 of ``n_frames`` H.264 pictures of seeded random syntax
     (module docstring; macroblock statistics :data:`MIX`) at ``width`` x
     ``height`` (even; cropped from whole macroblocks), High profile,
     ``entropy`` "cavlc" or "cabac"; ``full_range`` adds a VUI with that
     video_full_range_flag and ``matrix`` as matrix_coefficients (1 BT.709,
-    6 BT.601). Sync samples are the IDR pictures. ``workers`` > 1 codes the
-    slices in a spawned process pool (the calling script needs its
-    ``if __name__ == "__main__"`` guard). Returns counts of the tools the
-    stream uses."""
+    6 BT.601). Sync samples are the IDR pictures. ``b_frames`` adds B
+    pictures (:func:`_b_plan`, :func:`_b_pictures`) with the container's
+    composition offsets, edit list and the VUI's reorder depth; without it
+    the file is what it always was. ``workers`` > 1 codes the slices in a
+    spawned process pool (the calling script needs its ``if __name__ ==
+    "__main__"`` guard). Returns counts of the tools the stream uses."""
     if width % 2 or height % 2 or entropy not in ("cavlc", "cabac"):
         raise ValueError(f"even width and height, entropy cavlc|cabac (got {width}x{height}, "
                          f"{entropy!r})")
@@ -1514,6 +1983,22 @@ def write_h264_syntax_mp4(path, width: int, height: int, n_frames: int, seed: in
     pps_list[0]["high"] = pps_list[0]["t8mode"] = False    # one PPS without the High fields,
     pps_list[0]["lists"] = None                              # so Cr takes Cb's QP offset
     pps_list[0]["cqp"] = (pps_list[0]["cqp"][0],) * 2
+    if b_frames:
+        sp["log2_poc"] = rng.choice([6, 8])
+        sp["direct8x8"] = rng.random() < 0.6
+        if sp["poc_type"] == 1:
+            sp["poc1"] = dict(non_ref=rng.randint(-4, 0),
+                              cycle=[rng.randint(1, 6) for _ in range(rng.randint(1, 3))])
+        for pp, idc in zip(pps_list, rng.sample([0, 1, 2], 2)):
+            pp["num_ref_default1"], pp["bipred"] = rng.randint(1, 3), idc
+        spatial = rng.random() < 0.5
+        plan = _b_plan(rng, n_frames, sp["poc_type"])
+        # display index -> decode index; the reorder depth (frames decoded
+        # earlier and shown later, at most) and the composition delay
+        shown = [d for _, d in plan]
+        reorder = max(sum(e > d for e in shown[:i]) for i, d in enumerate(shown))
+        delay = max(i - d for i, d in enumerate(shown))
+        sp["restrict"] = (reorder, min(16, sp["max_refs"] + reorder))
     sps_nal = _sps(sp)
     pps_nals = [_pps(pp) for pp in pps_list]
     scales = {pp["id"]: level_scales(*_effective(sp["lists"], pp["lists"], pp["t8mode"]))
@@ -1524,7 +2009,13 @@ def write_h264_syntax_mp4(path, width: int, height: int, n_frames: int, seed: in
              "cropped": any(sp["crop"]), "mb": {}}
     refs, max_lt, prev_ref_fn, poc_count, idr_id, prev_nonref = [], -1, 0, 0, 0, False
     jobs, pictures = [], []
-    for k in range(n_frames):
+    if b_frames:
+        stats.update(pictures=[], b_slices=0, temporal=0, spatial=0, bipred=set(), mods_l1=0,
+                     long_term_l1=0, weighted_b=0, reordered_b=0, poc_type=sp["poc_type"],
+                     direct8x8=sp["direct8x8"], reorder=reorder)
+        jobs, pictures = _b_pictures(rng, sp, pps_list, scales, plan, cabac, mbw, mbh, stats,
+                                     spatial)
+    for k in range(0 if b_frames else n_frames):
         u = rng.random()
         if k == 0 or u < 0.06:
             kind = "idr"
@@ -1624,11 +2115,14 @@ def write_h264_syntax_mp4(path, width: int, height: int, n_frames: int, seed: in
     else:
         coded = [_code_slice(j) for j in jobs]
     samples, pos = [], 0
-    for n_sl, idr, aud in pictures:
+    for k, (n_sl, idr, aud) in enumerate(pictures):
         nals = [nal_unit(0x09, bytes([0x10]))] if aud else []
         for job, (rbsp, st) in zip(jobs[pos:pos + n_sl], coded[pos:pos + n_sl]):
             nals.append(nal_unit(job["nal"], rbsp))
             for key, v in st.items():
+                if key == "ref_max":
+                    stats["pictures"][k]["ref_max"] = max(v, stats["pictures"][k].get("ref_max", 0))
+                    continue
                 stats["mb"][key] = stats["mb"].get(key, 0) + v
             if job["matrix"] and st["t8"]:
                 stats["t8_with_matrix"] += 1
@@ -1637,9 +2131,12 @@ def write_h264_syntax_mp4(path, width: int, height: int, n_frames: int, seed: in
     avcc = _box(b"avcC", bytes([1, 100, 0, 40, 0xFF, 0xE1]), struct.pack(">H", len(sps_nal)),
                 sps_nal, bytes([len(pps_nals)]),
                 *[struct.pack(">H", len(p)) + p for p in pps_nals], bytes([0xFD, 0xF8, 0xF8, 0]))
+    ctts = [d + delay - i for i, (_, d) in enumerate(plan)] if b_frames and delay else None
     write_mp4(path, samples, visual_sample_entry(b"avc1", width, height, avcc), width, height,
-              sync=[p[1] for p in pictures])
+              sync=[p[1] for p in pictures], ctts=ctts, edit_start=ctts[0] if ctts else 0)
     stats["mmco"], stats["deblock"] = sorted(stats["mmco"]), sorted(stats["deblock"])
+    if b_frames:
+        stats["bipred"] = sorted(stats["bipred"])
     return stats
 
 
@@ -1652,14 +2149,23 @@ PINNED_LUMA_SHA256 = {
     ("cabac", 1, 128, 96, 12): "3d722210bc6edd71c6a4264a8b39c4d2b7b160d5cbb8f2fe03314d3aa04504bf",
 }
 
-REFUSALS = {"b_slice": "B slices", "fields": "field coding", "422": "4:2:2",
+# The same for write_h264_syntax_mp4(..., b_frames=True): a CAVLC stream with
+# POC type 0 and a B-pyramid, a CABAC one with POC type 1 (ffmpeg's decode,
+# cv2 5.0.0; tests/test_torch_h264.py and chip_smoke.py hold them)
+PINNED_B_LUMA_SHA256 = {
+    ("cavlc", 1, 128, 96, 16): "9dd69e2f85d908aded9492a2bb205999efeb6700a628952c04b9039ee2634665",
+    ("cabac", 5, 128, 96, 16): "814aec29819853f8e0136e17dc7808ddd819ee133f2b9bf13987aa654d24c3b5",
+}
+
+REFUSALS = {"sp_slice": "SP slices", "fields": "field coding", "422": "4:2:2",
             "10bit": "bit depth 10", "fmo": "slice groups"}
 
 
 def write_h264_refusal_mp4(path, tool: str, width: int = 32, height: int = 32) -> str:
     """A two-picture mp4 whose headers use a tool the port's decoder refuses
     (a key of :data:`REFUSALS`): an I_PCM IDR picture, then a P picture of
-    skipped macroblocks, or a B slice for "b_slice". Returns the phrase the
+    skipped macroblocks, or an SP slice for "sp_slice" (its header as a P
+    slice's: the decoder refuses it at slice_type). Returns the phrase the
     decoder's error names."""
     mbw, mbh = width // 16, height // 16
     sp = dict(id=0, log2_mfn=4, poc_type=2, log2_poc=4, max_refs=1, mbw=mbw, mbh=mbh,
@@ -1670,16 +2176,12 @@ def write_h264_refusal_mp4(path, tool: str, width: int = 32, height: int = 32) -
     samples = []
     for k in range(2):
         w = _Writer()
-        st = SLICE_I if k == 0 else (1 if tool == "b_slice" else SLICE_P)
+        st = SLICE_I if k == 0 else (3 if tool == "sp_slice" else SLICE_P)
         w.ue(0).ue(st).ue(0).u(4, k)
         if k == 0:
             w.ue(0)
         if st != SLICE_I:
-            if st == 1:
-                w.u(1, 1)                       # direct_spatial_mv_pred_flag
             w.u(1, 0).u(1, 0)
-            if st == 1:
-                w.u(1, 0)
         w.u(1, 0)
         if k == 0:
             w.u(1, 0)

@@ -518,13 +518,16 @@ def visual_sample_entry(fourcc: bytes, width: int, height: int, *children: bytes
 
 
 def write_mp4(path, samples, entry: bytes, width: int, height: int, sync=None,
-              brand: bytes = b"isom", ctts=None, per_chunk: int = 1, co64: bool = False) -> None:
+              brand: bytes = b"isom", ctts=None, per_chunk: int = 1, co64: bool = False,
+              edit_start: int = 0) -> None:
     """One video track at 24 fps: ``samples`` (bytes each, in decode order)
     described by the sample entry ``entry``, ``sync`` the sync flags (all
-    when None), an edit list that skips nothing (as cv2 writes). ``brand`` b"qt  " makes
-    a QuickTime ``.mov``. For the demuxer's tests: ``ctts`` the composition
-    offsets in frames, ``per_chunk`` samples a chunk (the last chunk takes
-    the rest), ``co64`` 64-bit chunk offsets."""
+    when None), an edit list that skips nothing (as cv2 writes), or whose
+    media time is ``edit_start`` frames (the first sample's composition
+    offset, as ffmpeg's muxer writes it for B pictures). ``brand`` b"qt  "
+    makes a QuickTime ``.mov``. ``ctts`` the composition offsets in frames;
+    for the demuxer's tests ``per_chunk`` samples a chunk (the last chunk
+    takes the rest), ``co64`` 64-bit chunk offsets."""
     n, delta = len(samples), FRAME_TICKS
     duration = n * delta
     ftyp = _box(b"ftyp", brand, struct.pack(">I", 0x200 if brand == b"isom" else 0),
@@ -561,7 +564,8 @@ def write_mp4(path, samples, entry: bytes, width: int, height: int, sync=None,
     tkhd = _full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, duration), b"\0" * 8,
                      struct.pack(">hhhH", 0, 0, 0, 0), UNITY_MATRIX,
                      struct.pack(">II", width << 16, height << 16))
-    edts = _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">IIiI", 1, duration, 0, 0x10000)))
+    edts = _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">IIiI", 1, duration,
+                                                              edit_start * delta, 0x10000)))
     mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIIIIH", 0, 0, VIDEO_TIMESCALE, duration,
                                                 0x10000, 0x100), b"\0" * 10, UNITY_MATRIX,
                      b"\0" * 24, struct.pack(">I", 2))
@@ -624,7 +628,7 @@ def h264_frames(n_frames: int, width: int, height: int, seed: int = 0):
 
 
 def write_h264_mp4(path, n_frames: int, width: int, height: int, gop: int = 8,
-                   seed: int = 0, frames=None):
+                   seed: int = 0, frames=None, b_frames: int = 0):
     """An H.264 mp4 whose every decoded frame is known exactly.
 
     Baseline profile, CAVLC, ``pic_order_cnt_type`` 2, no VUI (so BT.601
@@ -636,47 +640,128 @@ def write_h264_mp4(path, n_frames: int, width: int, height: int, gop: int = 8,
     lengths. Width and height must be even; the coded picture is padded to
     whole macroblocks by repeating the last row and column, and cropped
     back. ``frames``, when given, are the IDRs' (Y, U, V) planes in place of
-    :func:`h264_frames`'. Returns the decoded frames, (Y, U, V) uint8 each."""
-    if width % 2 or height % 2 or not 2 <= gop <= 16:
-        raise ValueError(f"even width and height, gop 2..16 (got {width}x{height}, gop {gop})")
+    :func:`h264_frames`'.
+
+    ``b_frames`` > 0 writes Main profile with ``pic_order_cnt_type`` 0 and
+    B pictures instead: in each GOP the anchors (the IDR, then every
+    ``b_frames + 1``-th frame and the GOP's last) are each a different frame
+    coded wholly as I_PCM, and the ``b_frames`` frames between two anchors
+    non-reference B pictures made wholly of B_Skip. Spatial direct
+    prediction finds no motion anywhere, so each B frame decodes to
+    ``(past + future + 1) >> 1`` of its two anchors in Y, U and V. Decode
+    order is anchor, then the B pictures before it; the container carries
+    the composition offsets, an edit list starting at the first sample's,
+    and the VUI the reorder depth 1. ``frames`` are then the anchors'
+    planes. Returns the decoded frames in presentation order, (Y, U, V)
+    uint8 each."""
+    if width % 2 or height % 2 or not 2 <= gop <= 16 or not 0 <= b_frames < gop - 1:
+        raise ValueError(f"even width and height, gop 2..16, b_frames below gop - 1 (got "
+                         f"{width}x{height}, gop {gop}, b_frames {b_frames})")
     mbw, mbh = -(-width // 16), -(-height // 16)
     n_mbs = mbw * mbh
-    sps = _Bits().u(8, 66).u(8, 0xC0).u(8, 51).ue(0).ue(0).ue(2).ue(1).u(1, 0)
+    profile = 77 if b_frames else 66
+    sps = _Bits().u(8, profile).u(8, 0 if b_frames else 0xC0).u(8, 51).ue(0).ue(0)
+    if b_frames:
+        sps.ue(0).ue(4)           # pic_order_cnt_type 0, 8-bit pic_order_cnt_lsb
+    else:
+        sps.ue(2)
+    sps.ue(2 if b_frames else 1).u(1, 0)
     sps.ue(mbw - 1).ue(mbh - 1).u(1, 1).u(1, 1)
     crop = (mbw * 16 - width) // 2, (mbh * 16 - height) // 2
     sps.u(1, int(any(crop)))
     if any(crop):
         sps.ue(0).ue(crop[0]).ue(0).ue(crop[1])
-    sps = nal_unit(0x67, sps.u(1, 0).trailing().tobytes())
+    if b_frames:
+        # a VUI of only the bitstream restriction: reorder depth 1, two frames
+        sps.u(1, 1).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 1)
+        sps.u(1, 1).ue(0).ue(0).ue(11).ue(11).ue(1).ue(2)
+    else:
+        sps.u(1, 0)
+    sps = nal_unit(0x67, sps.trailing().tobytes())
     pps = _Bits().ue(0).ue(0).u(1, 0).u(1, 0).ue(0).ue(0).ue(0).u(1, 0).u(2, 0)
     pps = nal_unit(0x68, pps.se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, 0).trailing().tobytes())
 
-    idrs = frames if frames is not None else h264_frames(-(-n_frames // gop), width, height, seed)
-    samples, frames = [], []
+    def pcm_body(planes):
+        ys, us, vs = (np.pad(p, ((0, mbh * s - p.shape[0]), (0, mbw * s - p.shape[1])),
+                             mode="edge") for p, s in zip(planes, (16, 8, 8)))
+        mbs = np.empty((n_mbs, 386), np.uint8)
+        mbs[:, :2] = (0x0D, 0x00)     # mb_type ue(25) = I_PCM, then 7 alignment bits
+        mbs[:, 2:258] = ys.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(n_mbs, 256)
+        mbs[:, 258:322] = us.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(n_mbs, 64)
+        mbs[:, 322:] = vs.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(n_mbs, 64)
+        return mbs
+
+    if not b_frames:
+        idrs = frames if frames is not None else h264_frames(-(-n_frames // gop), width, height,
+                                                             seed)
+        samples, frames = [], []
+        for k in range(n_frames):
+            if k % gop == 0:
+                planes = idrs[k // gop]
+                mbs = pcm_body(planes)
+                head = _Bits().ue(0).ue(7).ue(0).u(4, 0).ue(k // gop % 65536).u(1, 0).u(1, 0)
+                head.se(0).ue(1).ue(25).align()
+                rbsp = head.tobytes() + mbs[0, 2:].tobytes() + mbs[1:].tobytes() + b"\x80"
+                nal = nal_unit(0x65, rbsp)
+            else:
+                head = _Bits().ue(0).ue(5).ue(0).u(4, k % gop).u(1, 0).u(1, 0).u(1, 0)
+                nal = nal_unit(0x41, head.se(0).ue(1).ue(n_mbs).trailing().tobytes())
+            samples.append(struct.pack(">I", len(nal)) + nal)
+            frames.append(planes)
+        avcc = _box(b"avcC", bytes([1, 66, 0xC0, 51, 0xFF, 0xE1]), struct.pack(">H", len(sps)),
+                    sps, bytes([1]), struct.pack(">H", len(pps)), pps)
+        write_mp4(path, samples, visual_sample_entry(b"avc1", width, height, avcc), width,
+                  height, sync=[k % gop == 0 for k in range(n_frames)])
+        return frames
+
+    # anchors by presentation index; each group of B pictures follows its
+    # closing anchor in decode order
+    anchor = [k % gop % (b_frames + 1) == 0 or k % gop == gop - 1 or k == n_frames - 1
+              for k in range(n_frames)]
+    n_anchors = sum(anchor)
+    pics = frames if frames is not None else h264_frames(n_anchors, width, height, seed)
+    decoded, order, a = [None] * n_frames, [], 0
     for k in range(n_frames):
-        if k % gop == 0:
-            planes = idrs[k // gop]
-            ys, us, vs = (np.pad(p, ((0, mbh * s - p.shape[0]), (0, mbw * s - p.shape[1])),
-                                 mode="edge") for p, s in zip(planes, (16, 8, 8)))
-            mbs = np.empty((n_mbs, 386), np.uint8)
-            mbs[:, :2] = (0x0D, 0x00)     # mb_type ue(25) = I_PCM, then 7 alignment bits
-            mbs[:, 2:258] = ys.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(n_mbs, 256)
-            mbs[:, 258:322] = us.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(n_mbs, 64)
-            mbs[:, 322:] = vs.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(n_mbs, 64)
-            head = _Bits().ue(0).ue(7).ue(0).u(4, 0).ue(k // gop % 65536).u(1, 0).u(1, 0)
+        if anchor[k]:
+            decoded[k] = pics[a]
+            a += 1
+    for k in range(n_frames):
+        if not anchor[k]:
+            past = max(j for j in range(k) if anchor[j])
+            future = min(j for j in range(k, n_frames) if anchor[j])
+            decoded[k] = tuple(((p.astype(np.uint16) + f + 1) >> 1).astype(np.uint8)
+                               for p, f in zip(decoded[past], decoded[future]))
+    prev = 0
+    for k in range(n_frames):
+        if anchor[k]:
+            order += [k] + list(range(prev + 1, k))
+            prev = k
+    samples, fn, ref_fn = [], 0, 0
+    for k in order:
+        poc_lsb = 2 * (k % gop)
+        if anchor[k]:
+            fn = 0 if k % gop == 0 else (ref_fn + 1) % 16
+            ref_fn = fn
+            head = _Bits().ue(0).ue(7).ue(0).u(4, fn)
+            if k % gop == 0:
+                head.ue(k // gop % 65536).u(8, poc_lsb).u(1, 0).u(1, 0)
+            else:
+                head.u(8, poc_lsb).u(1, 0)
             head.se(0).ue(1).ue(25).align()
+            mbs = pcm_body(decoded[k])
             rbsp = head.tobytes() + mbs[0, 2:].tobytes() + mbs[1:].tobytes() + b"\x80"
-            nal = nal_unit(0x65, rbsp)
+            nal = nal_unit(0x65 if k % gop == 0 else 0x61, rbsp)
         else:
-            head = _Bits().ue(0).ue(5).ue(0).u(4, k % gop).u(1, 0).u(1, 0).u(1, 0)
-            nal = nal_unit(0x41, head.se(0).ue(1).ue(n_mbs).trailing().tobytes())
+            head = _Bits().ue(0).ue(6).ue(0).u(4, (ref_fn + 1) % 16).u(8, poc_lsb)
+            head.u(1, 1).u(1, 0).u(1, 0).u(1, 0)    # spatial direct; no override or modification
+            nal = nal_unit(0x01, head.se(0).ue(1).ue(n_mbs).trailing().tobytes())
         samples.append(struct.pack(">I", len(nal)) + nal)
-        frames.append(planes)
-    avcc = _box(b"avcC", bytes([1, 66, 0xC0, 51, 0xFF, 0xE1]), struct.pack(">H", len(sps)), sps,
+    avcc = _box(b"avcC", bytes([1, 77, 0, 51, 0xFF, 0xE1]), struct.pack(">H", len(sps)), sps,
                 bytes([1]), struct.pack(">H", len(pps)), pps)
+    ctts = [k + 1 - i for i, k in enumerate(order)]
     write_mp4(path, samples, visual_sample_entry(b"avc1", width, height, avcc), width, height,
-              sync=[k % gop == 0 for k in range(n_frames)])
-    return frames
+              sync=[k % gop == 0 for k in order], ctts=ctts, edit_start=ctts[0])
+    return decoded
 
 
 def write_mjpeg_video(path, frames, quality: int = 90) -> None:

@@ -66,10 +66,13 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      VP9, ``cuvidCreateDecoder`` for H.264); the port's I_PCM + P_Skip H.264
      streams at 1920x1080 and 1080x1920 decoded on the host by the runtime
      (``runtime/h264.cpp``), every plane equal to the frames written, and
-     ``nv12_to_rgb`` on the card against the CPU; the random-syntax CAVLC
-     and CABAC streams of tier-1 decoded to ffmpeg's pinned luma SHA-256; a
-     1080x1920 CABAC random-syntax stream of 60 frames timed (frames/s,
-     random access);
+     ``nv12_to_rgb`` on the card against the CPU; the I_PCM + B_Skip streams
+     (PR 16) at both sizes, each B frame the rounded average of its
+     anchors, in order (one decode a frame) and shuffled; the random-syntax
+     CAVLC and CABAC streams of tier-1, without and with B pictures,
+     decoded to ffmpeg's pinned luma SHA-256; 1080x1920 CABAC random-syntax
+     streams of 60 frames, I/P and with B pictures in a pyramid, timed
+     (frames/s, random access, decodes a sequential read makes);
      a VP9 read on the card, which raises NVDEC's answer;
      Motion-JPEG at 1080p (.mp4 and .mov) through the runtime, sequential
      and random access, timed; stage 1's reference loader on a Motion-JPEG
@@ -1391,11 +1394,15 @@ def phase_video(work: Path, card: str):
     P_Skip H.264 streams at 1920x1080 and 1080x1920 (24 frames, an IDR every
     8) through the demuxer and the runtime's H.264 decoder, every plane equal
     to the frames written, in order and shuffled, and ``nv12_to_rgb`` on the
-    card against the CPU; the random-syntax CAVLC and CABAC streams of
-    tests/test_torch_h264.py decoded to the luma SHA-256 that the tests pin
-    to ffmpeg's decode; a 1080x1920 CABAC random-syntax stream of 60 frames
-    timed (sequential frames/s, a random-access read); VP9 on the
-    card, which raises NVDEC's answer; Motion-JPEG at 1080p (.mp4 and .mov)
+    card against the CPU; the I_PCM + B_Skip streams at both sizes (each B
+    frame the rounded average of its anchors), in order with one decode a
+    frame, and shuffled; the random-syntax CAVLC and CABAC streams of
+    tests/test_torch_h264.py and tests/test_torch_h264_b.py decoded to the
+    luma SHA-256 that the tests pin to ffmpeg's decode; 1080x1920 CABAC
+    random-syntax streams of 60 frames, I/P and with B pictures (a pyramid),
+    timed (sequential frames/s, a random-access read and the samples it
+    decodes, the decodes of a sequential read); VP9 on the card, which
+    raises NVDEC's answer; Motion-JPEG at 1080p (.mp4 and .mov)
     through the runtime, sequential and random access, timed; stage 1's
     reference loader on a Motion-JPEG video against the same frames as a PNG
     directory."""
@@ -1458,17 +1465,55 @@ def phase_video(work: Path, card: str):
             f"in order and shuffled; nv12_to_rgb card vs CPU max |diff| {worst} ({differing} "
             f"values differ of {3 * 3 * w * h}) | on {card}")
 
+    def count_decodes(reader):
+        """The reader's decode calls, counted: a list whose first item is the count."""
+        calls, decode = [0], reader._h264.decode
+
+        def counted(*args):
+            calls[0] += 1
+            return decode(*args)
+
+        reader._h264.decode = counted
+        return calls
+
+    # B pictures (PR 16): I_PCM anchors and B_Skip pictures, each B frame the
+    # rounded average of its two anchors in Y, U and V
+    for w, h in VIDEO_SIZES:
+        path = d / f"h264_b_{w}x{h}.mp4"
+        planes = sa.write_h264_mp4(path, 24, w, h, gop=8, b_frames=2)
+        reader = VideoFrameReader(path, device="cuda")
+        calls = count_decodes(reader)
+        t0 = time.perf_counter()
+        seq = [reader.h264_planes(k) for k in range(24)]
+        seq_ms = 1e3 * (time.perf_counter() - t0) / 24
+        assert calls[0] == 24, f"{path.name}: {calls[0]} decodes for 24 frames in order"
+        for k in range(24):
+            for got, want in zip(seq[k], planes[k]):
+                assert np.array_equal(got, want), f"{path.name} frame {k}"
+        shuffled = VideoFrameReader(path, device="cuda")
+        for k in rng.permutation(24):
+            for got, want in zip(shuffled.h264_planes(int(k)), planes[k]):
+                assert np.array_equal(got, want), f"{path.name} frame {k} (shuffled)"
+        y, u, v = (torch.from_numpy(p) for p in planes[1])
+        assert np.array_equal(load_frame(path, 1, device="cuda"),
+                              nv12_to_rgb(y, torch.stack([u, v], -1))), "load_frame's RGB (B frame)"
+        log(f"[video] H.264 I_PCM + B_Skip {w}x{h}, 24 frames, 2 B pictures between anchors: "
+            f"Y, U, V equal to the anchors' rounded averages in order ({calls[0]} decodes for "
+            f"24 frames, {seq_ms:.2f} ms a frame) and shuffled | on {card}")
+
     # random syntax: the luma SHA-256 that tier-1 pins to ffmpeg's decode
-    for (entropy, seed, w, h, n), want in sorted(hw.PINNED_LUMA_SHA256.items()):
-        path = d / f"syntax_{entropy}_{seed}.mp4"
-        stats = hw.write_h264_syntax_mp4(path, w, h, n, seed, entropy)
+    pinned = [(key, want, False) for key, want in sorted(hw.PINNED_LUMA_SHA256.items())] + [
+        (key, want, True) for key, want in sorted(hw.PINNED_B_LUMA_SHA256.items())]
+    for (entropy, seed, w, h, n), want, b_frames in pinned:
+        path = d / f"syntax_{entropy}_{seed}{'_b' if b_frames else ''}.mp4"
+        stats = hw.write_h264_syntax_mp4(path, w, h, n, seed, entropy, b_frames=b_frames)
         reader = VideoFrameReader(path, device="cuda")
         got = hashlib.sha256(b"".join(reader.h264_planes(k)[0].tobytes()
                                       for k in range(n))).hexdigest()
         assert got == want, f"{entropy} seed {seed}: luma SHA-256 {got}, ffmpeg's {want}"
-        log(f"[video] H.264 random syntax {entropy} seed {seed} {w}x{h}x{n} "
-            f"({path.stat().st_size} bytes, {stats['mb']}): luma SHA-256 equals ffmpeg's "
-            f"({want[:16]}...)")
+        log(f"[video] H.264 random syntax {entropy} seed {seed} {w}x{h}x{n}"
+            f"{' with B pictures' if b_frames else ''} ({path.stat().st_size} bytes, "
+            f"{stats['mb']}): luma SHA-256 equals ffmpeg's ({want[:16]}...)")
 
     # a synthetic load, timed on the host: random syntax with the tier-1
     # streams' statistics (h264_writer.MIX), CABAC, at 1080x1920
@@ -1490,14 +1535,7 @@ def phase_video(work: Path, card: str):
     rgb_s = time.perf_counter() - t0
     assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
     order = rng.permutation(n)[:12]
-    cached = open_video(path, "cuda")             # the reader load_frame reads through
-    decode, decoded = cached._h264.decode, [0]
-
-    def counted(*args):
-        decoded[0] += 1
-        return decode(*args)
-
-    cached._h264.decode = counted
+    decoded = count_decodes(open_video(path, "cuda"))   # the reader load_frame reads through
     t0 = time.perf_counter()
     for k in order:
         assert np.array_equal(load_frame(path, int(k), device="cuda"), frames[k]), k
@@ -1509,6 +1547,48 @@ def phase_video(work: Path, card: str):
         f"decode {n / decode_s:.1f} frames/s ({1e3 * decode_s / n:.1f} ms a frame), with the RGB "
         f"conversion {n / rgb_s:.1f} frames/s, a random-access load_frame {rand_ms:.1f} ms "
         f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
+        f"{decode_s:.2f} | on {card}")
+
+    # the same load with B pictures (PR 16): seed 4 draws POC type 0, groups
+    # of up to 3 B pictures with a reference B picture in the middle (a
+    # pyramid, reorder depth 2), direct_8x8_inference_flag 1, default and
+    # implicit bi-prediction weights, spatial and temporal direct
+    path = d / "syntax_cabac_b_1080x1920.mp4"
+    t0 = time.perf_counter()
+    stats = hw.write_h264_syntax_mp4(path, w, h, n, 4, "cabac",
+                                     workers=min(8, os.cpu_count() or 1), b_frames=True)
+    write_s = time.perf_counter() - t0
+    assert stats["reorder"] == 2 and "b" in stats["frames"], stats["frames"]
+    mbps = path.stat().st_size * 8 / (n / 30) / 1e6
+    reader = VideoFrameReader(path, device="cuda")
+    calls = count_decodes(reader)
+    t0 = time.perf_counter()
+    for k in range(n):
+        reader.h264_planes(k)
+    decode_s = time.perf_counter() - t0
+    assert calls[0] == n, f"a sequential read decoded {calls[0]} samples for {n} frames"
+    seq_decodes = calls[0]
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    frames = [reader[k] for k in range(n)]
+    rgb_s = time.perf_counter() - t0
+    assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    order = rng.permutation(n)[:12]
+    decoded = count_decodes(open_video(path, "cuda"))
+    t0 = time.perf_counter()
+    for k in order:
+        assert np.array_equal(load_frame(path, int(k), device="cuda"), frames[k]), k
+    rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+    gops = int(np.count_nonzero(reader.track.sync))
+    kinds = {k: stats["frames"].count(k) for k in sorted(set(stats["frames"]))}
+    log(f"[video] H.264 CABAC 1080x1920 with B pictures, random syntax (tier-1's statistics, a "
+        f"synthetic load), {n} frames ({path.stat().st_size} bytes, {mbps:.1f} Mbit/s at 30 fps, "
+        f"{gops} IDRs, pictures {kinds}, {stats['b_slices']} B slices ({stats['temporal']} "
+        f"temporal direct), up to {stats['slices_max']} slices a picture; written in "
+        f"{write_s:.1f} s): decode {n / decode_s:.1f} frames/s ({1e3 * decode_s / n:.1f} ms a "
+        f"frame on one host thread), a sequential read decoded {seq_decodes} samples for {n} "
+        f"frames; with the RGB conversion {n / rgb_s:.1f} frames/s; a random-access load_frame "
+        f"{rand_ms:.1f} ms ({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
         f"{decode_s:.2f} | on {card}")
 
     # VP9 still needs NVDEC: a vp09 track raises its answer on the card

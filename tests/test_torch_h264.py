@@ -175,9 +175,13 @@ def test_refused_tools_raise_value_error_naming_them(tmp_path, tool):
             reader[k]
 
 
-def test_a_missing_reference_raises(streams):
+def test_a_missing_reference_raises(streams, tmp_path):
     """A P picture decoded without its references (no reset to a sync
-    sample) names the missing reference; the decoder then starts over."""
+    sample), and a B picture decoded without its list-1 anchor, name the
+    missing reference; the decoder then starts over. The B picture after
+    the IDR alone misses a frame_num (the anchor is a reference picture);
+    after a reset at the anchor, as a read from an open GOP's I picture
+    starts, it misses the IDR, which its reference index 1 names."""
     path, stats, ref = streams["cavlc", 1]
     t = mp4.read_track(path)
     k = stats["frames"].index("p")
@@ -185,6 +189,21 @@ def test_a_missing_reference_raises(streams):
     with pytest.raises(ValueError, match="reference the DPB does not hold"):
         dec.decode(t.sample(k), f"frame {k}")
     np.testing.assert_array_equal(dec.decode(t.sample(0))[0], ref[0])
+
+    path = tmp_path / "b.mp4"
+    stats = hw.write_h264_syntax_mp4(path, 128, 96, 6, 1, "cavlc", b_frames=True)
+    pics = stats["pictures"]
+    assert pics[1]["kind"] == "i" and pics[2]["kind"] == "b" and pics[2]["ref_max"] >= 1
+    assert pics[2]["display"] < pics[1]["display"]              # sample 1 is its list-1 anchor
+    t = mp4.read_track(path)
+    dec = H264Decoder(t.avc, str(path))
+    first = dec.decode(t.sample(0))[0]
+    with pytest.raises(ValueError, match="frame 2: a gap in frame_num .a picture is missing"):
+        dec.decode(t.sample(2), "frame 2")
+    dec.decode(t.sample(1))
+    with pytest.raises(ValueError, match="frame 2: .*reference the DPB does not hold"):
+        dec.decode(t.sample(2), "frame 2")
+    np.testing.assert_array_equal(dec.decode(t.sample(0))[0], first)
 
 
 _FUZZ = textwrap.dedent("""
@@ -222,24 +241,32 @@ _FUZZ = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("entropy", ["cavlc", "cabac"])
-def test_corrupt_samples_raise_or_decode_never_crash(streams, entropy):
+@pytest.mark.parametrize("entropy", ["cavlc", "cabac", "cabac_b"])
+def test_corrupt_samples_raise_or_decode_never_crash(streams, entropy, tmp_path):
     """Truncated and bit-flipped samples (hypothesis, in a subprocess so
     that a crash fails this test instead of killing the worker): each
-    decodes to a picture or raises ValueError, never a signal."""
-    path = streams[entropy, 3][0]
+    decodes to a picture or raises ValueError, never a signal; "cabac_b" a
+    stream with B pictures (POC type 1, temporal direct)."""
+    if entropy == "cabac_b":
+        path = tmp_path / "b.mp4"
+        hw.write_h264_syntax_mp4(path, 128, 96, 12, 5, "cabac", b_frames=True)
+    else:
+        path = streams[entropy, 3][0]
     proc = subprocess.run([sys.executable, "-c", _FUZZ, str(path), "150"], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0 and "fuzz ok" in proc.stdout, (proc.returncode, proc.stderr[-2000:])
 
 
-@pytest.mark.parametrize("entropy,seed,w,h,n", sorted(hw.PINNED_LUMA_SHA256))
-def test_pinned_hashes_are_ffmpegs(tmp_path, entropy, seed, w, h, n):
+@pytest.mark.parametrize("entropy,seed,w,h,n,b_frames",
+                         [(*key, False) for key in sorted(hw.PINNED_LUMA_SHA256)]
+                         + [(*key, True) for key in sorted(hw.PINNED_B_LUMA_SHA256)])
+def test_pinned_hashes_are_ffmpegs(tmp_path, entropy, seed, w, h, n, b_frames):
     """The SHA-256 of the concatenated luma that chip_smoke.py checks on the
-    card's machine (which has no cv2) is ffmpeg's decode, and the port's."""
+    card's machine (which has no cv2) is ffmpeg's decode, and the port's;
+    with B pictures too."""
     path = tmp_path / "pinned.mp4"
-    hw.write_h264_syntax_mp4(path, w, h, n, seed, entropy)
-    want = hw.PINNED_LUMA_SHA256[entropy, seed, w, h, n]
+    hw.write_h264_syntax_mp4(path, w, h, n, seed, entropy, b_frames=b_frames)
+    want = (hw.PINNED_B_LUMA_SHA256 if b_frames else hw.PINNED_LUMA_SHA256)[entropy, seed, w, h, n]
     assert luma_sha256(ffmpeg_luma(path)) == want
     reader = VideoFrameReader(path, device="cpu")
     assert luma_sha256(reader.h264_planes(k)[0] for k in range(n)) == want
