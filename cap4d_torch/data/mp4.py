@@ -18,12 +18,17 @@ Codecs (the first sample description; ``stsc`` may name no other):
   and its NAL length size;
 - ``vp09``: VP9, with ``vpcC``'s profile, bit depth, chroma subsampling,
   range and colour description;
+- ``mp4v`` whose ``esds`` object type is 0x20: MPEG-4 Part 2 video (cv2's
+  ``VideoWriter`` default), with the DecoderSpecificInfo (the VOS, VO and
+  VOL headers) as :class:`Mp4vConfig`;
 - ``jpeg``/``mjpa``, and ``mp4v`` whose ``esds`` object type is 0x6C:
   Motion-JPEG (each sample one JPEG image);
 - ``png ``: PNG (each sample one PNG image).
 
-Anything else (HEVC's ``hvc1``/``hev1``, AV1's ``av01``, MPEG-4 Part 2's
-``mp4v``, ...) raises ``ValueError`` naming the four-character code, as do
+An ``mp4v`` of any other object type (MPEG-1 or MPEG-2 video, 0x60-0x65 and
+0x6A, ...) raises ``ValueError`` naming it. Anything else (HEVC's
+``hvc1``/``hev1``, AV1's ``av01``, ...) raises naming the four-character
+code, as do
 fragmented files (a ``moof`` box), files without a video track and a
 malformed ``moov`` (a table that overruns its box, or that lists more
 samples than the file can hold).
@@ -53,8 +58,13 @@ import numpy as np
 
 # the codec of each sample entry the port reads
 CODECS = {"avc1": "h264", "avc3": "h264", "vp09": "vp9", "jpeg": "mjpeg", "mjpa": "mjpeg",
-          "png ": "png"}
-MP4V_MJPEG = 0x6C     # esds objectTypeIndication of JPEG (ISO/IEC 14496-1, Table 5)
+          "png ": "png", "mp4v": "mpeg4"}
+# esds objectTypeIndication (ISO/IEC 14496-1, Table 5) -> codec, for mp4v
+MP4V_OBJECT_TYPES = {0x20: "mpeg4", 0x6C: "mjpeg"}
+MP4V_OBJECT_NAMES = {0x60: "MPEG-2 Simple Profile video", 0x61: "MPEG-2 Main Profile video",
+                     0x62: "MPEG-2 SNR Profile video", 0x63: "MPEG-2 Spatial Profile video",
+                     0x64: "MPEG-2 High Profile video", 0x65: "MPEG-2 4:2:2 Profile video",
+                     0x6A: "MPEG-1 video", 0x21: "H.264 (in an mp4v entry)"}
 VISUAL_ENTRY_BYTES = 78   # after the box header: SampleEntry's 8 + VisualSampleEntry's 70
 
 
@@ -85,6 +95,16 @@ class VpcConfig:
 
 
 @dataclass(frozen=True)
+class Mp4vConfig:
+    """``esds`` of an MPEG-4 Part 2 track: the objectTypeIndication and the
+    DecoderSpecificInfo's bytes (the VOS, VO and VOL headers with their
+    start codes; empty when the entry carries none and they come in band)."""
+
+    object_type: int
+    dsi: bytes
+
+
+@dataclass(frozen=True)
 class VideoTrack:
     """The first video track of ``path``. Sample arrays are in decode order;
     ``order[k]`` is the decode index of frame ``k`` (presentation order)."""
@@ -103,6 +123,7 @@ class VideoTrack:
     order: np.ndarray
     avc: Optional[AvcConfig] = None
     vpc: Optional[VpcConfig] = None
+    m4v: Optional[Mp4vConfig] = None
 
     def __len__(self) -> int:
         return len(self.order)
@@ -251,8 +272,9 @@ def _descriptor(p: bytes, pos: int) -> Tuple[int, int, int]:
     return tag, pos, pos + size
 
 
-def esds_object_type(p: bytes) -> int:
-    """``esds``'s DecoderConfigDescriptor objectTypeIndication."""
+def parse_esds(p: bytes) -> Mp4vConfig:
+    """``esds``'s DecoderConfigDescriptor: its objectTypeIndication and its
+    DecoderSpecificInfo (tag 0x05), if any."""
     tag, a, _ = _descriptor(p, 4)
     if tag != 0x03:
         raise ValueError("malformed esds: no ES_Descriptor")
@@ -264,14 +286,24 @@ def esds_object_type(p: bytes) -> int:
         pos += 1 + p[pos]              # URL
     if flags & 0x20:
         pos += 2                       # OCR_ES_Id
-    tag, a, _ = _descriptor(p, pos)
+    tag, a, b = _descriptor(p, pos)
     if tag != 0x04:
         raise ValueError("malformed esds: no DecoderConfigDescriptor")
-    return p[a]
+    dsi, pos = b"", a + 13           # objectType, streamType, buffer size, two bit rates
+    while pos + 2 <= min(b, len(p)):
+        tag, da, db = _descriptor(p, pos)
+        if tag == 0x05:
+            if db > len(p):
+                raise ValueError("malformed esds: DecoderSpecificInfo overruns the box")
+            dsi = bytes(p[da:db])
+            break
+        pos = db
+    return Mp4vConfig(p[a], dsi)
 
 
 def _sample_entry(buf: bytes, a: int, b: int, where: str):
-    """(codec, fourcc, width, height, avcC, vpcC) of the first ``stsd`` entry."""
+    """(codec, fourcc, width, height, avcC, vpcC, esds) of the first ``stsd``
+    entry."""
     entries = list(iter_boxes(buf, a + 8, b, where))
     if not entries:
         raise ValueError(f"{where}: the video track has no sample description")
@@ -281,17 +313,23 @@ def _sample_entry(buf: bytes, a: int, b: int, where: str):
     width, height = struct.unpack_from(">HH", buf, ea + 24)
     kids = _children(buf, ea + VISUAL_ENTRY_BYTES, eb, where)
     codec = CODECS.get(fourcc)
+    m4v = None
     if fourcc == "mp4v":
-        esds = kids.get("esds")
-        obj = esds_object_type(buf[esds[0]:esds[1]]) if esds else None
-        if obj != MP4V_MJPEG:
-            raise ValueError(f"{where}: codec 'mp4v' (esds object type "
-                             f"{'none' if obj is None else hex(obj)}) is not supported; "
-                             "the port reads H.264, VP9, Motion-JPEG and PNG")
-        codec = "mjpeg"
+        if "esds" not in kids:
+            raise ValueError(f"{where}: 'mp4v' sample entry without esds")
+        m4v = parse_esds(buf[slice(*kids["esds"])])
+        codec = MP4V_OBJECT_TYPES.get(m4v.object_type)
+        if codec is None:
+            name = MP4V_OBJECT_NAMES.get(m4v.object_type, "an object type the port does not know")
+            raise ValueError(f"{where}: codec 'mp4v' with esds object type "
+                             f"{m4v.object_type:#04x} ({name}) is not supported; the port reads "
+                             "mp4v as MPEG-4 Part 2 video (0x20) or Motion-JPEG (0x6c)")
+        if codec != "mpeg4":
+            m4v = None
     if codec is None:
         raise ValueError(f"{where}: codec {fourcc!r} is not supported; the port reads "
-                         "H.264 (avc1/avc3), VP9 (vp09), Motion-JPEG and PNG")
+                         "H.264 (avc1/avc3), MPEG-4 Part 2 (mp4v), VP9 (vp09), Motion-JPEG "
+                         "and PNG")
     avc = vpc = None
     if codec == "h264":
         if "avcC" not in kids:
@@ -301,7 +339,7 @@ def _sample_entry(buf: bytes, a: int, b: int, where: str):
         if "vpcC" not in kids:
             raise ValueError(f"{where}: 'vp09' sample entry without vpcC")
         vpc = parse_vpcc(buf[slice(*kids["vpcC"])])
-    return codec, fourcc, width, height, avc, vpc
+    return codec, fourcc, width, height, avc, vpc, m4v
 
 
 # ---------------------------------------------------------- sample tables ----
@@ -445,7 +483,7 @@ def _video_track(buf: bytes, trak, mdia, file_size: int, where: str) -> VideoTra
     timescale = struct.unpack_from(">I", buf, a + (20 if buf[a] == 1 else 12))[0]
     minf = _children(buf, *_child(mdia, "minf", where), where)
     stbl = _children(buf, *_child(minf, "stbl", where), where)
-    codec, fourcc, width, height, avc, vpc = _sample_entry(buf, *_child(stbl, "stsd", where),
+    codec, fourcc, width, height, avc, vpc, m4v = _sample_entry(buf, *_child(stbl, "stsd", where),
                                                            where)
     sizes = sample_sizes(buf, stbl, file_size, where)
     n = len(sizes)
@@ -471,5 +509,5 @@ def _video_track(buf: bytes, trak, mdia, file_size: int, where: str) -> VideoTra
     if start is not None:
         order = order[pts[order] >= start]
     return VideoTrack(where, codec, fourcc, width, height, timescale, offsets, sizes, dts, pts,
-                      sync, order, avc, vpc)
+                      sync, order, avc, vpc, m4v)
 

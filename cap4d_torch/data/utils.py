@@ -6,8 +6,8 @@ so ``rescale_image`` carries numpy copies of OpenCV's ``INTER_AREA``
 and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
 (``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
-(the port's own mp4/mov demuxer, ``data/mp4.py``; Motion-JPEG, PNG and H.264
-decode on the host through the runtime).
+(the port's own mp4/mov demuxer, ``data/mp4.py``; Motion-JPEG, PNG, H.264 and
+MPEG-4 Part 2 decode on the host through the runtime).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from cap4d_torch.data.mp4 import read_track, slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
 from cap4d_torch.runtime.loader import decode_bytes, decode_image
+from cap4d_torch.runtime.mpeg4 import Mpeg4Decoder
 from cap4d_torch.runtime.nvdec import CODEC_NAMES, nv12_to_rgb, nvdec_refusal
 from cap4d_torch.utils.device import resolve_device
 
@@ -151,24 +152,34 @@ class VideoFrameReader:
     index in presentation order (the JAX package's cv2 reader, same name,
     ``len`` and indexing).
 
-    Motion-JPEG, PNG and H.264 samples decode on the host through the
-    runtime, whatever ``device`` is. H.264 (``runtime/h264.py``: I, P and B
-    slices, CAVLC and CABAC, progressive 8-bit 4:2:0) is read as cv2 counts
+    Motion-JPEG, PNG, H.264 and MPEG-4 Part 2 samples decode on the host
+    through the runtime, whatever ``device`` is; H.264's and MPEG-4's RGB
+    conversion runs on ``device`` (the CPU when None). H.264
+    (``runtime/h264.py``: I, P and B slices, CAVLC and CABAC, progressive
+    8-bit 4:2:0) and MPEG-4 Part 2 (``runtime/mpeg4.py``:
+    Simple and Advanced Simple profile VOPs, ``mp4v`` with object type
+    0x20) share one path, :meth:`planes`, and are read as cv2 counts
     frames: frame k is the sample ``order[k]`` (``ctts`` order, the edit
     list applied), decoded from the last sync sample at or before it, or
     onward from where the decoder stands when that lies between the two.
     Pictures decoded on the way that show later are held (by decode index,
-    at most the SPS's max_dec_frame_buffering, 16 without one), so a
-    sequential read decodes each sample once; a random read skips the
-    non-reference samples that show before its frame. Within a run of
-    decoding, the order by picture order count must be the order by
-    presentation time, else ``ValueError`` names both frames and both
-    orders. The planes go through :func:`nv12_to_rgb` with the matrix and
-    range the SPS's VUI signals (BT.601 and limited range without one), as
-    cv2 converts them. A stream the decoder does not take raises
-    ``ValueError`` naming the file, the frame and the tool or syntax
-    element. An open GOP's leading picture (decoded after a non-IDR sync
-    sample, shown before it) read from that sync sample raises the
+    at most the SPS's max_dec_frame_buffering, 16 without one, for H.264;
+    4 for MPEG-4), so a sequential read decodes each sample once; a random
+    read skips the samples nothing refers to (non-reference H.264 pictures,
+    B-VOPs) that show before its frame. Within a run of decoding, the order
+    of the stream's own clock (H.264's picture order count, the VOP times)
+    must be the order by presentation time, else ``ValueError`` names both
+    frames and both orders. A not-coded MPEG-4 VOP (vop_coded 0) gives
+    ffmpeg no picture, so cv2 reads one frame fewer for each: frame k is the
+    k-th coded VOP, ``len`` stays the container's sample count (cv2's
+    CAP_PROP_FRAME_COUNT), and the frames past the last coded VOP raise
+    ``IndexError``, as cv2's reader does. The planes go through
+    :func:`nv12_to_rgb` with the matrix and range the stream signals
+    (H.264's VUI, MPEG-4's video_signal_type; BT.601 and limited range
+    without one), as cv2 converts them. A stream the decoder does not take
+    raises ``ValueError`` naming the file, the frame and the tool or syntax
+    element. An open GOP's leading picture (decoded after a sync sample,
+    shown before it) read from that sync sample raises the
     missing-reference error and returns no picture; on the way to a later
     frame it is decoded as any other. VP9 needs the card's NVDEC:
     ``device`` None resolves through ``resolve_device`` (which raises
@@ -178,21 +189,32 @@ class VideoFrameReader:
     Other codecs raise ``ValueError`` naming the four-character code
     (``data/mp4.py``). No file handle stays open between reads."""
 
+    # the longest prefix of a sample read to find its VOP header
+    SCAN_BYTES = 4096
+
     def __init__(self, video_path, device=None):
         self.path = Path(video_path)
         self.track = read_track(self.path)
         t = self.track
-        self._h264 = None
-        if t.codec == "h264":
-            self._h264 = H264Decoder(t.avc, str(self.path))
-            self._frame_of = np.full(len(t), -1, np.int64)   # -1: outside the edit list
-            self._frame_of[t.order] = np.arange(len(t.order))
-            self._hold_max = self._h264.dpb_frames or 16
+        # where the RGB conversion runs (the CPU when None)
+        self._device = torch.device("cpu") if device is None else torch.device(device)
+        self._h264 = self._mpeg4 = None
+        self._order = t.order
+        if t.codec in ("h264", "mpeg4"):
+            if t.codec == "h264":
+                self._h264 = H264Decoder(t.avc, str(self.path))
+                self._hold_max = self._h264.dpb_frames or 16
+            else:
+                self._mpeg4 = Mpeg4Decoder(t.m4v.dsi, str(self.path))
+                self._hold_max = 4
+                self._scan_vops()
+            self._frame_of = np.full(len(t), -1, np.int64)   # -1: not shown
+            self._frame_of[self._order] = np.arange(len(self._order))
             self._next = None      # the decode index the decoder would take next
             self._origin = 0       # composition time of the sync sample decoding started at
             self._last = None      # (decode index, planes) of the last picture returned
             self._held = {}        # decode index -> planes, decoded and not yet shown
-            self._run = []         # ((epoch, POC), pts, decode index) decoded since the reset
+            self._run = []         # ((epoch, order count), pts, decode index) since the reset
             self._epoch = 0        # IDR pictures and MMCO 5 start a new order count
             self._lock = threading.Lock()
         elif t.codec == "vp9":
@@ -204,27 +226,67 @@ class VideoFrameReader:
             card = dev.index if dev.index is not None else torch.cuda.current_device()
             raise RuntimeError(f"{what}: {nvdec_refusal(t.codec, t.width, t.height, card)}")
 
+    def _scan_vops(self) -> None:
+        """Each sample's VOP coding type and vop_coded, read from its header
+        (a decoder of its own, so the reading one keeps its state); frames
+        are the coded VOPs in presentation order."""
+        t = self.track
+        scanner = Mpeg4Decoder(t.m4v.dsi, str(self.path))
+        self._vop_type = np.empty(len(t), "<U1")
+        coded = np.ones(len(t), bool)
+        with open(self.path, "rb") as fh:
+            for j in range(len(t)):
+                fh.seek(int(t.offsets[j]))
+                data = fh.read(min(int(t.sizes[j]), self.SCAN_BYTES))
+                kind, coded[j] = scanner.scan(data, f"sample {j}")
+                if not kind and len(data) < int(t.sizes[j]):
+                    kind, coded[j] = scanner.scan(t.sample(j), f"sample {j}")
+                if not kind:
+                    raise ValueError(f"{self.path}: sample {j} holds no VOP")
+                self._vop_type[j] = kind
+        scanner.close()
+        self._order = t.order[coded[t.order]]
+
     def __len__(self) -> int:
         return len(self.track)
+
+    @property
+    def _decoder(self):
+        return self._h264 if self._h264 is not None else self._mpeg4
 
     def __getitem__(self, index: int) -> np.ndarray:
         if not 0 <= index < len(self):
             raise IndexError(index)
-        sample = int(self.track.order[index])
-        if self._h264 is None:
+        if self._decoder is None:
+            sample = int(self.track.order[index])
             return decode_bytes(self.track.sample(sample), f"{self.path} frame {index}",
                                 (self.track.height, self.track.width))
-        y, u, v = self.h264_planes(index)
-        uv = torch.stack([torch.from_numpy(u), torch.from_numpy(v)], -1)
-        return nv12_to_rgb(torch.from_numpy(y), uv, self._h264.matrix, self._h264.full_range)
+        y, u, v = (torch.from_numpy(p).to(self._device) for p in self.planes(index))
+        dec = self._decoder
+        return nv12_to_rgb(y, torch.stack([u, v], -1), dec.matrix, dec.full_range)
 
     def h264_planes(self, index: int):
         """Frame ``index`` of an H.264 track as its decoded (Y, U, V) uint8
         planes."""
         if self._h264 is None:
             raise ValueError(f"{self.path} is not an H.264 track ({self.track.codec})")
+        return self.planes(index)
+
+    def planes(self, index: int):
+        """Frame ``index`` of an H.264 or MPEG-4 track as its decoded (Y, U,
+        V) uint8 planes."""
+        if self._decoder is None:
+            raise ValueError(f"{self.path} is a {self.track.codec} track, which decodes to RGB "
+                             "only")
         t = self.track
-        sample = int(t.order[index])
+        if index >= len(self._order):
+            if not 0 <= index < len(self):
+                raise IndexError(index)
+            raise IndexError(f"{self.path} frame {index}: the track has {len(self)} samples but "
+                             f"{len(self) - len(self._order)} are not-coded VOPs (vop_coded 0), "
+                             f"which give ffmpeg no picture, so cv2 reads {len(self._order)} "
+                             "frames")
+        sample = int(self._order[index])
         with self._lock:
             if self._last is not None and self._last[0] == sample:
                 return self._last[1]
@@ -245,10 +307,9 @@ class VideoFrameReader:
                             raise ValueError(
                                 f"{self.path} frame {index} (sample {j}): a leading picture of "
                                 f"the open GOP at sync sample {sync} refers to pictures before "
-                                f"it (a reference the DPB does not hold); reading it from the "
-                                f"GOP before is not supported")
-                        if (j < sample and shown < index
-                                and slice_ref_idc(t.sample(j), t.avc.length_size) == 0):
+                                f"it (a reference the {'DPB' if self._h264 else 'decoder'} does "
+                                f"not hold); reading it from the GOP before is not supported")
+                        if j < sample and 0 <= shown < index and self._unreferenced(j):
                             continue          # shown before this frame; nothing refers to it
                         got = self._decode(j, f"frame {index} (sample {j})")
                         if j == sample:
@@ -261,8 +322,14 @@ class VideoFrameReader:
             self._last = (sample, planes)
             return planes
 
+    def _unreferenced(self, j: int) -> bool:
+        """Sample ``j`` holds a picture no other refers to."""
+        if self._h264 is not None:
+            return slice_ref_idc(self.track.sample(j), self.track.avc.length_size) == 0
+        return self._vop_type[j] == "B"
+
     def _restart(self) -> None:
-        self._h264.reset()
+        self._decoder.reset()
         self._next, self._last = None, None
         self._held.clear()
         self._run.clear()
@@ -274,14 +341,20 @@ class VideoFrameReader:
             del self._held[max(self._held, key=lambda k: self._frame_of[k])]
 
     def _decode(self, j: int, what: str):
-        """Decode sample ``j``, and hold its picture order count against
-        the presentation times of the run's pictures."""
+        """Decode sample ``j``, and hold its place on the stream's clock (its
+        picture order count, its VOP time) against the presentation times of
+        the run's pictures."""
         t = self.track
-        planes = self._h264.decode(t.sample(j), what)
-        pic = self._h264.picture
-        if (pic.idr and self._run) or pic.mmco5:
-            self._epoch += 1
-        key, pts = (self._epoch, pic.poc), int(t.pts[j])
+        if self._h264 is not None:
+            planes = self._h264.decode(t.sample(j), what)
+            pic = self._h264.picture
+            if (pic.idr and self._run) or pic.mmco5:
+                self._epoch += 1
+            key, clock = (self._epoch, pic.poc), "picture order count"
+        else:
+            planes = self._mpeg4.decode(t.sample(j), what, (t.width, t.height))
+            key, clock = (0, self._mpeg4.vop.time), "VOP time"
+        pts = int(t.pts[j])
         at = bisect.bisect_left(self._run, (key,))
         for other in self._run[max(at - 1, 0):at + 1]:
             if (other[0] < key) != (other[1] < pts) or other[0] == key:
@@ -289,7 +362,7 @@ class VideoFrameReader:
                 raise ValueError(
                     f"{self.path}: frame {self._frame_of[e]} (sample {e}) shows before frame "
                     f"{self._frame_of[l]} (sample {l}) by the container's composition times "
-                    f"({pe} < {pl}), but not by picture order count ({ke[1]} and {kl[1]}, "
+                    f"({pe} < {pl}), but not by {clock} ({ke[1]} and {kl[1]}, "
                     f"after {ke[0]} and {kl[0]} order-count resets)")
         self._run.insert(at, (key, pts, j))
         return planes

@@ -1,5 +1,5 @@
-"""ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``
-and the H.264 decoder ``h264.cpp``).
+"""ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``,
+the H.264 decoder ``h264.cpp`` and the MPEG-4 Part 2 decoder ``mpeg4.cpp``).
 
 Counterpart of ``cap4d_tpu/runtime/loader.py``, with its own copy of the
 C++ source. The library carries its own PNG and JPEG codecs (the card's
@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp"]
+SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp", _HERE / "mpeg4.cpp"]
 BUILD_DIR = _HERE.parent / "_build"
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
@@ -74,6 +74,16 @@ _SIGNATURES = {
                         ctypes.c_int),
     "c4d_h264_reset": ([ctypes.c_void_p], None),
     "c4d_h264_close": ([ctypes.c_void_p], None),
+    "c4d_mpeg4_open": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_int],
+                       ctypes.c_void_p),
+    "c4d_mpeg4_info": ([ctypes.c_void_p, _INT_P, _INT_P, _INT_P, _INT_P], ctypes.c_int),
+    "c4d_mpeg4_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _U8_P, _U8_P, _U8_P,
+                          ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+                          ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+    "c4d_mpeg4_scan": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, _INT_P,
+                        ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+    "c4d_mpeg4_reset": ([ctypes.c_void_p], None),
+    "c4d_mpeg4_close": ([ctypes.c_void_p], None),
 }
 
 

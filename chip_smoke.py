@@ -75,8 +75,14 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      (frames/s, random access, decodes a sequential read makes);
      a VP9 read on the card, which raises NVDEC's answer;
      Motion-JPEG at 1080p (.mp4 and .mov) through the runtime, sequential
-     and random access, timed; stage 1's reference loader on a Motion-JPEG
-     video against the same frames as a PNG directory;
+     and random access, timed; MPEG-4 Part 2 (``runtime/mpeg4.cpp``):
+     the cv2-written ``mp4v`` files under ``tests/data/mpeg4/`` and the
+     random-syntax streams of ``utils/mpeg4_writer.py`` decoded to the
+     SHA-256 of ffmpeg's planes that tier-1 pins, and a 60-frame 1080x1920
+     Advanced Simple load (B-VOPs, quarter-sample, 4MV) timed (ms a frame
+     decoding, with the RGB on the card, the decodes of a sequential read,
+     a random read); stage 1's reference loader on a Motion-JPEG video and
+     on an MPEG-4 video against the same frames as a PNG directory;
   7. K4/K5 (3DGS tile compositing forward/backward) against the plain
      compositor at the fit's shapes: a freshly initialised full-width avatar
      (``configs/avatar/default.yaml`` model_params, head-sized sphere
@@ -1403,9 +1409,11 @@ def phase_video(work: Path, card: str):
     timed (sequential frames/s, a random-access read and the samples it
     decodes, the decodes of a sequential read); VP9 on the card, which
     raises NVDEC's answer; Motion-JPEG at 1080p (.mp4 and .mov)
-    through the runtime, sequential and random access, timed; stage 1's
-    reference loader on a Motion-JPEG video against the same frames as a PNG
-    directory."""
+    through the runtime, sequential and random access, timed; MPEG-4 Part 2:
+    the committed cv2 files and the writer's streams to ffmpeg's pinned
+    plane hashes, and a 1080x1920 Advanced Simple load timed; stage 1's
+    reference loader on a Motion-JPEG and on an MPEG-4 video against the
+    same frames as a PNG directory."""
     import hashlib
     import struct
 
@@ -1418,6 +1426,7 @@ def phase_video(work: Path, card: str):
     from cap4d_torch.flame.compute import load_cap4d_flame_model
     from cap4d_torch.runtime.nvdec import nv12_to_rgb
     from cap4d_torch.utils import h264_writer as hw
+    from cap4d_torch.utils import mpeg4_writer as mw
     from cap4d_torch.utils import synthetic_assets as sa
     from cap4d_torch.utils.png import read_png, write_png
 
@@ -1467,13 +1476,13 @@ def phase_video(work: Path, card: str):
 
     def count_decodes(reader):
         """The reader's decode calls, counted: a list whose first item is the count."""
-        calls, decode = [0], reader._h264.decode
+        calls, decode = [0], reader._decoder.decode
 
         def counted(*args):
             calls[0] += 1
             return decode(*args)
 
-        reader._h264.decode = counted
+        reader._decoder.decode = counted
         return calls
 
     # B pictures (PR 16): I_PCM anchors and B_Skip pictures, each B frame the
@@ -1630,33 +1639,122 @@ def phase_video(work: Path, card: str):
             f"order, equal; mean |frame - source| {err:.3f} | on {card}")
     assert all(np.array_equal(a, b) for a, b in zip(*reads.values())), ".mp4 and .mov differ"
 
-    # stage 1's reference loader: images/cam0.mp4 against a PNG directory
-    root = d / "stage1"
-    flame_dir = sa.make_asset_dir(root)
-    ref = sa.make_reference_dir(root, resolution=512, n_timesteps=3)
-    video = ref / "images" / "cam0.mp4"
-    sa.write_mjpeg_video(video, [read_png(p) for p in sorted((ref / "images" / "cam0").glob("*"))])
-    fit = dict(np.load(ref / "fit.npz"))
-    fit["camera_order"] = np.array(["cam0.mp4"])
-    np.savez(ref / "fit.npz", **fit)
-    (ref / "reference_images.json").write_text('[["cam0.mp4", 1]]')
-    flame = load_cap4d_flame_model(flame_dir, n_shape_params=150, n_expr_params=65,
-                                   add_mouth=True, device=torch.device("cuda"))
-    head_ids = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
-    items, extr = load_reference_items(ref)
-    from_video = build_frame_set(flame, items, head_ids, extr, 512, is_reference=True)
-    decoded = [VideoFrameReader(video)[k] for k in range(3)]
-    video.rename(root / "cam0.mp4")
-    for sub, imgs in (("images", decoded), ("bg", [np.full_like(decoded[0], 255)] * 3)):
-        (ref / sub / "cam0.mp4").mkdir(parents=True)
-        for k, img in enumerate(imgs):
-            write_png(ref / sub / "cam0.mp4" / f"{k:05d}.png", img)
-    items, extr = load_reference_items(ref)
-    from_pngs = build_frame_set(flame, items, head_ids, extr, 512, is_reference=True)
-    assert np.array_equal(from_video.images, from_pngs.images), "video-fed frame set differs"
-    assert np.isfinite(from_video.images).all() and np.abs(from_video.images).max() > 0.1
-    log(f"[video] stage 1's reference loader on images/cam0.mp4 (Motion-JPEG, frame 1 at "
-        f"512²) equals the same frames as a PNG directory (white bg directory)")
+    phase_video_mpeg4(d, card, rng, count_decodes)
+
+    # stage 1's reference loader: images/cam0.mp4 (Motion-JPEG, then MPEG-4
+    # Part 2 of random syntax at the frames' size) against a PNG directory
+    def write_mpeg4(video, frames):
+        h, w = frames[0].shape[:2]
+        mw.write_mpeg4_syntax_mp4(video, w, h, len(frames), 3, b_frames=True, quarter=True)
+
+    for codec, write in (("Motion-JPEG", sa.write_mjpeg_video), ("MPEG-4 Part 2", write_mpeg4)):
+        root = d / f"stage1_{codec.split()[0].replace('-', '').lower()}"
+        flame_dir = sa.make_asset_dir(root)
+        ref = sa.make_reference_dir(root, resolution=512, n_timesteps=3)
+        video = ref / "images" / "cam0.mp4"
+        write(video, [read_png(p) for p in sorted((ref / "images" / "cam0").glob("*"))])
+        fit = dict(np.load(ref / "fit.npz"))
+        fit["camera_order"] = np.array(["cam0.mp4"])
+        np.savez(ref / "fit.npz", **fit)
+        (ref / "reference_images.json").write_text('[["cam0.mp4", 1]]')
+        flame = load_cap4d_flame_model(flame_dir, n_shape_params=150, n_expr_params=65,
+                                       add_mouth=True, device=torch.device("cuda"))
+        head_ids = np.genfromtxt(flame_dir / "head_vertices.txt").astype(int)
+        items, extr = load_reference_items(ref)
+        from_video = build_frame_set(flame, items, head_ids, extr, 512, is_reference=True)
+        reader = VideoFrameReader(video)
+        assert reader.track.codec == ("mjpeg" if codec == "Motion-JPEG" else "mpeg4")
+        decoded = [reader[k] for k in range(3)]
+        video.rename(root / "cam0.mp4")
+        for sub, imgs in (("images", decoded), ("bg", [np.full_like(decoded[0], 255)] * 3)):
+            (ref / sub / "cam0.mp4").mkdir(parents=True)
+            for k, img in enumerate(imgs):
+                write_png(ref / sub / "cam0.mp4" / f"{k:05d}.png", img)
+        items, extr = load_reference_items(ref)
+        from_pngs = build_frame_set(flame, items, head_ids, extr, 512, is_reference=True)
+        assert np.array_equal(from_video.images, from_pngs.images), f"{codec}-fed frame set differs"
+        assert np.isfinite(from_video.images).all() and np.abs(from_video.images).max() > 0.1
+        log(f"[video] stage 1's reference loader on images/cam0.mp4 ({codec}, frame 1 at "
+            f"512²) equals the same frames as a PNG directory (white bg directory)")
+
+
+def phase_video_mpeg4(d: Path, card: str, rng, count_decodes):
+    """MPEG-4 Part 2 input (``runtime/mpeg4.cpp``): the cv2-written files
+    under ``tests/data/mpeg4/`` and the writer's random-syntax streams to
+    the SHA-256 of ffmpeg's planes (``mpeg4_writer.PINNED_CV2_SHA256`` and
+    ``PINNED_SHA256``); a 60-frame 1080x1920 Advanced Simple load of the
+    writer's (B-VOPs, quarter-sample, 4MV, video packets), a synthetic load,
+    timed on the host: ms a frame decoding, with the RGB conversion on the
+    card, the decodes of a sequential read, and a random read's ms and
+    samples decoded."""
+    import numpy as np
+
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
+    from cap4d_torch.utils import mpeg4_writer as mw
+
+    def decode_all(reader):
+        return [reader.planes(k) for k in range(len(reader._order))]
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4"
+    for name, want in sorted(mw.PINNED_CV2_SHA256.items()):
+        reader = VideoFrameReader(data / f"{name}.mp4", device="cuda")
+        got = mw.planes_sha256(decode_all(reader))
+        assert got == want, f"cv2's {name}.mp4: planes SHA-256 {got}, ffmpeg's {want}"
+        t = reader.track
+        log(f"[video] MPEG-4 cv2-written {name}.mp4 {t.width}x{t.height}x{len(t)} "
+            f"({(data / f'{name}.mp4').stat().st_size} bytes, VOPs "
+            f"{''.join(reader._vop_type)}): Y and U/V SHA-256 equal ffmpeg's ({want[0][:16]}..., "
+            f"{want[1][:16]}...)")
+    for name, (w, h, n, seed, kw) in sorted(mw.STREAMS.items()):
+        path = d / f"mpeg4_{name}.mp4"
+        stats = mw.write_mpeg4_syntax_mp4(path, w, h, n, seed, **kw)
+        reader = VideoFrameReader(path, device="cuda")
+        want = mw.PINNED_SHA256[name]
+        got = mw.planes_sha256(decode_all(reader))
+        assert got == want, f"writer's {name}: planes SHA-256 {got}, ffmpeg's {want}"
+        log(f"[video] MPEG-4 random syntax {name} {w}x{h}x{n} {kw} ({path.stat().st_size} bytes, "
+            f"VOPs {''.join(stats['vops'])}): Y and U/V SHA-256 equal ffmpeg's "
+            f"({want[0][:16]}..., {want[1][:16]}...)")
+
+    # the timed load: random syntax (the writer's MIX), a synthetic load
+    w, h, n = 1080, 1920, 60
+    path = d / "mpeg4_asp_1080x1920.mp4"
+    t0 = time.perf_counter()
+    stats = mw.write_mpeg4_syntax_mp4(path, w, h, n, 11, b_frames=True, quarter=True,
+                                      workers=min(8, os.cpu_count() or 1))
+    write_s = time.perf_counter() - t0
+    tools = stats["tools"]
+    assert tools["inter4v"] and tools["b_direct"] and tools["quarter"], tools
+    mbps = path.stat().st_size * 8 / (n / 30) / 1e6
+    reader = VideoFrameReader(path, device="cuda")
+    calls = count_decodes(reader)
+    t0 = time.perf_counter()
+    for k in range(n):
+        reader.planes(k)
+    decode_s = time.perf_counter() - t0
+    assert calls[0] == n, f"a sequential read decoded {calls[0]} samples for {n} frames"
+    seq_decodes = calls[0]
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    frames = [reader[k] for k in range(n)]
+    rgb_s = time.perf_counter() - t0
+    assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    order = rng.permutation(n)[:12]
+    decoded = count_decodes(open_video(path, "cuda"))
+    t0 = time.perf_counter()
+    for k in order:
+        assert np.array_equal(load_frame(path, int(k), device="cuda"), frames[k]), k
+    rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+    kinds = {k: stats["vops"].count(k) for k in sorted(set(stats["vops"]))}
+    log(f"[video] MPEG-4 Advanced Simple 1080x1920 of random syntax (B-VOPs, quarter-sample, "
+        f"4MV, video packets; a synthetic load), {n} frames ({path.stat().st_size} bytes, "
+        f"{mbps:.1f} Mbit/s at 30 fps, VOPs {kinds}, {tools['inter4v']} 4MV, "
+        f"{tools.get('b_direct', 0)} direct; written in {write_s:.1f} s): decode "
+        f"{1e3 * decode_s / n:.1f} ms a frame on one host thread, a sequential read decoded "
+        f"{seq_decodes} samples for {n} frames; with the RGB conversion on the card "
+        f"{1e3 * rgb_s / n:.1f} ms a frame; a random-access load_frame {rand_ms:.1f} ms "
+        f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds {decode_s:.2f} "
+        f"| on {card}")
 
 
 # ------------------------------------ the held-out quality of the head fit ----

@@ -25,6 +25,7 @@ from cap4d_torch.data import mp4
 from cap4d_torch.data.utils import VideoFrameReader, load_frame
 from cap4d_torch.runtime import loader as tl
 from cap4d_torch.runtime.nvdec import nv12_to_rgb
+from cap4d_torch.utils import mpeg4_writer as mw
 from cap4d_torch.utils import synthetic_assets as sa
 from cap4d_tpu.data import utils as ju
 from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
@@ -74,6 +75,7 @@ def videos(tmp_path_factory):
         sa.write_mjpeg_video(d / name, frames)
         out[label] = (d / name, frames)
     out["vp9"] = (_cv2_write(d / "v.mp4", "vp09", _frames(12, seed=1)), None)
+    out["mpeg4"] = (_cv2_write(d / "m.mp4", "mp4v", _frames(14, seed=2)), None)
     out["h264"] = (d / "h.mp4", sa.write_h264_mp4(d / "h.mp4", 12, W, H, gop=4))
     return out
 
@@ -81,7 +83,7 @@ def videos(tmp_path_factory):
 @pytest.mark.parametrize("label,codec,fourcc", [
     ("mjpeg_mp4", "mjpeg", "mp4v"), ("mjpeg_mov", "mjpeg", "jpeg"),
     ("port_mjpeg_mp4", "mjpeg", "mp4v"), ("port_mjpeg_mov", "mjpeg", "jpeg"),
-    ("vp9", "vp9", "vp09"), ("h264", "h264", "avc1")])
+    ("vp9", "vp9", "vp09"), ("h264", "h264", "avc1"), ("mpeg4", "mpeg4", "mp4v")])
 def test_demuxer_frame_count_and_sync_table(videos, label, codec, fourcc):
     """Frame count against cv2's CAP_PROP_FRAME_COUNT; the sync table
     against the samples' own frame types; presentation order is decode
@@ -97,6 +99,10 @@ def test_demuxer_frame_count_and_sync_table(videos, label, codec, fourcc):
     elif codec == "vp9":
         np.testing.assert_array_equal(t.sync, [_vp9_key(s) for s in samples])
         assert t.sync[0] and (t.vpc.profile, t.vpc.bit_depth) == (0, 8)
+    elif codec == "mpeg4":   # the sync samples are the I-VOPs (vop_coding_type 0)
+        types = [s[s.index(b"\0\0\1\xb6") + 4] >> 6 for s in samples]
+        np.testing.assert_array_equal(t.sync, [v == 0 for v in types])
+        assert list(np.flatnonzero(t.sync)) == [0, 12] and set(types) == {0, 1}
     else:
         types = [mp4.annexb(s, t.avc.length_size)[4] & 0x1F for s in samples]
         np.testing.assert_array_equal(t.sync, [k % 4 == 0 for k in range(12)])
@@ -246,10 +252,12 @@ def test_h264_vp9_need_the_card(videos, label, name):
 
 
 def test_demuxer_refusals(tmp_path, videos):
-    """Codecs the port does not read name their four-character code;
-    fragmented files and files without a video track raise."""
-    _cv2_write(tmp_path / "p2.mp4", "mp4v", _frames(2))
-    with pytest.raises(ValueError, match="codec 'mp4v' \\(esds object type 0x20\\)"):
+    """Codecs the port does not read name their four-character code (or,
+    for an mp4v entry, its esds object type); fragmented files and files
+    without a video track raise."""
+    mpeg2 = sa.visual_sample_entry(b"mp4v", 16, 16, mw.esds_box(b"", 0x61))
+    sa.write_mp4(tmp_path / "p2.mp4", [b"\0" * 8], mpeg2, 16, 16)
+    with pytest.raises(ValueError, match="esds object type 0x61 \\(MPEG-2 Main Profile video\\)"):
         mp4.read_track(tmp_path / "p2.mp4")
     hevc = sa.visual_sample_entry(b"hvc1", 16, 16)
     sa.write_mp4(tmp_path / "h.mp4", [b"\0" * 8], hevc, 16, 16)
