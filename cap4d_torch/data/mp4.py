@@ -51,6 +51,7 @@ the frame count and frame order against cv2 on those.
 from __future__ import annotations
 
 import struct
+import zlib
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -106,8 +107,20 @@ class Mp4vConfig:
 
 @dataclass(frozen=True)
 class VideoTrack:
-    """The first video track of ``path``. Sample arrays are in decode order;
-    ``order[k]`` is the decode index of frame ``k`` (presentation order)."""
+    """The first video track of ``path`` (an mp4/mov, AVI or Matroska file).
+    Sample arrays are in decode order; ``order[k]`` is the decode index of
+    frame ``k`` (presentation order).
+
+    ``timed`` is False where the container carries no presentation times
+    (AVI): ``pts`` are then the decode indices and ``order`` is decode
+    order, and a codec that reorders takes its presentation order from its
+    own clock (``VideoFrameReader``). ``frame_count`` is cv2's
+    CAP_PROP_FRAME_COUNT where it is not the number of samples (AVI's
+    ``dwLength``; Matroska's duration times its frame rate, negative
+    without a duration). How :meth:`sample` restores each sample's bytes:
+    zlib-compressed (``zlib``), after a stripped header (``prefix``; both
+    Matroska ContentCompression), or Annex-B access units to rewrite with
+    4-byte NAL lengths (``annexb``: H.264 in AVI)."""
 
     path: str
     codec: str
@@ -124,18 +137,32 @@ class VideoTrack:
     avc: Optional[AvcConfig] = None
     vpc: Optional[VpcConfig] = None
     m4v: Optional[Mp4vConfig] = None
+    timed: bool = True
+    frame_count: Optional[int] = None
+    prefix: bytes = b""
+    zlib: bool = False
+    annexb: bool = False
 
     def __len__(self) -> int:
         return len(self.order)
 
-    def sample(self, index: int) -> bytes:
-        """The bytes of the sample at decode index ``index``."""
+    def sample(self, index: int, limit: Optional[int] = None) -> bytes:
+        """The bytes of the sample at decode index ``index``; with ``limit``,
+        those of its first ``limit`` stored bytes only (a header scan)."""
+        size = int(self.sizes[index])
+        want = size if limit is None or self.zlib else min(size, limit)
         with open(self.path, "rb") as fh:
             fh.seek(int(self.offsets[index]))
-            data = fh.read(int(self.sizes[index]))
-        if len(data) != int(self.sizes[index]):
+            data = fh.read(want)
+        if len(data) != want:
             raise ValueError(f"{self.path}: sample {index} runs past the end of the file")
-        return data
+        if self.zlib:
+            try:
+                data = zlib.decompress(data)
+            except zlib.error as e:
+                raise ValueError(f"{self.path}: sample {index} does not inflate ({e})") from e
+        data = self.prefix + data
+        return length_prefixed(data) if self.annexb else data
 
 
 # ------------------------------------------------------------------ boxes ----
@@ -192,8 +219,8 @@ def _top_level(fh, where: str) -> Dict[str, Tuple[int, int]]:
         elif size == 0:
             size = file_size - pos
         name = kind.decode("latin-1")
-        if size < header or (pos == 0 and not name.isprintable()):
-            raise ValueError(f"{where}: not an ISO-BMFF (mp4/mov) file")
+        if size < header:
+            raise ValueError(f"{where}: malformed box header at byte {pos}")
         out.setdefault(name, (pos + header, min(size, file_size - pos) - header))
         pos += size
     return out
@@ -238,18 +265,55 @@ def annexb(sample: bytes, length_size: int) -> bytes:
     return bytes(out)
 
 
-def slice_ref_idc(sample: bytes, length_size: int) -> int:
-    """nal_ref_idc of the first slice NAL unit (type 1 or 5) of an H.264
-    sample of length-prefixed NAL units; -1 if it holds none (a cut or
-    corrupt sample: the decoder then names what is wrong)."""
+def length_prefixed(data: bytes) -> bytes:
+    """An Annex-B access unit rewritten with 4-byte NAL lengths (the inverse
+    of :func:`annexb`); zero bytes before a start code are dropped (a NAL
+    unit never ends in one). A unit cut short (a header scan) keeps its
+    last NAL as far as it goes."""
+    starts, pos = [], data.find(b"\0\0\1")
+    if pos < 0 or data[:pos].strip(b"\0"):
+        raise ValueError("not an Annex-B access unit (no start code before its first NAL)")
+    while pos >= 0:
+        starts.append(pos + 3)
+        pos = data.find(b"\0\0\1", pos + 3)
+    out = bytearray()
+    for a, b in zip(starts, starts[1:] + [len(data) + 3]):
+        nal = data[a:b - 3].rstrip(b"\0")
+        if nal:
+            out += struct.pack(">I", len(nal)) + nal
+    return bytes(out)
+
+
+def split_annexb(data: bytes) -> Tuple[bytes, ...]:
+    """The NAL units of an Annex-B byte string."""
+    out, pos = [], 0
+    lp = length_prefixed(data)
+    while pos < len(lp):
+        n = int.from_bytes(lp[pos:pos + 4], "big")
+        out.append(lp[pos + 4:pos + 4 + n])
+        pos += 4 + n
+    return tuple(out)
+
+
+def first_slice_header(sample: bytes, length_size: int) -> int:
+    """The NAL header byte of the first slice NAL unit (type 1 or 5) of an
+    H.264 sample of length-prefixed NAL units; -1 if it holds none."""
     pos = 0
     while pos + length_size <= len(sample):
         n = int.from_bytes(sample[pos:pos + length_size], "big")
         pos += length_size
         if n and pos < len(sample) and sample[pos] & 0x1F in (1, 5):
-            return (sample[pos] >> 5) & 3
+            return sample[pos]
         pos += n
     return -1
+
+
+def slice_ref_idc(sample: bytes, length_size: int) -> int:
+    """nal_ref_idc of the first slice NAL unit (type 1 or 5) of an H.264
+    sample of length-prefixed NAL units; -1 if it holds none (a cut or
+    corrupt sample: the decoder then names what is wrong)."""
+    head = first_slice_header(sample, length_size)
+    return (head >> 5) & 3 if head >= 0 else -1
 
 
 def parse_vpcc(p: bytes) -> VpcConfig:

@@ -6,8 +6,9 @@ so ``rescale_image`` carries numpy copies of OpenCV's ``INTER_AREA``
 and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
 (``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
-(the port's own mp4/mov demuxer, ``data/mp4.py``; Motion-JPEG, PNG, H.264 and
-MPEG-4 Part 2 decode on the host through the runtime).
+(the port's own demuxers, chosen by content in ``data/container.py``:
+mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264 and MPEG-4 Part 2
+decode on the host through the runtime).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cap4d_torch.data.mp4 import read_track, slice_ref_idc
+from cap4d_torch.data.container import read_track
+from cap4d_torch.data.mp4 import slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
 from cap4d_torch.runtime.loader import decode_bytes, decode_image
 from cap4d_torch.runtime.mpeg4 import Mpeg4Decoder
@@ -148,9 +150,10 @@ def load_camera_rays(crop_box, intr, extr, target_resolution: int) -> np.ndarray
 
 
 class VideoFrameReader:
-    """The frames of an ``.mp4``/``.mov`` file, RGB uint8 (H, W, 3) by frame
-    index in presentation order (the JAX package's cv2 reader, same name,
-    ``len`` and indexing).
+    """The frames of an mp4/mov, AVI or Matroska/WebM file, RGB uint8 (H, W,
+    3) by frame index in presentation order (the JAX package's cv2 reader,
+    same name, ``len`` and indexing: ``len`` is cv2's CAP_PROP_FRAME_COUNT,
+    frame k what cv2's seek to k reads).
 
     Motion-JPEG, PNG, H.264 and MPEG-4 Part 2 samples decode on the host
     through the runtime, whatever ``device`` is; H.264's and MPEG-4's RGB
@@ -160,7 +163,10 @@ class VideoFrameReader:
     Simple and Advanced Simple profile VOPs, ``mp4v`` with object type
     0x20) share one path, :meth:`planes`, and are read as cv2 counts
     frames: frame k is the sample ``order[k]`` (``ctts`` order, the edit
-    list applied), decoded from the last sync sample at or before it, or
+    list applied; Matroska's block times; in an AVI, which carries no
+    times, H.264's picture order count from a header scan and, for MPEG-4,
+    ffmpeg's output order: each anchor VOP after the B-VOPs that follow it
+    in the file), decoded from the last sync sample at or before it, or
     onward from where the decoder stands when that lies between the two.
     Pictures decoded on the way that show later are held (by decode index,
     at most the SPS's max_dec_frame_buffering, 16 without one, for H.264;
@@ -168,12 +174,17 @@ class VideoFrameReader:
     read skips the samples nothing refers to (non-reference H.264 pictures,
     B-VOPs) that show before its frame. Within a run of decoding, the order
     of the stream's own clock (H.264's picture order count, the VOP times)
-    must be the order by presentation time, else ``ValueError`` names both
-    frames and both orders. A not-coded MPEG-4 VOP (vop_coded 0) gives
+    must be the order by the container's presentation times, where it has
+    them, else ``ValueError`` names both frames and both orders. A
+    not-coded MPEG-4 VOP (vop_coded 0) gives
     ffmpeg no picture, so cv2 reads one frame fewer for each: frame k is the
-    k-th coded VOP, ``len`` stays the container's sample count (cv2's
-    CAP_PROP_FRAME_COUNT), and the frames past the last coded VOP raise
-    ``IndexError``, as cv2's reader does. The planes go through
+    k-th coded VOP, ``len`` stays cv2's count, and the frames past the
+    last coded VOP raise ``IndexError``, as cv2's reader does. cv2's count
+    may differ from the samples (AVI's ``dwLength``, Matroska's duration
+    times its frame rate): frames past the samples raise ``IndexError``; a
+    Matroska file without a duration gets a negative count from cv2, so
+    ``len`` raises ``ValueError`` as Python's ``len`` does on the JAX
+    reader, while indexing still reads its frames. The planes go through
     :func:`nv12_to_rgb` with the matrix and range the stream signals
     (H.264's VUI, MPEG-4's video_signal_type; BT.601 and limited range
     without one), as cv2 converts them. A stream the decoder does not take
@@ -186,8 +197,8 @@ class VideoFrameReader:
     without CUDA),
     ``device="cpu"`` raises ``ValueError``, and on the card the reader
     raises ``RuntimeError`` with NVDEC's answer (``runtime/nvdec.py``).
-    Other codecs raise ``ValueError`` naming the four-character code
-    (``data/mp4.py``). No file handle stays open between reads."""
+    Other codecs raise ``ValueError`` naming the four-character code or
+    CodecID. No file handle stays open between reads."""
 
     # the longest prefix of a sample read to find its VOP header
     SCAN_BYTES = 4096
@@ -200,16 +211,22 @@ class VideoFrameReader:
         self._device = torch.device("cpu") if device is None else torch.device(device)
         self._h264 = self._mpeg4 = None
         self._order = t.order
+        self._count = len(t) if t.frame_count is None else t.frame_count
         if t.codec in ("h264", "mpeg4"):
             if t.codec == "h264":
                 self._h264 = H264Decoder(t.avc, str(self.path))
                 self._hold_max = self._h264.dpb_frames or 16
+                if not t.timed:
+                    self._scan_pictures()
             else:
                 self._mpeg4 = Mpeg4Decoder(t.m4v.dsi, str(self.path))
                 self._hold_max = 4
                 self._scan_vops()
             self._frame_of = np.full(len(t), -1, np.int64)   # -1: not shown
             self._frame_of[self._order] = np.arange(len(self._order))
+            # presentation times: the container's, else each sample's place
+            self._pts = t.pts if t.timed else np.where(self._frame_of >= 0, self._frame_of,
+                                                       len(t))
             self._next = None      # the decode index the decoder would take next
             self._origin = 0       # composition time of the sync sample decoding started at
             self._last = None      # (decode index, planes) of the last picture returned
@@ -234,28 +251,67 @@ class VideoFrameReader:
         scanner = Mpeg4Decoder(t.m4v.dsi, str(self.path))
         self._vop_type = np.empty(len(t), "<U1")
         coded = np.ones(len(t), bool)
-        with open(self.path, "rb") as fh:
-            for j in range(len(t)):
-                fh.seek(int(t.offsets[j]))
-                data = fh.read(min(int(t.sizes[j]), self.SCAN_BYTES))
-                kind, coded[j] = scanner.scan(data, f"sample {j}")
-                if not kind and len(data) < int(t.sizes[j]):
-                    kind, coded[j] = scanner.scan(t.sample(j), f"sample {j}")
-                if not kind:
-                    raise ValueError(f"{self.path}: sample {j} holds no VOP")
-                self._vop_type[j] = kind
+        for j in range(len(t)):
+            data = t.sample(j, self.SCAN_BYTES)
+            kind, coded[j] = scanner.scan(data, f"sample {j}")
+            if not kind and len(data) < int(t.sizes[j]):
+                kind, coded[j] = scanner.scan(t.sample(j), f"sample {j}")
+            if not kind:
+                raise ValueError(f"{self.path}: sample {j} holds no VOP")
+            self._vop_type[j] = kind
         scanner.close()
-        self._order = t.order[coded[t.order]]
+        if t.timed:
+            self._order = t.order[coded[t.order]]
+            return
+        # ffmpeg's output order without container times: a B-VOP shows at
+        # once, an anchor when the next anchor arrives
+        order, anchor = [], None
+        for j in np.flatnonzero(coded):
+            if self._vop_type[j] == "B":
+                order.append(j)
+            else:
+                if anchor is not None:
+                    order.append(anchor)
+                anchor = j
+        self._order = np.array(order + ([anchor] if anchor is not None else []), np.int64)
+
+    def _scan_pictures(self) -> None:
+        """The presentation order of an H.264 track whose container has no
+        times: each sample's picture order count from its parameter sets
+        and first slice header (a decoder of its own, which decodes none),
+        the order count starting over at IDR pictures and MMCO 5."""
+        t = self.track
+        scanner = H264Decoder(t.avc, str(self.path))
+        keys, epoch = [], 0
+        for j in range(len(t)):
+            data = t.sample(j, self.SCAN_BYTES)
+            try:
+                pic = scanner.scan(data, f"sample {j}")
+            except ValueError:       # the header may run past the bytes read
+                full = t.sample(j)
+                if full == data:
+                    raise
+                pic = scanner.scan(full, f"sample {j}")
+            if (pic.idr and j) or pic.mmco5:
+                epoch += 1
+            keys.append((epoch, pic.poc, j))
+        scanner.close()
+        self._order = np.array([j for _, _, j in sorted(keys)], np.int64)
 
     def __len__(self) -> int:
-        return len(self.track)
+        if self._count < 0:
+            raise ValueError(
+                f"{self.path}: cv2 gives this file a negative frame count ({self._count}): "
+                "ffmpeg knows no duration for it (a Matroska file without Info/Duration), so "
+                "the JAX reader has no length; its frames read by index")
+        return self._count
 
     @property
     def _decoder(self):
         return self._h264 if self._h264 is not None else self._mpeg4
 
     def __getitem__(self, index: int) -> np.ndarray:
-        if not 0 <= index < len(self):
+        if not 0 <= index < len(self.track):
             raise IndexError(index)
         if self._decoder is None:
             sample = int(self.track.order[index])
@@ -279,11 +335,12 @@ class VideoFrameReader:
             raise ValueError(f"{self.path} is a {self.track.codec} track, which decodes to RGB "
                              "only")
         t = self.track
-        if index >= len(self._order):
-            if not 0 <= index < len(self):
+        n = len(t)
+        if not 0 <= index < len(self._order):
+            if not 0 <= index < n:
                 raise IndexError(index)
-            raise IndexError(f"{self.path} frame {index}: the track has {len(self)} samples but "
-                             f"{len(self) - len(self._order)} are not-coded VOPs (vop_coded 0), "
+            raise IndexError(f"{self.path} frame {index}: the track has {n} samples but "
+                             f"{n - len(self._order)} are not-coded VOPs (vop_coded 0), "
                              f"which give ffmpeg no picture, so cv2 reads {len(self._order)} "
                              "frames")
         sample = int(self._order[index])
@@ -296,12 +353,12 @@ class VideoFrameReader:
                 sync = int(syncs[-1]) if len(syncs) else 0
                 if self._next is None or not sync <= self._next <= sample:
                     self._restart()
-                    self._next, self._origin = sync, int(t.pts[sync])
+                    self._next, self._origin = sync, int(self._pts[sync])
                 try:
                     while self._next <= sample:
                         j, self._next = self._next, self._next + 1
                         shown = self._frame_of[j]
-                        if j == sample and t.pts[j] < self._origin:
+                        if j == sample and self._pts[j] < self._origin:
                             # an open GOP's leading picture, decoded from the
                             # sync sample after it: its references lie before
                             raise ValueError(
@@ -354,6 +411,8 @@ class VideoFrameReader:
         else:
             planes = self._mpeg4.decode(t.sample(j), what, (t.width, t.height))
             key, clock = (0, self._mpeg4.vop.time), "VOP time"
+        if not t.timed:     # the order came from this clock
+            return planes
         pts = int(t.pts[j])
         at = bisect.bisect_left(self._run, (key,))
         for other in self._run[max(at - 1, 0):at + 1]:
@@ -386,14 +445,17 @@ def load_frame(frame_path: Path, frame_id: int, device=None) -> np.ndarray:
     """Frame ``frame_id`` of a directory of PNG or JPEG frames (sorted order)
     or of a video file (:class:`VideoFrameReader` on ``device``), RGB uint8.
     An index past the end warns and reads the last frame, as the JAX
-    package's ``load_frame`` does."""
+    package's ``load_frame`` does; a video whose count cv2 gives as 0 reads
+    its first frame (cv2's seek to frame -1 leaves a fresh capture there),
+    and one whose count is negative raises ``ValueError``, as Python's
+    ``len`` does on the JAX reader."""
     frame_path = Path(frame_path)
     if frame_path.is_dir():
         frames = sorted(frame_path.glob("*.*"))
         n, read = len(frames), lambda i: decode_image(frames[i])
     else:
         reader = open_video(frame_path, device)
-        n, read = len(reader), reader.__getitem__
+        n, read = len(reader), lambda i: reader[max(i, 0)]
     if frame_id >= n:
         print(f"WARNING: Frame {frame_id} out of bounds for video with length {n}")
         frame_id = n - 1

@@ -95,6 +95,19 @@ class H264Decoder:
         self.picture = Picture(info[0], info[1], bool(info[2]), bool(info[3]))
         return y, u, v
 
+    def scan(self, sample: bytes, what: str = "") -> Picture:
+        """The :class:`Picture` of one sample from its parameter sets and
+        first slice header, without decoding it (the presentation order of
+        a container that carries no composition times). Feed every sample
+        in decode order to a decoder that decodes nothing else: it keeps the
+        order count's state from one sample to the next."""
+        err = ctypes.create_string_buffer(_ERR_BYTES)
+        info = (ctypes.c_int * 4)()
+        if self._lib.c4d_h264_scan(self._dec, sample, len(sample), info, err, _ERR_BYTES) != 0:
+            where = f"{self.name} {what}".strip()
+            raise ValueError(f"{where}: {err.value.decode(errors='replace')}")
+        return Picture(info[0], info[1], bool(info[2]), bool(info[3]))
+
     def reset(self) -> None:
         """Drop every reference picture (before decoding from a sync sample)."""
         self._lib.c4d_h264_reset(self._dec)

@@ -72,6 +72,8 @@ _SIGNATURES = {
     "c4d_h264_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _U8_P, _U8_P, _U8_P,
                          ctypes.c_int, ctypes.c_int, _INT_P, ctypes.c_char_p, ctypes.c_int],
                         ctypes.c_int),
+    "c4d_h264_scan": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p,
+                       ctypes.c_int], ctypes.c_int),
     "c4d_h264_reset": ([ctypes.c_void_p], None),
     "c4d_h264_close": ([ctypes.c_void_p], None),
     "c4d_mpeg4_open": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_int],

@@ -1640,6 +1640,7 @@ def phase_video(work: Path, card: str):
     assert all(np.array_equal(a, b) for a, b in zip(*reads.values())), ".mp4 and .mov differ"
 
     phase_video_mpeg4(d, card, rng, count_decodes)
+    phase_video_containers(d, card, rng, count_decodes, d / "syntax_cabac_b_1080x1920.mp4")
 
     # stage 1's reference loader: images/cam0.mp4 (Motion-JPEG, then MPEG-4
     # Part 2 of random syntax at the frames' size) against a PNG directory
@@ -1755,6 +1756,138 @@ def phase_video_mpeg4(d: Path, card: str, rng, count_decodes):
         f"{1e3 * rgb_s / n:.1f} ms a frame; a random-access load_frame {rand_ms:.1f} ms "
         f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds {decode_s:.2f} "
         f"| on {card}")
+
+
+def phase_video_containers(d: Path, card: str, rng, count_decodes, h264_b: Path):
+    """AVI and Matroska/WebM input (``data/avi.py``, ``data/mkv.py``): the
+    cv2-written files under ``tests/data/containers/`` read on the card to
+    the SHA-256 the tests pin to frames held against cv2
+    (``container_writer.PINNED_CV2_RGB_SHA256``), and the VP9 WebM's
+    refusal; the writers' H.264 B and MPEG-4 B-VOP streams muxed into AVI
+    (idx1, no index, in-band parameter sets) and Matroska (SimpleBlocks,
+    BlockGroups, unknown sizes without Cues or a duration) to ffmpeg's
+    pinned plane hashes, one decode a sample; then, timed on the host with
+    the RGB on the card, a 240-sample 1080x1920 Motion-JPEG and the
+    60-sample 1080x1920 H.264 CABAC B stream in mp4/mov, AVI and Matroska
+    in turns: demux ms, reader open ms (the AVI's order-count scan), ms a
+    frame for sequential reads and for random load_frame calls on the same
+    frames."""
+    import hashlib
+
+    import numpy as np
+
+    from cap4d_torch.data import container
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
+    from cap4d_torch.runtime.loader import encode_jpeg
+    from cap4d_torch.utils import container_writer as cw
+    from cap4d_torch.utils import h264_writer as hw
+    from cap4d_torch.utils import mpeg4_writer as mw
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "containers"
+    for name, (n, want) in sorted(cw.PINNED_CV2_RGB_SHA256.items()):
+        path = data / f"{name}{cw.CV2_FILE_SUFFIX[name]}"
+        reader = VideoFrameReader(path, device="cuda")
+        assert len(reader) == n, f"{path.name}: len {len(reader)}, cv2 counts {n}"
+        got = cw.rgb_sha256([reader[k] for k in range(n)])
+        assert got == want, f"cv2's {path.name}: RGB SHA-256 {got}, pinned {want}"
+        t = reader.track
+        log(f"[video] cv2-written {path.name} ({t.codec} as {t.fourcc!r}) {t.width}x{t.height}, "
+            f"{n} frames ({path.stat().st_size} bytes): RGB SHA-256 equals the pin held against "
+            f"cv2 ({want[:16]}...)")
+    try:
+        VideoFrameReader(data / "vp90_webm.webm", device="cuda")
+    except RuntimeError as e:
+        assert "VP9" in str(e) and "NVDEC" in str(e), e
+        log(f"[video] cv2-written vp90_webm.webm takes the VP9 path on the card: {e}")
+    else:
+        raise AssertionError("a VP9 WebM read on the card returned a reader")
+
+    variants = {"avi_idx1": (".avi", cw.write_avi, {}),
+                "avi_no_index": (".avi", cw.write_avi, dict(index="none")),
+                "avi_in_band": (".avi", cw.write_avi, dict(in_band=True)),
+                "mkv": (".mkv", cw.write_mkv, {}),
+                "mkv_group": (".mkv", cw.write_mkv, dict(blocks="group", negative=True)),
+                "mkv_live": (".mkv", cw.write_mkv, dict(unknown_sizes=True, cues=False,
+                                                        duration=False))}
+    w, h, n = 128, 96, 16
+    sources = {}
+    for entropy, seed in (("cavlc", 1), ("cabac", 5)):
+        src = d / f"mux_h264_{entropy}_{seed}.mp4"
+        hw.write_h264_syntax_mp4(src, w, h, n, seed, entropy, b_frames=True)
+        sources[f"H.264 {entropy} B"] = (src, hw.PINNED_B_LUMA_SHA256[entropy, seed, w, h, n])
+    src = d / "mux_mpeg4_advanced.mp4"
+    mw.write_mpeg4_syntax_mp4(src, *mw.STREAMS["advanced"][:4], **mw.STREAMS["advanced"][4])
+    sources["MPEG-4 B-VOPs"] = (src, mw.PINNED_SHA256["advanced"])
+    for label, (src, want) in sources.items():
+        s = cw.stream_of_mp4(src)
+        for variant, (suffix, mux, kw) in variants.items():
+            path = d / f"{src.stem}_{variant}{suffix}"
+            mux(path, s, **kw)
+            reader = VideoFrameReader(path, device="cuda")
+            calls = count_decodes(reader)
+            planes = [reader.planes(k) for k in range(len(reader._order))]
+            if label.startswith("H.264"):
+                got = hashlib.sha256(b"".join(p[0].tobytes() for p in planes)).hexdigest()
+            else:
+                got = mw.planes_sha256(planes)
+            assert got == want, f"{path.name}: planes SHA-256 {got}, ffmpeg's {want}"
+            assert calls[0] == len(s.samples), f"{path.name}: {calls[0]} decodes"
+            assert reader[len(planes) - 1].shape == (s.height, s.width, 3)
+        log(f"[video] {label} {s.width}x{s.height}x{len(s.samples)} in {', '.join(variants)}: "
+            f"planes SHA-256 equal ffmpeg's pin, one decode a sample")
+
+    # timed: 240 Motion-JPEG samples (24 frames, each ten times) and the
+    # 60-sample H.264 B stream, 1080x1920, in mp4/mov (the baseline), AVI and
+    # Matroska in turns, each read the same way: the first 48 frames (all
+    # 60 for H.264) in order, then the same 12 frames at random
+    tmp = d / "frame.jpg"
+    jpegs = []
+    for k in range(24):
+        encode_jpeg(tmp, test_image(1920, 1080, k), 90)
+        jpegs.append(tmp.read_bytes())
+    mov = d / "timed_mjpeg.mov"
+    sa.write_mp4(mov, jpegs * 10, sa.visual_sample_entry(b"jpeg", 1080, 1920), 1080, 1920,
+                 brand=b"qt  ")
+    for label, src, n_seq in (("Motion-JPEG", mov, 48), ("H.264 CABAC B", h264_b, 60)):
+        s = cw.stream_of_mp4(src)
+        n = len(s.samples)
+        n_seq = min(n_seq, n)
+        order = [int(k) for k in rng.permutation(n)[:12]]
+        paths = [src]
+        for suffix, mux in ((".avi", cw.write_avi), (".mkv", cw.write_mkv)):
+            paths.append(d / f"{src.stem}_timed{suffix}")
+            mux(paths[-1], s)
+        for path in paths:
+            demux = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                t = container.read_track(path)
+                demux.append(1e3 * (time.perf_counter() - t0))
+            assert len(t) == n
+            t0 = time.perf_counter()
+            reader = VideoFrameReader(path, device="cuda")
+            open_ms = 1e3 * (time.perf_counter() - t0)
+            calls = count_decodes(reader) if reader._decoder is not None else [n_seq]
+            t0 = time.perf_counter()
+            frames = [reader[k] for k in range(n_seq)]
+            seq_ms = 1e3 * (time.perf_counter() - t0) / n_seq
+            assert calls[0] == n_seq, f"{path.name}: {calls[0]} decodes for {n_seq} frames"
+            assert all(f.shape == (1920, 1080, 3) for f in frames)
+            cached = open_video(path, "cuda")
+            decoded = count_decodes(cached) if cached._decoder is not None else [len(order)]
+            t0 = time.perf_counter()
+            for k in order:
+                got = load_frame(path, k, device="cuda")
+                assert k >= n_seq or np.array_equal(got, frames[k]), k
+            rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+            log(f"[video] {label} 1080x1920 in {path.suffix[1:].upper()}, {n} samples "
+                f"({path.stat().st_size} bytes): demux {min(demux):.2f} ms (best of 3), reader "
+                f"open {open_ms:.2f} ms, sequential {seq_ms:.2f} ms a frame ({n_seq} frames), "
+                f"random load_frame {rand_ms:.2f} ms a frame (the same 12 frames, "
+                f"{decoded[0] / len(order):.2f} samples decoded a read), RGB on the card "
+                f"| on {card}")
+        del frames
 
 
 # ------------------------------------ the held-out quality of the head fit ----
