@@ -7,9 +7,10 @@ Reference frames go through the native runtime's fused decode → crop →
 resize on a thread pool (``runtime.loader.NativePrefetcher``) when no frame
 has a background directory, as in the JAX package; frames with one, and
 frames of a video file (``images/<camera>.mp4``), take the Python path
-(``data/utils.py``), which composites the background first. A video is read
-on the FLAME model's device: Motion-JPEG anywhere, H.264 and VP9 only on the
-card (``VideoFrameReader``).
+(``data/utils.py``), which composites the background first. A video's
+samples decode on the host (``VideoFrameReader``: Motion-JPEG, PNG, H.264,
+MPEG-4 Part 2 and VP9), and their RGB conversion runs on the FLAME model's
+device.
 """
 
 from __future__ import annotations

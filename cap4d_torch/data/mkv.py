@@ -34,9 +34,10 @@ duration is ``AV_NOPTS_VALUE`` and cv2's count is negative.
 Codecs (:data:`MKV_CODECS`): ``V_MJPEG``; ``V_MPEG4/ISO/ASP``, ``/SP`` and
 ``/AP`` (``CodecPrivate`` is the VOL); ``V_MPEG4/ISO/AVC`` (an avcC);
 ``V_MS/VFW/FOURCC`` through the BITMAPINFOHEADER's ``biCompression`` and
-``data/avi.py``'s table (cv2 stores PNG so); ``V_VP9``, which only the
-card's NVDEC would decode. Anything else raises ``ValueError`` naming the
-CodecID.
+``data/avi.py``'s table (cv2 stores PNG so); ``V_VP9`` (profile 0 decodes
+through ``runtime/vp9.py`` on any device; the profile is in each frame's
+header, so the decoder refuses the others by name). Anything else raises
+``ValueError`` naming the CodecID.
 """
 
 from __future__ import annotations
@@ -421,7 +422,7 @@ def _codec(track: _Track, where: str) -> Tuple[str, str, bytes]:
         name = REFUSED_NAMES.get(cid)
         raise ValueError(f"{where}: codec {cid!r}{f' ({name})' if name else ''} is not supported; "
                          "the port reads Matroska video as V_MJPEG, V_MPEG4/ISO/ASP (SP, AP), "
-                         "V_MPEG4/ISO/AVC, V_MS/VFW/FOURCC of those, and V_VP9 on the card")
+                         "V_MPEG4/ISO/AVC, V_MS/VFW/FOURCC of those, and V_VP9")
     if cid != "V_MS/VFW/FOURCC":
         return MKV_CODECS[cid], cid, track.private
     if len(track.private) < 40:

@@ -17,7 +17,8 @@ Codecs (the first sample description; ``stsc`` may name no other):
 - ``avc1``/``avc3``: H.264, with ``avcC``'s SPS and PPS as Annex-B NAL units
   and its NAL length size;
 - ``vp09``: VP9, with ``vpcC``'s profile, bit depth, chroma subsampling,
-  range and colour description;
+  range and colour description: profile 0, 8-bit, 4:2:0 (what
+  ``runtime/vp9.py`` decodes); any other raises ``ValueError`` naming it;
 - ``mp4v`` whose ``esds`` object type is 0x20: MPEG-4 Part 2 video (cv2's
   ``VideoWriter`` default), with the DecoderSpecificInfo (the VOS, VO and
   VOL headers) as :class:`Mp4vConfig`;
@@ -403,6 +404,12 @@ def _sample_entry(buf: bytes, a: int, b: int, where: str):
         if "vpcC" not in kids:
             raise ValueError(f"{where}: 'vp09' sample entry without vpcC")
         vpc = parse_vpcc(buf[slice(*kids["vpcC"])])
+        if (vpc.profile, vpc.bit_depth) != (0, 8) or vpc.chroma_subsampling not in (0, 1):
+            sub = {0: "4:2:0", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}.get(vpc.chroma_subsampling,
+                                                                     "unknown")
+            raise ValueError(f"{where}: VP9 profile {vpc.profile}, {vpc.bit_depth}-bit {sub} "
+                             "(vpcC) is not supported; the port decodes VP9 profile 0, 8-bit "
+                             "4:2:0")
     return codec, fourcc, width, height, avc, vpc, m4v
 
 

@@ -26,8 +26,8 @@ from cap4d_torch.data.mp4 import slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
 from cap4d_torch.runtime.loader import decode_bytes, decode_image
 from cap4d_torch.runtime.mpeg4 import Mpeg4Decoder
-from cap4d_torch.runtime.nvdec import CODEC_NAMES, nv12_to_rgb, nvdec_refusal
-from cap4d_torch.utils.device import resolve_device
+from cap4d_torch.runtime.nvdec import nv12_to_rgb
+from cap4d_torch.runtime.vp9 import Vp9Decoder, scan
 
 CROP_MARGIN = 0.2
 
@@ -155,19 +155,20 @@ class VideoFrameReader:
     same name, ``len`` and indexing: ``len`` is cv2's CAP_PROP_FRAME_COUNT,
     frame k what cv2's seek to k reads).
 
-    Motion-JPEG, PNG, H.264 and MPEG-4 Part 2 samples decode on the host
-    through the runtime, whatever ``device`` is; H.264's and MPEG-4's RGB
-    conversion runs on ``device`` (the CPU when None). H.264
+    Motion-JPEG, PNG, H.264, MPEG-4 Part 2 and VP9 samples decode on the
+    host through the runtime, whatever ``device`` is; the RGB conversion of
+    H.264, MPEG-4 and VP9 runs on ``device`` (the CPU when None). H.264
     (``runtime/h264.py``: I, P and B slices, CAVLC and CABAC, progressive
-    8-bit 4:2:0) and MPEG-4 Part 2 (``runtime/mpeg4.py``:
-    Simple and Advanced Simple profile VOPs, ``mp4v`` with object type
-    0x20) share one path, :meth:`planes`, and are read as cv2 counts
-    frames: frame k is the sample ``order[k]`` (``ctts`` order, the edit
-    list applied; Matroska's block times; in an AVI, which carries no
-    times, H.264's picture order count from a header scan and, for MPEG-4,
-    ffmpeg's output order: each anchor VOP after the B-VOPs that follow it
-    in the file), decoded from the last sync sample at or before it, or
-    onward from where the decoder stands when that lies between the two.
+    8-bit 4:2:0), MPEG-4 Part 2 (``runtime/mpeg4.py``: Simple and Advanced
+    Simple profile VOPs, ``mp4v`` with object type 0x20) and VP9
+    (``runtime/vp9.py``: profile 0, ``vp09``, ``V_VP9``, ``VP90``) share one
+    path, :meth:`planes`, and are read as cv2 counts frames: frame k is the
+    sample ``order[k]`` (``ctts`` order, the edit list applied; Matroska's
+    block times; in an AVI, which carries no times, H.264's picture order
+    count from a header scan, for MPEG-4 ffmpeg's output order: each anchor
+    VOP after the B-VOPs that follow it in the file, and for VP9 decode
+    order), decoded from the last sync sample at or before it, or onward
+    from where the decoder stands when that lies between the two.
     Pictures decoded on the way that show later are held (by decode index,
     at most the SPS's max_dec_frame_buffering, 16 without one, for H.264;
     4 for MPEG-4), so a sequential read decodes each sample once; a random
@@ -179,26 +180,32 @@ class VideoFrameReader:
     not-coded MPEG-4 VOP (vop_coded 0) gives
     ffmpeg no picture, so cv2 reads one frame fewer for each: frame k is the
     k-th coded VOP, ``len`` stays cv2's count, and the frames past the
-    last coded VOP raise ``IndexError``, as cv2's reader does. cv2's count
+    last coded VOP raise ``IndexError``, as cv2's reader does; a VP9 sample
+    whose frames are all hidden (show_frame 0) counts as such a VOP, while
+    a superframe's hidden frames beside a shown one and a
+    show_existing_frame sample each give the picture they show. A VP9
+    frame's size may change within the stream (a reference scaled to it);
+    cv2 returns every frame at the stream's size (swscale rescales it), and
+    so does the port, resampling such a frame's planes (:func:`cubic_resize`,
+    an approximation of swscale's bicubic: ROADMAP's measured parity gaps). cv2's count
     may differ from the samples (AVI's ``dwLength``, Matroska's duration
     times its frame rate): frames past the samples raise ``IndexError``; a
     Matroska file without a duration gets a negative count from cv2, so
     ``len`` raises ``ValueError`` as Python's ``len`` does on the JAX
     reader, while indexing still reads its frames. The planes go through
     :func:`nv12_to_rgb` with the matrix and range the stream signals
-    (H.264's VUI, MPEG-4's video_signal_type; BT.601 and limited range
-    without one), as cv2 converts them. A stream the decoder does not take
+    (H.264's VUI, MPEG-4's video_signal_type, VP9's color_space and
+    color_range; BT.601 and limited range without one), as cv2 converts
+    them. A stream the decoder does not take
     raises ``ValueError`` naming the file, the frame and the tool or syntax
     element. An open GOP's leading picture (decoded after a sync sample,
     shown before it) read from that sync sample raises the
     missing-reference error and returns no picture; on the way to a later
-    frame it is decoded as any other. VP9 needs the card's NVDEC:
-    ``device`` None resolves through ``resolve_device`` (which raises
-    without CUDA),
-    ``device="cpu"`` raises ``ValueError``, and on the card the reader
-    raises ``RuntimeError`` with NVDEC's answer (``runtime/nvdec.py``).
-    Other codecs raise ``ValueError`` naming the four-character code or
-    CodecID. No file handle stays open between reads."""
+    frame it is decoded as any other. A VP9 stream the decoder does not
+    take (profiles 1-3, high bit depth) raises ``ValueError`` naming the
+    tool on every device; nothing hands it to NVDEC. Other codecs raise
+    ``ValueError`` naming the four-character code or CodecID. No file
+    handle stays open between reads."""
 
     # the longest prefix of a sample read to find its VOP header
     SCAN_BYTES = 4096
@@ -209,19 +216,23 @@ class VideoFrameReader:
         t = self.track
         # where the RGB conversion runs (the CPU when None)
         self._device = torch.device("cpu") if device is None else torch.device(device)
-        self._h264 = self._mpeg4 = None
+        self._h264 = self._mpeg4 = self._vp9 = None
         self._order = t.order
         self._count = len(t) if t.frame_count is None else t.frame_count
-        if t.codec in ("h264", "mpeg4"):
+        if t.codec in ("h264", "mpeg4", "vp9"):
             if t.codec == "h264":
                 self._h264 = H264Decoder(t.avc, str(self.path))
                 self._hold_max = self._h264.dpb_frames or 16
                 if not t.timed:
                     self._scan_pictures()
-            else:
+            elif t.codec == "mpeg4":
                 self._mpeg4 = Mpeg4Decoder(t.m4v.dsi, str(self.path))
                 self._hold_max = 4
                 self._scan_vops()
+            else:
+                self._vp9 = Vp9Decoder(str(self.path))
+                self._hold_max = 0     # pictures show in decode order
+                self._scan_vp9()
             self._frame_of = np.full(len(t), -1, np.int64)   # -1: not shown
             self._frame_of[self._order] = np.arange(len(self._order))
             # presentation times: the container's, else each sample's place
@@ -234,14 +245,17 @@ class VideoFrameReader:
             self._run = []         # ((epoch, order count), pts, decode index) since the reset
             self._epoch = 0        # IDR pictures and MMCO 5 start a new order count
             self._lock = threading.Lock()
-        elif t.codec == "vp9":
-            what = f"{self.path}: {CODEC_NAMES[t.codec]} ({t.fourcc!r}, {t.width}x{t.height})"
-            dev = resolve_device(device)
-            if dev.type != "cuda":
-                raise ValueError(f"{what} decodes only on the card (NVDEC); the port has no "
-                                 f"software decoder for it, so device={str(dev)!r} cannot read it")
-            card = dev.index if dev.index is not None else torch.cuda.current_device()
-            raise RuntimeError(f"{what}: {nvdec_refusal(t.codec, t.width, t.height, card)}")
+
+    def _scan_vp9(self) -> None:
+        """Each sample's frame headers (``runtime/vp9.py``'s scan, which
+        decodes nothing): frames are the samples that show a picture, in
+        presentation order (decode order in an AVI)."""
+        t = self.track
+        shows = np.zeros(len(t), bool)
+        for j in range(len(t)):
+            # the whole sample: a superframe's index is at its end
+            shows[j] = scan(t.sample(j), f"{self.path} sample {j}").shows
+        self._order = t.order[shows[t.order]] if t.timed else np.flatnonzero(shows)
 
     def _scan_vops(self) -> None:
         """Each sample's VOP coding type and vop_coded, read from its header
@@ -308,7 +322,7 @@ class VideoFrameReader:
 
     @property
     def _decoder(self):
-        return self._h264 if self._h264 is not None else self._mpeg4
+        return next((d for d in (self._h264, self._mpeg4, self._vp9) if d is not None), None)
 
     def __getitem__(self, index: int) -> np.ndarray:
         if not 0 <= index < len(self.track):
@@ -319,6 +333,10 @@ class VideoFrameReader:
                                 (self.track.height, self.track.width))
         y, u, v = (torch.from_numpy(p).to(self._device) for p in self.planes(index))
         dec = self._decoder
+        h, w = self.track.height, self.track.width
+        if y.shape != (h, w):      # a VP9 frame coded at another size
+            y = cubic_resize(y, h, w)
+            u, v = (cubic_resize(c, (h + 1) // 2, (w + 1) // 2) for c in (u, v))
         return nv12_to_rgb(y, torch.stack([u, v], -1), dec.matrix, dec.full_range)
 
     def h264_planes(self, index: int):
@@ -329,8 +347,8 @@ class VideoFrameReader:
         return self.planes(index)
 
     def planes(self, index: int):
-        """Frame ``index`` of an H.264 or MPEG-4 track as its decoded (Y, U,
-        V) uint8 planes."""
+        """Frame ``index`` of an H.264, MPEG-4 or VP9 track as its decoded
+        (Y, U, V) uint8 planes."""
         if self._decoder is None:
             raise ValueError(f"{self.path} is a {self.track.codec} track, which decodes to RGB "
                              "only")
@@ -339,10 +357,11 @@ class VideoFrameReader:
         if not 0 <= index < len(self._order):
             if not 0 <= index < n:
                 raise IndexError(index)
+            what = ("are not-coded VOPs (vop_coded 0)" if self._mpeg4 is not None else
+                    "hold only hidden frames (show_frame 0)")
             raise IndexError(f"{self.path} frame {index}: the track has {n} samples but "
-                             f"{n - len(self._order)} are not-coded VOPs (vop_coded 0), "
-                             f"which give ffmpeg no picture, so cv2 reads {len(self._order)} "
-                             "frames")
+                             f"{n - len(self._order)} {what}, which give ffmpeg no picture, "
+                             f"so cv2 reads {len(self._order)} frames")
         sample = int(self._order[index])
         with self._lock:
             if self._last is not None and self._last[0] == sample:
@@ -383,7 +402,9 @@ class VideoFrameReader:
         """Sample ``j`` holds a picture no other refers to."""
         if self._h264 is not None:
             return slice_ref_idc(self.track.sample(j), self.track.avc.length_size) == 0
-        return self._vop_type[j] == "B"
+        if self._mpeg4 is not None:
+            return self._vop_type[j] == "B"
+        return False    # a VP9 frame leaves probabilities, vectors and segments to the next
 
     def _restart(self) -> None:
         self._decoder.reset()
@@ -408,9 +429,12 @@ class VideoFrameReader:
             if (pic.idr and self._run) or pic.mmco5:
                 self._epoch += 1
             key, clock = (self._epoch, pic.poc), "picture order count"
-        else:
+        elif self._mpeg4 is not None:
             planes = self._mpeg4.decode(t.sample(j), what, (t.width, t.height))
             key, clock = (0, self._mpeg4.vop.time), "VOP time"
+        else:
+            planes = self._vp9.decode(t.sample(j), what)
+            key, clock = (0, j), "decode order"
         if not t.timed:     # the order came from this clock
             return planes
         pts = int(t.pts[j])
@@ -425,6 +449,30 @@ class VideoFrameReader:
                     f"after {ke[0]} and {kl[0]} order-count resets)")
         self._run.insert(at, (key, pts, j))
         return planes
+
+
+def _cubic_weights(n_src: int, n_dst: int, device) -> torch.Tensor:
+    """(n_dst, n_src) weights of cubic convolution (a = -0.6) from n_src
+    samples to n_dst, sample centres aligned, edge samples repeated."""
+    a = -0.6
+    x = (torch.arange(n_dst, dtype=torch.float64) + 0.5) * n_src / n_dst - 0.5
+    taps = torch.floor(x)[:, None] + torch.arange(-1, 3, dtype=torch.float64)
+    d = (x[:, None] - taps).abs()
+    k = torch.where(d <= 1, (a + 2) * d ** 3 - (a + 3) * d ** 2 + 1,
+                    torch.where(d < 2, a * d ** 3 - 5 * a * d ** 2 + 8 * a * d - 4 * a,
+                                torch.zeros_like(d)))
+    weights = torch.zeros(n_dst, n_src, dtype=torch.float64)
+    weights.scatter_add_(1, taps.clamp(0, n_src - 1).long(), k)
+    return weights.to(device=device, dtype=torch.float32)
+
+
+def cubic_resize(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A uint8 plane (on any device) resampled to ``h`` x ``w`` by separable
+    cubic convolution (a = -0.6, swscale's default bicubic), rounded."""
+    rows = _cubic_weights(plane.shape[0], h, plane.device)
+    cols = _cubic_weights(plane.shape[1], w, plane.device)
+    out = rows @ plane.float() @ cols.T
+    return out.round_().clamp_(0, 255).to(torch.uint8)
 
 
 @functools.lru_cache(maxsize=2)

@@ -1,5 +1,6 @@
 """ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``,
-the H.264 decoder ``h264.cpp`` and the MPEG-4 Part 2 decoder ``mpeg4.cpp``).
+the H.264 decoder ``h264.cpp``, the MPEG-4 Part 2 decoder ``mpeg4.cpp`` and
+the VP9 decoder ``vp9.cpp``).
 
 Counterpart of ``cap4d_tpu/runtime/loader.py``, with its own copy of the
 C++ source. The library carries its own PNG and JPEG codecs (the card's
@@ -27,7 +28,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp", _HERE / "mpeg4.cpp"]
+SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp", _HERE / "mpeg4.cpp", _HERE / "vp9.cpp"]
 BUILD_DIR = _HERE.parent / "_build"
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
@@ -86,6 +87,15 @@ _SIGNATURES = {
                         ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
     "c4d_mpeg4_reset": ([ctypes.c_void_p], None),
     "c4d_mpeg4_close": ([ctypes.c_void_p], None),
+    "c4d_vp9_open": ([ctypes.c_char_p, ctypes.c_int], ctypes.c_void_p),
+    "c4d_vp9_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p,
+                        ctypes.c_int], ctypes.c_int),
+    "c4d_vp9_output": ([ctypes.c_void_p, _U8_P, _U8_P, _U8_P], ctypes.c_int),
+    "c4d_vp9_scan": ([ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p, ctypes.c_int],
+                     ctypes.c_int),
+    "c4d_vp9_tools": ([ctypes.c_void_p], ctypes.c_ulonglong),
+    "c4d_vp9_reset": ([ctypes.c_void_p], None),
+    "c4d_vp9_close": ([ctypes.c_void_p], None),
 }
 
 

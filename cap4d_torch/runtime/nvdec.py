@@ -1,21 +1,21 @@
-"""VP9 on the card (NVDEC's decoder caps), and the NV12 → RGB conversion
-that every decoded YUV picture goes through.
+"""NVDEC's decoder caps (a probe of the card's video decoder), and the NV12
+→ RGB conversion that every decoded YUV picture goes through.
 
 The JAX package decodes video with cv2 (ffmpeg, on the host). The port
-decodes H.264 on the host too, in its runtime (``runtime/h264.py``); VP9 has
-no software decoder in the port and is NVDEC's (``libnvcuvid.so.1``, which
+decodes on the host too, in its runtime: H.264 (``runtime/h264.py``),
+MPEG-4 Part 2 (``runtime/mpeg4.py``) and VP9 (``runtime/vp9.py``), whatever
+the reader's device; no codec goes to NVDEC (``libnvcuvid.so.1``, which
 ships with NVIDIA's GPU libraries and which a container can use when its
 ``NVIDIA_DRIVER_CAPABILITIES`` include ``video``).
 
 :func:`decoder_caps` asks ``cuvidGetDecoderCaps`` (through ctypes, on the
-card's primary context, the one torch uses) what the card's NVDEC takes,
-for either codec (H.264 stays a probe), and :func:`nvdec_refusal` turns its
-answer into the error that ``VideoFrameReader`` raises for a VP9 file on
-the card. The decoder itself (``cuvidCreateVideoParser`` /
+card's primary context, the one torch uses) what the card's NVDEC takes for
+H.264 or VP9; ``chip_smoke.py`` records its answer, the probe ROADMAP keeps
+for a hardware decode path. The decoder itself (``cuvidCreateVideoParser`` /
 ``cuvidCreateDecoder``) is not driven: on the H100 machine it was developed
 for, the container grants ``compute,utility`` only, and every
 ``cuvidGetDecoderCaps`` and ``cuvidCreateDecoder`` call returns
-``CUDA_ERROR_OUT_OF_MEMORY`` (2), for every codec. ROADMAP keeps the item.
+``CUDA_ERROR_OUT_OF_MEMORY`` (2), for every codec.
 
 :func:`nv12_to_rgb` is the colour conversion of decoded 4:2:0 planes: plain
 PyTorch, on whatever device the planes are on, tested on the CPU against
@@ -30,9 +30,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-# cudaVideoCodec (cuviddec.h); VideoFrameReader sends only VP9 to NVDEC
+# cudaVideoCodec (cuviddec.h), for the probe
 CODEC_IDS = {"h264": 4, "vp9": 10}
-CODEC_NAMES = {"h264": "H.264", "vp9": "VP9"}
 CHROMA_420 = 1          # cudaVideoChromaFormat_420
 # swscale's YCbCr -> RGB coefficients (crv, cbu, cgu, cgv), 16.16 fixed point
 # for limited-range chroma, of each matrix (Rec. ITU-R BT.601, BT.709, the
@@ -92,27 +91,6 @@ def decoder_caps(codec: str, card: int = 0) -> Dict:
     return {"status": status, "supported": bool(caps.bIsSupported), "nvdecs": caps.nNumNVDECs,
             "formats": caps.nOutputFormatMask, "min": (caps.nMinWidth, caps.nMinHeight),
             "max": (caps.nMaxWidth, caps.nMaxHeight), "max_mbs": caps.nMaxMBCount}
-
-
-def nvdec_refusal(codec: str, width: int, height: int, card: int = 0) -> str:
-    """Why NVDEC will not decode ``codec`` at ``width`` x ``height`` on card
-    ``card``, naming the library, codec, size and status."""
-    name = CODEC_NAMES[codec]
-    caps = decoder_caps(codec, card)
-    if "error" in caps:
-        return f"NVDEC (libnvcuvid.so.1) is not usable: {caps['error']}"
-    if caps["status"] != 0:
-        return (f"cuvidGetDecoderCaps({name}, 8-bit 4:2:0) returned {caps['status']} "
-                f"({CUDA_ERRORS.get(caps['status'], 'see cuda.h')}); NVDEC needs a container "
-                "whose NVIDIA_DRIVER_CAPABILITIES include 'video'")
-    if not caps["supported"]:
-        return f"the card's NVDEC does not decode {name} 8-bit 4:2:0"
-    (w0, h0), (w1, h1) = caps["min"], caps["max"]
-    if not (w0 <= width <= w1 and h0 <= height <= h1):
-        return (f"the card's NVDEC decodes {name} from {w0}x{h0} to {w1}x{h1}, "
-                f"not {width}x{height}")
-    return (f"the card's NVDEC takes {name} at {width}x{height}, but the port does not drive "
-            "its decoder yet")
 
 
 def _fixed_point(matrix: str, full_range: bool):

@@ -36,7 +36,7 @@ from typing import List, Optional
 from cap4d_torch.data import mp4
 
 # codec -> the four-character code cv2's ffmpeg writes into an AVI
-AVI_FOURCC = {"h264": b"H264", "mpeg4": b"FMP4", "mjpeg": b"MJPG", "png": b"MPNG"}
+AVI_FOURCC = {"h264": b"H264", "mpeg4": b"FMP4", "mjpeg": b"MJPG", "png": b"MPNG", "vp9": b"VP90"}
 AVIIF_KEYFRAME = 0x10
 
 
@@ -275,7 +275,7 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
             private = bitmap_info_header(AVI_FOURCC[s.codec], s.width, s.height, extra)
         else:
             codec_id = {"h264": "V_MPEG4/ISO/AVC", "mpeg4": "V_MPEG4/ISO/ASP",
-                        "mjpeg": "V_MJPEG"}[s.codec]
+                        "mjpeg": "V_MJPEG", "vp9": "V_VP9"}[s.codec]
             private = avcc(s.avc) if s.codec == "h264" else s.dsi
             samples = list(s.samples)
     else:
@@ -402,6 +402,7 @@ PINNED_CV2_RGB_SHA256 = {
     "png_avi": (10, "da398da1ca8010cdba009979d893cee0026ad110820e845a98b560cf581ea778"),
     "mjpg_mkv": (20, "04616a6c1952e679babf37aa9a33b7c7d2987b1e3fdd7fb1bc782cef3ac0bd54"),
     "mp4v_mkv": (26, "be39e977d43e397cb01354fcd9d70ab171ef5e8460f757f0dce8be07f4d97071"),
+    "vp90_webm": (6, "a12092ffe59acde1c994c260a8c9af1d822be1639503405eda222b28a32568b2"),
 }
 CV2_FILE_SUFFIX = {"mjpg_avi": ".avi", "xvid_avi": ".avi", "png_avi": ".avi", "mjpg_mkv": ".mkv",
                    "mp4v_mkv": ".mkv", "vp90_webm": ".webm"}

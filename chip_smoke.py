@@ -73,7 +73,11 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      decoded to ffmpeg's pinned luma SHA-256; 1080x1920 CABAC random-syntax
      streams of 60 frames, I/P and with B pictures in a pyramid, timed
      (frames/s, random access, decodes a sequential read makes);
-     a VP9 read on the card, which raises NVDEC's answer;
+     VP9 (``runtime/vp9.cpp``): every committed stream under
+     ``tests/data/vp9/`` (libvpx's and ``utils/vp9_writer.py``'s) decoded
+     to the SHA-256 of ffmpeg's planes that tier-1 pins, the RGB on the card
+     equal to the CPU's, and a 16-frame 1080x1920 libvpx load timed (ms a
+     frame decoding alone and with the RGB on the card, random access);
      Motion-JPEG at 1080p (.mp4 and .mov) through the runtime, sequential
      and random access, timed; MPEG-4 Part 2 (``runtime/mpeg4.cpp``):
      the cv2-written ``mp4v`` files under ``tests/data/mpeg4/`` and the
@@ -1407,15 +1411,15 @@ def phase_video(work: Path, card: str):
     luma SHA-256 that the tests pin to ffmpeg's decode; 1080x1920 CABAC
     random-syntax streams of 60 frames, I/P and with B pictures (a pyramid),
     timed (sequential frames/s, a random-access read and the samples it
-    decodes, the decodes of a sequential read); VP9 on the card, which
-    raises NVDEC's answer; Motion-JPEG at 1080p (.mp4 and .mov)
+    decodes, the decodes of a sequential read); VP9 (``phase_video_vp9``:
+    the committed streams to ffmpeg's pinned plane hashes, RGB on the card
+    against the CPU, a 1080x1920 libvpx load timed); Motion-JPEG at 1080p (.mp4 and .mov)
     through the runtime, sequential and random access, timed; MPEG-4 Part 2:
     the committed cv2 files and the writer's streams to ffmpeg's pinned
     plane hashes, and a 1080x1920 Advanced Simple load timed; stage 1's
     reference loader on a Motion-JPEG and on an MPEG-4 video against the
     same frames as a PNG directory."""
     import hashlib
-    import struct
 
     import numpy as np
     import torch
@@ -1600,20 +1604,11 @@ def phase_video(work: Path, card: str):
         f"{rand_ms:.1f} ms ({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
         f"{decode_s:.2f} | on {card}")
 
-    # VP9 still needs NVDEC: a vp09 track raises its answer on the card
-    vpcc = sa._full_box(b"vpcC", 1, 0, bytes([0, 40, 0x80, 1, 1, 1]), struct.pack(">H", 0))
-    sa.write_mp4(d / "vp9.mp4", [b"\x82\x49\x83\x42\x00"], sa.visual_sample_entry(
-        b"vp09", 1920, 1080, vpcc), 1920, 1080)
-    try:
-        VideoFrameReader(d / "vp9.mp4", device="cuda")
-    except RuntimeError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("a VP9 read on the card returned a reader")
-    assert "VP9" in refusal and "NVDEC" in refusal, refusal
+    # VP9 decodes on the host (PR 19); NVDEC stays a probe
     usable = all(c.get("status") == 0 and c.get("supported") for c in caps.values())
-    log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'}: a VP9 read on "
-        f"the card raises: {refusal}")
+    log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'} (a probe: no "
+        f"codec goes to it)")
+    phase_video_vp9(card, rng, count_decodes)
 
     # Motion-JPEG at 1080p through the runtime, in both sample entries
     frames = [test_image(1080, 1920, k) for k in range(24)]
@@ -1677,6 +1672,80 @@ def phase_video(work: Path, card: str):
         assert np.isfinite(from_video.images).all() and np.abs(from_video.images).max() > 0.1
         log(f"[video] stage 1's reference loader on images/cam0.mp4 ({codec}, frame 1 at "
             f"512²) equals the same frames as a PNG directory (white bg directory)")
+
+
+def phase_video_vp9(card: str, rng, count_decodes):
+    """VP9 input (``runtime/vp9.cpp``): every committed stream under
+    ``tests/data/vp9/`` (libvpx's settings of each tool, and the writer's
+    header-level tools) decoded on the card's machine to the SHA-256 of
+    ffmpeg's planes (``vp9_writer.PINNED_SHA256``), in order and, but for
+    the timed load, shuffled; the RGB on the card equal to the CPU's on
+    every frame; then the 16-frame 1080x1920 libvpx load (realtime,
+    1.2 Mbit/s target, a key frame every 4) timed on one host thread: ms a frame
+    decoding alone, with the RGB conversion on the card, the decodes of a
+    sequential read, and a random read's ms and samples decoded."""
+    import numpy as np
+
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
+    from cap4d_torch.utils import mpeg4_writer as mw
+    from cap4d_torch.utils import vp9_writer as vw
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "vp9"
+    files = sorted(data.glob("*.*"))
+    streams = {f.name.rsplit(".", 1)[0] for f in files}
+    assert streams == set(vw.PINNED_SHA256), sorted(streams ^ set(vw.PINNED_SHA256))
+    for path in files:
+        name = path.name.rsplit(".", 1)[0]
+        n, want = vw.PINNED_SHA256[name]
+        reader = VideoFrameReader(path, device="cuda")
+        pictures = [reader.planes(k) for k in range(len(reader._order))]
+        got = mw.planes_sha256(pictures)
+        assert (len(pictures), got) == (n, want), \
+            f"{path.name}: {len(pictures)} pictures, SHA-256 {got}; ffmpeg's {n}, {want}"
+        if name != "load_1080":
+            shuffled = VideoFrameReader(path, device="cuda")
+            for k in rng.permutation(n):
+                for a, b in zip(shuffled.planes(int(k)), pictures[k]):
+                    assert np.array_equal(a, b), f"{path.name} picture {k} (shuffled)"
+        cpu = VideoFrameReader(path, device="cpu")
+        for k in range(n):
+            assert np.array_equal(reader[k], cpu[k]), f"{path.name} frame {k}: card vs CPU RGB"
+        t = reader.track
+        log(f"[video] VP9 {path.name} {t.width}x{t.height}, {len(t)} samples, {n} pictures "
+            f"({path.stat().st_size} bytes, {len(reader._vp9.tools)} decoder tools): Y and U/V "
+            f"SHA-256 equal ffmpeg's ({want[0][:16]}..., {want[1][:16]}...), RGB on the card "
+            f"equals the CPU's")
+
+    # the timed load
+    path = data / "load_1080.mp4"
+    reader = VideoFrameReader(path, device="cuda")
+    n, (h, w) = len(reader), (reader.track.height, reader.track.width)
+    mbps = path.stat().st_size * 8 / (n / 30) / 1e6
+    calls = count_decodes(reader)
+    t0 = time.perf_counter()
+    for k in range(n):
+        reader.planes(k)
+    decode_s = time.perf_counter() - t0
+    assert calls[0] == n, f"a sequential read decoded {calls[0]} samples for {n} frames"
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    frames = [reader[k] for k in range(n)]
+    rgb_s = time.perf_counter() - t0
+    assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    order = rng.permutation(n)[:8]
+    decoded = count_decodes(open_video(path, "cuda"))
+    t0 = time.perf_counter()
+    for k in order:
+        assert np.array_equal(load_frame(path, int(k), device="cuda"), frames[k]), k
+    rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+    keys = int(np.count_nonzero(reader.track.sync))
+    log(f"[video] VP9 1080x1920 libvpx load (realtime, cpu-used 8; a real encoder's stream), "
+        f"{n} frames ({path.stat().st_size} bytes, {mbps:.2f} Mbit/s at 30 fps, {keys} key "
+        f"frames): decode {1e3 * decode_s / n:.1f} ms a frame on one host thread, a sequential "
+        f"read decoded {calls[0]} samples for {n} frames; with the RGB conversion on the card "
+        f"{1e3 * rgb_s / n:.1f} ms a frame; a random-access load_frame {rand_ms:.1f} ms "
+        f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds {decode_s:.2f} "
+        f"| on {card}")
 
 
 def phase_video_mpeg4(d: Path, card: str, rng, count_decodes):
@@ -1762,8 +1831,8 @@ def phase_video_containers(d: Path, card: str, rng, count_decodes, h264_b: Path)
     """AVI and Matroska/WebM input (``data/avi.py``, ``data/mkv.py``): the
     cv2-written files under ``tests/data/containers/`` read on the card to
     the SHA-256 the tests pin to frames held against cv2
-    (``container_writer.PINNED_CV2_RGB_SHA256``), and the VP9 WebM's
-    refusal; the writers' H.264 B and MPEG-4 B-VOP streams muxed into AVI
+    (``container_writer.PINNED_CV2_RGB_SHA256``, the VP9 WebM's
+    included); the writers' H.264 B and MPEG-4 B-VOP streams muxed into AVI
     (idx1, no index, in-band parameter sets) and Matroska (SimpleBlocks,
     BlockGroups, unknown sizes without Cues or a duration) to ffmpeg's
     pinned plane hashes, one decode a sample; then, timed on the host with
@@ -1795,13 +1864,6 @@ def phase_video_containers(d: Path, card: str, rng, count_decodes, h264_b: Path)
         log(f"[video] cv2-written {path.name} ({t.codec} as {t.fourcc!r}) {t.width}x{t.height}, "
             f"{n} frames ({path.stat().st_size} bytes): RGB SHA-256 equals the pin held against "
             f"cv2 ({want[:16]}...)")
-    try:
-        VideoFrameReader(data / "vp90_webm.webm", device="cuda")
-    except RuntimeError as e:
-        assert "VP9" in str(e) and "NVDEC" in str(e), e
-        log(f"[video] cv2-written vp90_webm.webm takes the VP9 path on the card: {e}")
-    else:
-        raise AssertionError("a VP9 WebM read on the card returned a reader")
 
     variants = {"avi_idx1": (".avi", cw.write_avi, {}),
                 "avi_no_index": (".avi", cw.write_avi, dict(index="none")),

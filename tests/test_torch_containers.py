@@ -277,15 +277,22 @@ def test_cv2_files_written_again(tmp_path, cv2_files):
 
 
 def test_vp9_webm_takes_the_vp9_path(cv2_files):
-    """A VP9 WebM takes the path a vp09 mp4 takes: ValueError on the CPU,
-    and without CUDA the default device raises."""
+    """A VP9 WebM takes the path a vp09 mp4 takes: the port's VP9 decoder
+    (``runtime/vp9.py``) on the host, on ``device="cpu"`` and on the default
+    device alike; every frame equals cap4d_tpu's load_frame (cv2), read in
+    order and shuffled, and hashes to the pin chip_smoke.py holds on the
+    card."""
     path = cv2_files["vp90_webm"]
     t = container.read_track(path)
     assert (t.codec, t.fourcc, t.width, t.height, len(t)) == ("vp9", "V_VP9", 64, 48, 6)
-    with pytest.raises(ValueError, match="VP9 .* no software decoder"):
-        load_frame(path, 0, device="cpu")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        VideoFrameReader(path)
+    reader = VideoFrameReader(path)
+    assert len(reader) == len(ju.VideoFrameReader(path)) == 6
+    for k in list(range(6)) + list(np.random.default_rng(4).permutation(6)):
+        want = ju.load_frame(path, int(k))
+        np.testing.assert_array_equal(load_frame(path, int(k), device="cpu"), want, err_msg=f"{k}")
+        np.testing.assert_array_equal(reader[int(k)], want, err_msg=f"frame {k}")
+    frames = [reader[k] for k in range(6)]
+    assert (6, cw.rgb_sha256(frames)) == cw.PINNED_CV2_RGB_SHA256["vp90_webm"]
 
 
 # ------------------------------------------------- the writers' streams --
