@@ -30,7 +30,9 @@ Motion-JPEG, PNG (``MPNG``), MPEG-4 Part 2 (``FMP4``, ``XVID``, ``DIVX``,
 ``X264``, ``AVC1``, ``DAVC``: Annex-B access units, the parameter sets from
 the extradata, an avcC there, or the first key frame) and VP9 (``VP90``, one
 frame or superframe a chunk, as ffmpeg's avienc writes it; cv2 reads such a
-file, so the port does). Anything else raises
+file, so the port does) and VP8 (``VP80``, cv2's VideoWriter's fourcc for
+it: one frame a chunk, the key frames by the frame tag's bit 0). Anything
+else raises
 ``ValueError`` naming the four-character code, as do a zero-size video
 chunk (a dropped frame: ffmpeg's index skips it and its timestamps jump),
 an index entry past the end of the file and a malformed header.
@@ -51,15 +53,16 @@ _MJPEG = ("MJPG", "mjpg", "AVRn", "AVDJ", "ACDV", "QIVG", "SLMJ", "CJPG", "IJPG"
 _MPEG4 = ("FMP4", "XVID", "DIVX", "DX50", "MP4V", "MP4S", "M4S2")
 _H264 = ("H264", "X264", "AVC1", "DAVC")
 _VP9 = ("VP90",)
+_VP8 = ("VP80",)
 # biCompression -> codec (CODECS' names)
 AVI_CODECS = {**{f: "mjpeg" for f in _MJPEG}, "MPNG": "png", "PNG ": "png", "png ": "png",
               **{f: "mpeg4" for f in _MPEG4 + tuple(x.lower() for x in _MPEG4)},
               **{f: "h264" for f in _H264 + tuple(x.lower() for x in _H264)},
-              **{f: "vp9" for f in _VP9}}
+              **{f: "vp9" for f in _VP9}, **{f: "vp8" for f in _VP8}}
 # what a refused four-character code is, where the name says little
 REFUSED_NAMES = {"DIV3": "MS-MPEG-4 v3", "div3": "MS-MPEG-4 v3", "MP43": "MS-MPEG-4 v3",
                  "mp43": "MS-MPEG-4 v3", "MP42": "MS-MPEG-4 v2", "mp42": "MS-MPEG-4 v2",
-                 "MPG4": "MS-MPEG-4 v1", "DIV4": "MS-MPEG-4 v3", "VP80": "VP8",
+                 "MPG4": "MS-MPEG-4 v1", "DIV4": "MS-MPEG-4 v3",
                  "HEVC": "HEVC", "H265": "HEVC", "hev1": "HEVC", "hvc1": "HEVC", "AV01": "AV1",
                  "WMV3": "WMV9", "mpg2": "MPEG-2 video", "MPG2": "MPEG-2 video"}
 AVIIF_KEYFRAME = 0x10
@@ -231,8 +234,8 @@ def _scan_movi(avi: _Avi, number: int):
 def _key_by_content(codec: str, data: bytes, length_size: Optional[int]) -> bool:
     """Whether a sample's first bytes hold an IDR picture (H.264: Annex-B,
     or NAL lengths of ``length_size`` bytes), an I-VOP (MPEG-4) or a VP9 key
-    frame (its first frame's frame_type); every Motion-JPEG and PNG sample
-    is one."""
+    frame (its first frame's frame_type) or VP8 key frame; every
+    Motion-JPEG and PNG sample is one."""
     if codec == "h264":
         head = first_slice_header(data if length_size else length_prefixed(data), length_size or 4)
         return head >= 0 and head & 0x1F == 5
@@ -241,7 +244,14 @@ def _key_by_content(codec: str, data: bytes, length_size: Optional[int]) -> bool
         return 0 <= at and at + 4 < len(data) and data[at + 4] >> 6 == 0
     if codec == "vp9":
         return vp9_key(data)
+    if codec == "vp8":
+        return vp8_key(data)
     return True
+
+
+def vp8_key(data: bytes) -> bool:
+    """Whether a VP8 sample is a key frame: bit 0 of its frame tag clear."""
+    return bool(data) and not data[0] & 1
 
 
 def vp9_key(data: bytes) -> bool:
@@ -303,7 +313,7 @@ def _read(fh, where: str) -> VideoTrack:
         raise ValueError(f"{where}: codec {fourcc!r}{f' ({name})' if name else ''} is not "
                          "supported; the port reads AVI video as Motion-JPEG (MJPG), PNG (MPNG), "
                          "MPEG-4 Part 2 (FMP4, XVID, DIVX, DX50, MP4V), H.264 (H264, X264, "
-                         "AVC1, DAVC) and VP9 (VP90)")
+                         "AVC1, DAVC), VP8 (VP80) and VP9 (VP90)")
     entries = []
     if indx is not None and len(indx) >= 24 and struct.unpack_from("<I", indx, 4)[0]:
         entries = _odml_index(avi, indx, number)

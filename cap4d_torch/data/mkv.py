@@ -36,8 +36,10 @@ Codecs (:data:`MKV_CODECS`): ``V_MJPEG``; ``V_MPEG4/ISO/ASP``, ``/SP`` and
 ``V_MS/VFW/FOURCC`` through the BITMAPINFOHEADER's ``biCompression`` and
 ``data/avi.py``'s table (cv2 stores PNG so); ``V_VP9`` (profile 0 decodes
 through ``runtime/vp9.py`` on any device; the profile is in each frame's
-header, so the decoder refuses the others by name). Anything else raises
-``ValueError`` naming the CodecID.
+header, so the decoder refuses the others by name); ``V_VP8`` (through
+``runtime/vp8.py``; a block's ``BlockAdditions``, where browsers put an
+alpha plane, are skipped, as ffmpeg's ``vp8`` decoder ignores them for cv2).
+Anything else raises ``ValueError`` naming the CodecID.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ from cap4d_torch.data.mp4 import Mp4vConfig, VideoTrack, parse_avcc
 
 MKV_CODECS = {"V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4", "V_MPEG4/ISO/SP": "mpeg4",
               "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG4/ISO/AVC": "h264", "V_VP9": "vp9",
-              "V_MS/VFW/FOURCC": None}
-REFUSED_NAMES = {"V_VP8": "VP8", "V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC",
+              "V_VP8": "vp8", "V_MS/VFW/FOURCC": None}
+REFUSED_NAMES = {"V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC",
                  "V_MPEG2": "MPEG-2 video", "V_MPEG1": "MPEG-1 video", "V_THEORA": "Theora",
                  "V_MPEGI/ISO/VVC": "VVC", "V_PRORES": "ProRes", "V_FFV1": "FFV1"}
 
@@ -422,7 +424,7 @@ def _codec(track: _Track, where: str) -> Tuple[str, str, bytes]:
         name = REFUSED_NAMES.get(cid)
         raise ValueError(f"{where}: codec {cid!r}{f' ({name})' if name else ''} is not supported; "
                          "the port reads Matroska video as V_MJPEG, V_MPEG4/ISO/ASP (SP, AP), "
-                         "V_MPEG4/ISO/AVC, V_MS/VFW/FOURCC of those, and V_VP9")
+                         "V_MPEG4/ISO/AVC, V_MS/VFW/FOURCC of those, V_VP8 and V_VP9")
     if cid != "V_MS/VFW/FOURCC":
         return MKV_CODECS[cid], cid, track.private
     if len(track.private) < 40:
@@ -432,8 +434,8 @@ def _codec(track: _Track, where: str) -> Tuple[str, str, bytes]:
     if codec is None:
         name = avi.REFUSED_NAMES.get(fourcc)
         raise ValueError(f"{where}: codec V_MS/VFW/FOURCC {fourcc!r}{f' ({name})' if name else ''}"
-                         " is not supported; the port reads Motion-JPEG, PNG, MPEG-4 Part 2 and "
-                         "H.264 through it")
+                         " is not supported; the port reads Motion-JPEG, PNG, MPEG-4 Part 2, "
+                         "H.264, VP8 and VP9 through it")
     if not track.width:
         track.width, track.height = struct.unpack_from("<ii", track.private, 4)
         track.width, track.height = abs(track.width), abs(track.height)

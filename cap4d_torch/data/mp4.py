@@ -19,6 +19,8 @@ Codecs (the first sample description; ``stsc`` may name no other):
 - ``vp09``: VP9, with ``vpcC``'s profile, bit depth, chroma subsampling,
   range and colour description: profile 0, 8-bit, 4:2:0 (what
   ``runtime/vp9.py`` decodes); any other raises ``ValueError`` naming it;
+- ``vp08``: VP8 (``runtime/vp8.py``), with or without a ``vpcC``, as cv2
+  reads it (cv2's own writer puts VP8 only in WebM, Matroska and AVI);
 - ``mp4v`` whose ``esds`` object type is 0x20: MPEG-4 Part 2 video (cv2's
   ``VideoWriter`` default), with the DecoderSpecificInfo (the VOS, VO and
   VOL headers) as :class:`Mp4vConfig`;
@@ -59,7 +61,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 # the codec of each sample entry the port reads
-CODECS = {"avc1": "h264", "avc3": "h264", "vp09": "vp9", "jpeg": "mjpeg", "mjpa": "mjpeg",
+CODECS = {"avc1": "h264", "avc3": "h264", "vp09": "vp9", "vp08": "vp8", "jpeg": "mjpeg",
+          "mjpa": "mjpeg",
           "png ": "png", "mp4v": "mpeg4"}
 # esds objectTypeIndication (ISO/IEC 14496-1, Table 5) -> codec, for mp4v
 MP4V_OBJECT_TYPES = {0x20: "mpeg4", 0x6C: "mjpeg"}
@@ -393,7 +396,8 @@ def _sample_entry(buf: bytes, a: int, b: int, where: str):
             m4v = None
     if codec is None:
         raise ValueError(f"{where}: codec {fourcc!r} is not supported; the port reads "
-                         "H.264 (avc1/avc3), MPEG-4 Part 2 (mp4v), VP9 (vp09), Motion-JPEG "
+                         "H.264 (avc1/avc3), MPEG-4 Part 2 (mp4v), VP8 (vp08), VP9 (vp09), "
+                         "Motion-JPEG "
                          "and PNG")
     avc = vpc = None
     if codec == "h264":

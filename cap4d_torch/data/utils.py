@@ -7,8 +7,8 @@ and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
 (``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
 (the port's own demuxers, chosen by content in ``data/container.py``:
-mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264 and MPEG-4 Part 2
-decode on the host through the runtime).
+mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264, MPEG-4 Part 2, VP8
+and VP9 decode on the host through the runtime).
 """
 
 from __future__ import annotations
@@ -24,9 +24,10 @@ import torch
 from cap4d_torch.data.container import read_track
 from cap4d_torch.data.mp4 import slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
-from cap4d_torch.runtime.loader import decode_bytes, decode_image
+from cap4d_torch.runtime.loader import MjpegDecoder, decode_bytes, decode_image
 from cap4d_torch.runtime.mpeg4 import Mpeg4Decoder
-from cap4d_torch.runtime.nvdec import nv12_to_rgb
+from cap4d_torch.runtime.nvdec import yuv_to_rgb
+from cap4d_torch.runtime import vp8
 from cap4d_torch.runtime.vp9 import Vp9Decoder, scan
 
 CROP_MARGIN = 0.2
@@ -155,20 +156,23 @@ class VideoFrameReader:
     same name, ``len`` and indexing: ``len`` is cv2's CAP_PROP_FRAME_COUNT,
     frame k what cv2's seek to k reads).
 
-    Motion-JPEG, PNG, H.264, MPEG-4 Part 2 and VP9 samples decode on the
-    host through the runtime, whatever ``device`` is; the RGB conversion of
-    H.264, MPEG-4 and VP9 runs on ``device`` (the CPU when None). H.264
-    (``runtime/h264.py``: I, P and B slices, CAVLC and CABAC, progressive
-    8-bit 4:2:0), MPEG-4 Part 2 (``runtime/mpeg4.py``: Simple and Advanced
-    Simple profile VOPs, ``mp4v`` with object type 0x20) and VP9
+    Motion-JPEG, PNG, H.264, MPEG-4 Part 2, VP8 and VP9 samples decode on
+    the host through the runtime, whatever ``device`` is; the RGB conversion
+    of all but PNG runs on ``device`` (the CPU when None). Motion-JPEG
+    (``runtime/loader.py``'s :class:`MjpegDecoder`: the planes ffmpeg's
+    ``mjpeg`` decoder gives, through libavcodec's simple IDCT, full-range
+    BT.601), H.264 (``runtime/h264.py``: I, P and B slices, CAVLC and
+    CABAC, progressive 8-bit 4:2:0), MPEG-4 Part 2 (``runtime/mpeg4.py``:
+    Simple and Advanced Simple profile VOPs, ``mp4v`` with object type
+    0x20), VP8 (``runtime/vp8.py``: ``vp08``, ``V_VP8``, ``VP80``) and VP9
     (``runtime/vp9.py``: profile 0, ``vp09``, ``V_VP9``, ``VP90``) share one
     path, :meth:`planes`, and are read as cv2 counts frames: frame k is the
     sample ``order[k]`` (``ctts`` order, the edit list applied; Matroska's
     block times; in an AVI, which carries no times, H.264's picture order
     count from a header scan, for MPEG-4 ffmpeg's output order: each anchor
-    VOP after the B-VOPs that follow it in the file, and for VP9 decode
-    order), decoded from the last sync sample at or before it, or onward
-    from where the decoder stands when that lies between the two.
+    VOP after the B-VOPs that follow it in the file, and for VP8 and VP9
+    decode order), decoded from the last sync sample at or before it, or
+    onward from where the decoder stands when that lies between the two.
     Pictures decoded on the way that show later are held (by decode index,
     at most the SPS's max_dec_frame_buffering, 16 without one, for H.264;
     4 for MPEG-4), so a sequential read decodes each sample once; a random
@@ -181,25 +185,27 @@ class VideoFrameReader:
     ffmpeg no picture, so cv2 reads one frame fewer for each: frame k is the
     k-th coded VOP, ``len`` stays cv2's count, and the frames past the
     last coded VOP raise ``IndexError``, as cv2's reader does; a VP9 sample
-    whose frames are all hidden (show_frame 0) counts as such a VOP, while
-    a superframe's hidden frames beside a shown one and a
-    show_existing_frame sample each give the picture they show. A VP9
-    frame's size may change within the stream (a reference scaled to it);
-    cv2 returns every frame at the stream's size (swscale rescales it), and
-    so does the port, resampling such a frame's planes (:func:`cubic_resize`,
-    an approximation of swscale's bicubic: ROADMAP's measured parity gaps). cv2's count
+    whose frames are all hidden (show_frame 0), and a hidden VP8 frame
+    (libvpx's alt-ref), count as such a VOP, while a VP9 superframe's
+    hidden frames beside a shown one and a show_existing_frame sample each
+    give the picture they show. cv2 converts every picture with swscale to
+    the stream's size, and so does the port (``runtime/nvdec.py``'s
+    :func:`yuv_to_rgb`): the unscaled converter for 4:2:0 and 4:2:2 at the
+    stream's size with an even height, else a copy of swscale's bicubic
+    scaler (an odd height, a VP8 or VP9 frame coded at another size), each
+    bit for bit. cv2's count
     may differ from the samples (AVI's ``dwLength``, Matroska's duration
     times its frame rate): frames past the samples raise ``IndexError``; a
     Matroska file without a duration gets a negative count from cv2, so
     ``len`` raises ``ValueError`` as Python's ``len`` does on the JAX
-    reader, while indexing still reads its frames. The planes go through
-    :func:`nv12_to_rgb` with the matrix and range the stream signals
-    (H.264's VUI, MPEG-4's video_signal_type, VP9's color_space and
-    color_range; BT.601 and limited range without one), as cv2 converts
-    them. A stream the decoder does not take
-    raises ``ValueError`` naming the file, the frame and the tool or syntax
-    element. An open GOP's leading picture (decoded after a sync sample,
-    shown before it) read from that sync sample raises the
+    reader, while indexing still reads its frames. The planes convert with
+    the matrix and range the stream signals (H.264's VUI, MPEG-4's
+    video_signal_type, VP9's color_space and color_range, VP8's
+    clamping_type, which ffmpeg reads as the range; BT.601 and limited
+    range without one), as cv2 converts them. A stream the decoder does not
+    take raises ``ValueError`` naming the file, the frame and the tool or
+    syntax element. An open GOP's leading picture (decoded after a sync
+    sample, shown before it) read from that sync sample raises the
     missing-reference error and returns no picture; on the way to a later
     frame it is decoded as any other. A VP9 stream the decoder does not
     take (profiles 1-3, high bit depth) raises ``ValueError`` naming the
@@ -216,11 +222,18 @@ class VideoFrameReader:
         t = self.track
         # where the RGB conversion runs (the CPU when None)
         self._device = torch.device("cpu") if device is None else torch.device(device)
-        self._h264 = self._mpeg4 = self._vp9 = None
+        self._h264 = self._mpeg4 = self._vp9 = self._vp8 = self._mjpeg = None
         self._order = t.order
         self._count = len(t) if t.frame_count is None else t.frame_count
-        if t.codec in ("h264", "mpeg4", "vp9"):
-            if t.codec == "h264":
+        if t.codec in ("h264", "mpeg4", "vp9", "vp8", "mjpeg"):
+            if t.codec == "mjpeg":
+                self._mjpeg = MjpegDecoder(str(self.path))
+                self._hold_max = 0     # every sample is a picture of its own
+            elif t.codec == "vp8":
+                self._vp8 = vp8.Vp8Decoder(str(self.path))
+                self._hold_max = 0     # pictures show in decode order
+                self._scan_shown(lambda data, what: vp8.scan(data, what).shows)
+            elif t.codec == "h264":
                 self._h264 = H264Decoder(t.avc, str(self.path))
                 self._hold_max = self._h264.dpb_frames or 16
                 if not t.timed:
@@ -232,7 +245,7 @@ class VideoFrameReader:
             else:
                 self._vp9 = Vp9Decoder(str(self.path))
                 self._hold_max = 0     # pictures show in decode order
-                self._scan_vp9()
+                self._scan_shown(lambda data, what: scan(data, what).shows)
             self._frame_of = np.full(len(t), -1, np.int64)   # -1: not shown
             self._frame_of[self._order] = np.arange(len(self._order))
             # presentation times: the container's, else each sample's place
@@ -246,15 +259,16 @@ class VideoFrameReader:
             self._epoch = 0        # IDR pictures and MMCO 5 start a new order count
             self._lock = threading.Lock()
 
-    def _scan_vp9(self) -> None:
-        """Each sample's frame headers (``runtime/vp9.py``'s scan, which
-        decodes nothing): frames are the samples that show a picture, in
-        presentation order (decode order in an AVI)."""
+    def _scan_shown(self, shows_picture) -> None:
+        """Each sample's frame headers (``runtime/vp9.py``'s or
+        ``runtime/vp8.py``'s scan, which decodes nothing): frames are the
+        samples that show a picture, in presentation order (decode order in
+        an AVI)."""
         t = self.track
         shows = np.zeros(len(t), bool)
         for j in range(len(t)):
-            # the whole sample: a superframe's index is at its end
-            shows[j] = scan(t.sample(j), f"{self.path} sample {j}").shows
+            # the whole sample: a VP9 superframe's index is at its end
+            shows[j] = shows_picture(t.sample(j), f"{self.path} sample {j}")
         self._order = t.order[shows[t.order]] if t.timed else np.flatnonzero(shows)
 
     def _scan_vops(self) -> None:
@@ -322,7 +336,8 @@ class VideoFrameReader:
 
     @property
     def _decoder(self):
-        return next((d for d in (self._h264, self._mpeg4, self._vp9) if d is not None), None)
+        return next((d for d in (self._h264, self._mpeg4, self._vp9, self._vp8, self._mjpeg)
+                     if d is not None), None)
 
     def __getitem__(self, index: int) -> np.ndarray:
         if not 0 <= index < len(self.track):
@@ -331,13 +346,11 @@ class VideoFrameReader:
             sample = int(self.track.order[index])
             return decode_bytes(self.track.sample(sample), f"{self.path} frame {index}",
                                 (self.track.height, self.track.width))
-        y, u, v = (torch.from_numpy(p).to(self._device) for p in self.planes(index))
+        y, u, v = (None if p is None else torch.from_numpy(p).to(self._device)
+                   for p in self.planes(index))
         dec = self._decoder
-        h, w = self.track.height, self.track.width
-        if y.shape != (h, w):      # a VP9 frame coded at another size
-            y = cubic_resize(y, h, w)
-            u, v = (cubic_resize(c, (h + 1) // 2, (w + 1) // 2) for c in (u, v))
-        return nv12_to_rgb(y, torch.stack([u, v], -1), dec.matrix, dec.full_range)
+        return yuv_to_rgb(y, u, v, self.track.height, self.track.width, dec.matrix,
+                          dec.full_range)
 
     def h264_planes(self, index: int):
         """Frame ``index`` of an H.264 track as its decoded (Y, U, V) uint8
@@ -347,8 +360,9 @@ class VideoFrameReader:
         return self.planes(index)
 
     def planes(self, index: int):
-        """Frame ``index`` of an H.264, MPEG-4 or VP9 track as its decoded
-        (Y, U, V) uint8 planes."""
+        """Frame ``index`` of a Motion-JPEG, H.264, MPEG-4, VP8 or VP9 track
+        as its decoded (Y, U, V) uint8 planes (U and V None for a greyscale
+        JPEG)."""
         if self._decoder is None:
             raise ValueError(f"{self.path} is a {self.track.codec} track, which decodes to RGB "
                              "only")
@@ -404,7 +418,7 @@ class VideoFrameReader:
             return slice_ref_idc(self.track.sample(j), self.track.avc.length_size) == 0
         if self._mpeg4 is not None:
             return self._vop_type[j] == "B"
-        return False    # a VP9 frame leaves probabilities, vectors and segments to the next
+        return False    # a VP8 or VP9 frame leaves probabilities and segments to the next
 
     def _restart(self) -> None:
         self._decoder.reset()
@@ -432,9 +446,11 @@ class VideoFrameReader:
         elif self._mpeg4 is not None:
             planes = self._mpeg4.decode(t.sample(j), what, (t.width, t.height))
             key, clock = (0, self._mpeg4.vop.time), "VOP time"
-        else:
-            planes = self._vp9.decode(t.sample(j), what)
+        elif self._vp9 is not None or self._vp8 is not None:
+            planes = (self._vp9 or self._vp8).decode(t.sample(j), what)
             key, clock = (0, j), "decode order"
+        else:
+            return self._mjpeg.decode(t.sample(j), what)    # each sample stands alone
         if not t.timed:     # the order came from this clock
             return planes
         pts = int(t.pts[j])
@@ -449,30 +465,6 @@ class VideoFrameReader:
                     f"after {ke[0]} and {kl[0]} order-count resets)")
         self._run.insert(at, (key, pts, j))
         return planes
-
-
-def _cubic_weights(n_src: int, n_dst: int, device) -> torch.Tensor:
-    """(n_dst, n_src) weights of cubic convolution (a = -0.6) from n_src
-    samples to n_dst, sample centres aligned, edge samples repeated."""
-    a = -0.6
-    x = (torch.arange(n_dst, dtype=torch.float64) + 0.5) * n_src / n_dst - 0.5
-    taps = torch.floor(x)[:, None] + torch.arange(-1, 3, dtype=torch.float64)
-    d = (x[:, None] - taps).abs()
-    k = torch.where(d <= 1, (a + 2) * d ** 3 - (a + 3) * d ** 2 + 1,
-                    torch.where(d < 2, a * d ** 3 - 5 * a * d ** 2 + 8 * a * d - 4 * a,
-                                torch.zeros_like(d)))
-    weights = torch.zeros(n_dst, n_src, dtype=torch.float64)
-    weights.scatter_add_(1, taps.clamp(0, n_src - 1).long(), k)
-    return weights.to(device=device, dtype=torch.float32)
-
-
-def cubic_resize(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """A uint8 plane (on any device) resampled to ``h`` x ``w`` by separable
-    cubic convolution (a = -0.6, swscale's default bicubic), rounded."""
-    rows = _cubic_weights(plane.shape[0], h, plane.device)
-    cols = _cubic_weights(plane.shape[1], w, plane.device)
-    out = rows @ plane.float() @ cols.T
-    return out.round_().clamp_(0, 255).to(torch.uint8)
 
 
 @functools.lru_cache(maxsize=2)

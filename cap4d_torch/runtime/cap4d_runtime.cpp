@@ -22,6 +22,10 @@
 //     lossless and hierarchical JPEGs, 12-bit samples, CMYK, and progressive
 //     files whose scans leave low coefficients unrefined (libjpeg smooths
 //     those blocks) are refused with their own status;
+//   - for Motion-JPEG video samples, the same decoder's planes mode, which
+//     gives each component's samples at its own size as ffmpeg's `mjpeg`
+//     decoder (cv2's VideoCapture) does: libavcodec's "simple" IDCT
+//     (mpeg4.cpp) with the level shift folded into the DC, no upsampling;
 //   - a JPEG encoder with libjpeg's defaults: islow forward DCT, the
 //     standard quantisation tables scaled by quality, 4:2:0 chroma averaged
 //     with libjpeg's alternating bias, edge replication and dummy blocks as
@@ -42,6 +46,9 @@
 #include <string>
 #include <thread>
 #include <vector>
+
+// libavcodec's simple IDCT (mpeg4.cpp)
+void c4d_simple_idct(int16_t* blk, int* res);
 
 namespace {
 
@@ -740,6 +747,7 @@ struct JpegDecoder {
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart = 0;
   bool frame = false, progressive = false, jfif = false, adobe = false;
+  bool header_only = false;  // stop after the frame header (the planes' sizes)
   int adobe_transform = -1;
   JpegComponent comp[4];
   // progressive scans: the scan's band and bit positions, the end-of-band
@@ -954,6 +962,7 @@ struct JpegDecoder {
             c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
           }
           frame = true;
+          if (header_only) return C4D_OK;
           break;
         }
         case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
@@ -1138,6 +1147,27 @@ struct JpegDecoder {
         for (int x = 0; x < width; ++x)
           out[static_cast<size_t>(y) * width + x] = static_cast<uint8_t>(at(y / fv, x / fh));
     }
+    return out;
+  }
+
+  // Component c's samples as ffmpeg's mjpeg decoder gives them (dw x dh):
+  // the dequantised block (int16 products, the DC offset by 1024, the level
+  // shift) through libavcodec's simple IDCT, clipped to 0..255.
+  std::vector<uint8_t> simple_plane(const JpegComponent& c) const {
+    std::vector<uint8_t> out(static_cast<size_t>(c.dw) * c.dh);
+    const uint16_t* q = qt[c.tq];
+    int16_t blk[64];
+    int res[64];
+    for (int by = 0; by * 8 < c.dh; ++by)
+      for (int bx = 0; bx * 8 < c.dw; ++bx) {
+        const int16_t* coef = c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64;
+        for (int k = 0; k < 64; ++k) blk[k] = static_cast<int16_t>(coef[k] * q[k]);
+        blk[0] = static_cast<int16_t>(std::min(32767, std::max(-32768, coef[0] * q[0] + 1024)));
+        c4d_simple_idct(blk, res);
+        for (int y = 0; y < 8 && by * 8 + y < c.dh; ++y)
+          for (int x = 0; x < 8 && bx * 8 + x < c.dw; ++x)
+            out[static_cast<size_t>(by * 8 + y) * c.dw + bx * 8 + x] = clamp255(res[8 * y + x]);
+      }
     return out;
   }
 
@@ -1480,6 +1510,36 @@ std::vector<uint8_t> encode_jpeg_buffer(const uint8_t* rgb, int w, int h, int qu
   return out;
 }
 
+// A JPEG's components as ffmpeg's mjpeg decoder gives them (JpegDecoder::
+// simple_plane); info: width, height, components, progressive, whether the
+// components are RGB, then each component's h and v factors and its
+// width and height (4 x 4 ints). With header_only, info alone, from the
+// markers up to the frame header.
+int decode_jpeg_planes(const uint8_t* data, size_t n, std::vector<uint8_t> planes[4], int info[21],
+                       bool header_only) {
+  if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return C4D_EFORMAT;
+  JpegDecoder dec;
+  dec.d = data;
+  dec.n = n;
+  dec.header_only = header_only;
+  if (int rc = dec.parse()) return rc;
+  if (!dec.frame) return C4D_ECORRUPT_JPEG;
+  info[0] = dec.width;
+  info[1] = dec.height;
+  info[2] = dec.ncomp;
+  info[3] = dec.progressive;
+  info[4] = dec.rgb_components();
+  for (int i = 0; i < dec.ncomp; ++i) {
+    const JpegComponent& c = dec.comp[i];
+    info[5 + 4 * i] = c.h;
+    info[6 + 4 * i] = c.v;
+    info[7 + 4 * i] = c.dw;
+    info[8 + 4 * i] = c.dh;
+    if (!header_only) planes[i] = dec.simple_plane(c);
+  }
+  return C4D_OK;
+}
+
 // ============================================================ file I/O ====
 
 // a PNG or JPEG image in memory (a file's bytes, or a video sample)
@@ -1675,6 +1735,23 @@ int c4d_decode_buffer(const uint8_t* data, long n, uint8_t* out, long cap_bytes,
   Image img;
   if (int rc = decode_bytes(data, static_cast<size_t>(n), &img)) return rc;
   return copy_out(img, out, cap_bytes, w, h);
+}
+
+// A JPEG video sample's component planes, as ffmpeg's mjpeg decoder makes
+// them (decode_jpeg_planes; info as there): each into planes[i] when its
+// caps[i] bytes hold it, else C4D_ECAPACITY with info filled (from the
+// header alone when planes[0] is null).
+int c4d_decode_jpeg_planes(const uint8_t* data, long n, uint8_t** planes, const long* caps,
+                           int* info) {
+  if (n < 0) return C4D_EARG;
+  std::vector<uint8_t> out[4];
+  const bool header_only = !planes[0];
+  if (int rc = decode_jpeg_planes(data, static_cast<size_t>(n), out, info, header_only)) return rc;
+  if (header_only) return C4D_ECAPACITY;
+  for (int i = 0; i < info[2]; ++i)
+    if (static_cast<long>(out[i].size()) > caps[i] || !planes[i]) return C4D_ECAPACITY;
+  for (int i = 0; i < info[2]; ++i) std::memcpy(planes[i], out[i].data(), out[i].size());
+  return C4D_OK;
 }
 
 // RGB (h, w, 3) uint8 → a baseline 4:2:0 JPEG file at `quality` (1..100).

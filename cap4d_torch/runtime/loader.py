@@ -1,6 +1,6 @@
 """ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``,
-the H.264 decoder ``h264.cpp``, the MPEG-4 Part 2 decoder ``mpeg4.cpp`` and
-the VP9 decoder ``vp9.cpp``).
+the H.264 decoder ``h264.cpp``, the MPEG-4 Part 2 decoder ``mpeg4.cpp``, the
+VP9 decoder ``vp9.cpp`` and the VP8 decoder ``vp8.cpp``).
 
 Counterpart of ``cap4d_tpu/runtime/loader.py``, with its own copy of the
 C++ source. The library carries its own PNG and JPEG codecs (the card's
@@ -23,12 +23,13 @@ import platform
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp", _HERE / "mpeg4.cpp", _HERE / "vp9.cpp"]
+SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp", _HERE / "mpeg4.cpp", _HERE / "vp9.cpp",
+           _HERE / "vp8.cpp"]
 BUILD_DIR = _HERE.parent / "_build"
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "c4d_decode_image": ([ctypes.c_char_p, _U8_P, ctypes.c_long, _INT_P, _INT_P], ctypes.c_int),
     "c4d_decode_buffer": ([ctypes.c_char_p, ctypes.c_long, _U8_P, ctypes.c_long, _INT_P, _INT_P],
                           ctypes.c_int),
+    "c4d_decode_jpeg_planes": ([ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(_U8_P),
+                                ctypes.POINTER(ctypes.c_long), _INT_P], ctypes.c_int),
     "c4d_encode_jpeg": ([ctypes.c_char_p, _U8_P, ctypes.c_int, ctypes.c_int, ctypes.c_int],
                         ctypes.c_int),
     "c4d_pool_create": ([ctypes.c_int], ctypes.c_void_p),
@@ -96,6 +99,15 @@ _SIGNATURES = {
     "c4d_vp9_tools": ([ctypes.c_void_p], ctypes.c_ulonglong),
     "c4d_vp9_reset": ([ctypes.c_void_p], None),
     "c4d_vp9_close": ([ctypes.c_void_p], None),
+    "c4d_vp8_open": ([ctypes.c_char_p, ctypes.c_int], ctypes.c_void_p),
+    "c4d_vp8_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p,
+                        ctypes.c_int], ctypes.c_int),
+    "c4d_vp8_output": ([ctypes.c_void_p, _U8_P, _U8_P, _U8_P], ctypes.c_int),
+    "c4d_vp8_scan": ([ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p, ctypes.c_int],
+                     ctypes.c_int),
+    "c4d_vp8_tools": ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)], None),
+    "c4d_vp8_reset": ([ctypes.c_void_p], None),
+    "c4d_vp8_close": ([ctypes.c_void_p], None),
 }
 
 
@@ -204,6 +216,89 @@ def decode_bytes(data: bytes, name: str = "image", shape=None) -> np.ndarray:
     RGB uint8 (H, W, 3); decoded once when its (H, W) is ``shape`` (a video
     track's size), twice otherwise; errors name ``name``."""
     return _decode(lib().c4d_decode_buffer, (data, len(data)), name, shape)
+
+
+class JpegPlanes(NamedTuple):
+    """A JPEG's components as ffmpeg's ``mjpeg`` decoder gives them
+    (:func:`decode_jpeg_planes`): each (dh, dw) uint8 plane, its (h, v)
+    sampling factors, and whether the frame is progressive or its
+    components are RGB (an Adobe marker's transform 0, or ids R, G, B)."""
+
+    planes: Tuple[np.ndarray, ...]
+    factors: Tuple[Tuple[int, int], ...]
+    progressive: bool
+    rgb: bool
+
+
+def decode_jpeg_planes(data: bytes, name: str = "image") -> JpegPlanes:
+    """A JPEG video sample's component planes at their own sizes, as
+    ffmpeg's ``mjpeg`` decoder makes them (libavcodec's simple IDCT, no
+    upsampling; not libjpeg's islow IDCT, which :func:`decode_bytes` keeps
+    for still images, as ``cv2.imread`` does); errors name ``name``."""
+    fn = lib().c4d_decode_jpeg_planes
+    info = (ctypes.c_int * 21)()
+    caps = (ctypes.c_long * 4)()
+    ptrs = (_U8_P * 4)()
+    status = fn(data, len(data), ptrs, caps, info)
+    if status not in (0, -2):
+        _check(status, name)
+    n = info[2]
+    planes = tuple(np.empty((info[8 + 4 * i], info[7 + 4 * i]), np.uint8) for i in range(n))
+    for i, p in enumerate(planes):
+        ptrs[i], caps[i] = p.ctypes.data_as(_U8_P), p.nbytes
+    _check(fn(data, len(data), ptrs, caps, info), name)
+    return JpegPlanes(planes, tuple((info[5 + 4 * i], info[6 + 4 * i]) for i in range(n)),
+                      bool(info[3]), bool(info[4]))
+
+
+# (luma factors, chroma factors) -> (horizontal, vertical) chroma subsampling
+# shift of the layouts ffmpeg's mjpeg decoder outputs as yuvj420p, yuvj422p,
+# yuvj444p, yuvj440p and yuvj411p
+JPEG_LAYOUTS = {((2, 2), (1, 1)): (1, 1), ((2, 1), (1, 1)): (1, 0), ((1, 1), (1, 1)): (0, 0),
+                ((1, 2), (1, 1)): (0, 1), ((4, 1), (1, 1)): (2, 0)}
+
+
+class MjpegDecoder:
+    """Motion-JPEG samples -> (Y, U, V) planes as ffmpeg's ``mjpeg``
+    decoder outputs them (:func:`decode_jpeg_planes`), for the reader's
+    planes path: full-range BT.601 (swscale converts ffmpeg's ``yuvj``
+    formats so), U and V None for a greyscale JPEG. Layouts ffmpeg gives
+    another format (RGB components, other sampling factors) and progressive
+    frames raise ``ValueError`` naming them."""
+
+    matrix, full_range = "bt601", True
+
+    def __init__(self, name: str = "Motion-JPEG stream"):
+        self.name = name
+
+    def decode(self, sample: bytes, what: str = ""):
+        where = f"{self.name} {what}".strip()
+        try:
+            jp = decode_jpeg_planes(sample, where)
+        except IOError as e:
+            raise ValueError(str(e)) from None
+        if jp.progressive:
+            raise ValueError(f"{where}: a progressive JPEG sample (ffmpeg's progressive "
+                             "Motion-JPEG decode is not copied)")
+        if len(jp.planes) == 1:
+            return jp.planes[0], None, None
+        factors = (jp.factors[0], jp.factors[1])
+        if jp.rgb or len(jp.planes) != 3 or jp.factors[1] != jp.factors[2]:
+            raise ValueError(f"{where}: a JPEG sample of {len(jp.planes)} components"
+                             f"{' coded as RGB' if jp.rgb else ''} (factors {jp.factors}): "
+                             "only greyscale and YCbCr Motion-JPEG are read")
+        hf, vf = factors[0][0] // factors[1][0], factors[0][1] // factors[1][1]
+        if (hf * factors[1][0], vf * factors[1][1]) != factors[0] or \
+                ((hf, vf), (1, 1)) not in JPEG_LAYOUTS:
+            raise ValueError(f"{where}: JPEG sampling factors {jp.factors}: only 4:2:0, 4:2:2, "
+                             "4:4:4, 4:4:0 and 4:1:1 Motion-JPEG are read")
+        return jp.planes
+
+    def reset(self) -> None:
+        """Nothing to drop: every sample stands alone."""
+
+    def close(self) -> None:
+        pass
 
 
 def encode_jpeg(path: str | Path, rgb: np.ndarray, quality: int = 95) -> None:

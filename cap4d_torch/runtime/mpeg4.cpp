@@ -1633,3 +1633,7 @@ void c4d_mpeg4_reset(void* dec) { static_cast<mpeg4::Decoder*>(dec)->reset(); }
 void c4d_mpeg4_close(void* dec) { delete static_cast<mpeg4::Decoder*>(dec); }
 
 }  // extern "C"
+
+// libavcodec's simple IDCT for the runtime's Motion-JPEG planes (cap4d_runtime.cpp): the
+// residual of a raster-order block, before clipping.
+void c4d_simple_idct(int16_t* blk, int* res) { mpeg4::simple::idct(blk, res); }

@@ -19,13 +19,21 @@ for, the container grants ``compute,utility`` only, and every
 
 :func:`nv12_to_rgb` is the colour conversion of decoded 4:2:0 planes: plain
 PyTorch, on whatever device the planes are on, tested on the CPU against
-cv2's decode of the port's own H.264 streams.
+cv2's decode of the port's own H.264 streams. :func:`yuv_to_rgb` is what
+cv2 applies to a decoded picture of any size and chroma layout: that
+unscaled converter where swscale takes it, and otherwise
+:func:`swscale_bicubic`, a copy of swscale's generic scaler with
+``SWS_BICUBIC`` to BGR24 (integer arithmetic only, so every device gives
+the same bytes). The scaler is written in PyTorch, not in the runtime's
+C++: each of its passes is a filter whose outputs are independent (no
+error diffusion reaches BGR24), so it runs on the reader's device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -93,9 +101,11 @@ def decoder_caps(codec: str, card: int = 0) -> Dict:
             "max": (caps.nMaxWidth, caps.nMaxHeight), "max_mbs": caps.nMaxMBCount}
 
 
-def _fixed_point(matrix: str, full_range: bool):
+def _fixed_point(matrix: str, full_range: bool, c_output: bool = False):
     """swscale's 16-bit multipliers for ``matrix``: (luma, luma offset,
-    V→R, U→B, U→G, V→G), each a 16.16 coefficient times 2**13, rounded."""
+    V→R, U→B, U→G, V→G), each a 16.16 coefficient times 2**13, rounded;
+    with ``c_output`` the luma offset times 2**9 (yuv2rgb_y_offset, for the
+    C full-chroma output) instead of 2**3."""
     crv, cbu, cgu, cgv = MATRICES[matrix]
     cgu, cgv = -cgu, -cgv
     cy, oy = 1 << 16, 0
@@ -105,8 +115,8 @@ def _fixed_point(matrix: str, full_range: bool):
     else:               # luma 16..235 to 0..255
         cy, oy = cy * 255 // 219, 16 << 16
     r16 = lambda x: (x + (1 << 15)) >> 16  # noqa: E731
-    return (r16(cy << 13), r16(oy << 3), r16(crv << 13), r16(cbu << 13), r16(cgu << 13),
-            r16(cgv << 13))
+    return (r16(cy << 13), r16(oy << (9 if c_output else 3)), r16(crv << 13), r16(cbu << 13),
+            r16(cgu << 13), r16(cgv << 13))
 
 
 def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
@@ -129,9 +139,17 @@ def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
     h, w = y.shape
     if uv.shape[:2] != ((h + 1) // 2, (w + 1) // 2):
         raise ValueError(f"chroma plane {tuple(uv.shape)} does not fit luma {h}x{w}")
+    return _unscaled(y, uv, 2, matrix, full_range)
+
+
+def _unscaled(y: torch.Tensor, uv: torch.Tensor, rows: int, matrix: str,
+              full_range: bool) -> np.ndarray:
+    """swscale's unscaled converter: each chroma sample over 2 columns and
+    ``rows`` rows of luma."""
+    h, w = y.shape
     cy, oy, vr, ub, ug, vg = _fixed_point(matrix, full_range)
     c = (uv.int() << 3) - (128 << 3)
-    c = c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :w]
+    c = c.repeat_interleave(rows, 0).repeat_interleave(2, 1)[:h, :w]
     u, v = c[..., 0], c[..., 1]
     luma = (((y.int() << 3) - oy) * cy) >> 16
     r = luma + ((v * vr) >> 16)
@@ -139,3 +157,290 @@ def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
     b = luma + ((u * ub) >> 16)
     rgb = torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
     return rgb.cpu().numpy()
+
+
+# --------------------------------------------- swscale's generic scaler --
+#
+# libswscale 9.5 (cv2 5.0.0's), x86-64, as cv2 runs it: sws_getContext(w, h,
+# yuv4xxp, W, H, BGR24, SWS_BICUBIC) with the stream's matrix and range.
+# - Filters (initFilter): bicubic with B = 0, C = 0.6 in 2^30 fixed point,
+#   1 + 4 taps to enlarge, 1 + 4 src/dst to shrink, the identity where the
+#   size and the sample position do not change; near-zero taps trimmed
+#   (0.002 of the sum), widths rounded up to 4 horizontally and 2
+#   vertically (x86's alignment; 1 for an unscaled vertical filter), taps
+#   past an edge folded onto the edge sample, then normalised to 2^14
+#   (horizontal) or 2^12 (vertical) with the rounding error carried along
+#   the taps.
+# - Chroma siting: the sample positions of get_local_pos (a subsampled
+#   plane's sample centred between its luma samples vertically and
+#   horizontally, 128 + 128 << sub >> sub in 1/256 of a sample).
+# - Horizontal pass: 8-bit samples times the taps, >> 7, capped at 2^15 - 1.
+# - Output: an odd output width, or chroma not subsampled in the input,
+#   forces full horizontal chroma interpolation, which the C
+#   yuv2rgb_full_X converts in 2^22 fixed point with swscale's int32
+#   wrap-around. Otherwise chroma is interpolated to half the output width
+#   and the MMXEXT yuv2bgr24_X converts (each vertical tap a pmulhw of the
+#   15-bit row by the 12-bit tap, summed in 16 bits from a rounder of 4;
+#   then the unscaled converter's pmulhw arithmetic, chroma repeated over
+#   pixel pairs), except the last two rows, which swscale leaves to the C
+#   yuv2rgb_X and its lookup tables. One vertical tap for luma and chroma
+#   takes yuv2bgr24_1 (a shift by 4: a rounder of 0).
+# - No dither reaches BGR24.
+# Two-tap vertical filters (pictures at most 8 rows high scaled, where
+# swscale takes its bilinear yuv2packed2 or blended yuv2packed1) are not
+# copied and raise.
+
+SWS_ONE_H, SWS_ONE_V = 1 << 14, 1 << 12
+
+
+def _c_div(a: int, b: int) -> int:
+    """C's integer division (truncating toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def _rounded_div(a: int, b: int) -> int:
+    """libavutil's ROUNDED_DIV."""
+    return (a + (b >> 1)) // b if a >= 0 else -((-a + (b >> 1)) // b)
+
+
+def _sample_pos(sub: int) -> int:
+    """get_local_pos: a plane's first sample position, 1/256 sample units,
+    for chroma subsampled by ``sub`` (the default, unspecified siting)."""
+    return ((128 << sub) - 128 + 128) >> sub
+
+
+def _xinc(src: int, dst: int) -> int:
+    return ((src << 16) + (dst >> 1)) // dst
+
+
+@functools.lru_cache(maxsize=64)
+def sws_filter(src: int, dst: int, one: int, align: int, src_pos: int,
+               dst_pos: int) -> Tuple[np.ndarray, np.ndarray]:
+    """swscale's initFilter for SWS_BICUBIC from ``src`` samples to ``dst``:
+    (taps (dst, size) int64 summing to ``one``, first source index (dst,))."""
+    inc = _xinc(src, dst)
+    fone = 1 << (54 - min((src // dst).bit_length() - 1 if src >= dst else 0, 8))
+    if abs(inc - 0x10000) < 10 and src_pos == dst_pos:
+        size, filt, pos = 1, [[fone] for _ in range(dst)], list(range(dst))
+    else:
+        size = 5 if inc <= 1 << 16 else 1 + (4 * src + dst - 1) // dst
+        size = max(min(size, src - 2), 1)
+        b, c = 0, int(0.6 * (1 << 24))
+        x = ((dst_pos * inc) >> 7) - ((src_pos * 0x10000) >> 7)
+        filt, pos = [], []
+        for _ in range(dst):
+            xx = _c_div(x - (size - 2) * (1 << 16), 1 << 17)
+            pos.append(xx)
+            row = []
+            for _ in range(size):
+                d = abs(xx * (1 << 17) - x) << 13
+                if inc > 1 << 16:
+                    d = d * dst // src
+                if d >= 1 << 31:
+                    coeff = 0
+                else:
+                    dd = (d * d) >> 30
+                    ddd = (dd * d) >> 30
+                    if d < 1 << 30:
+                        coeff = ((12 * (1 << 24) - 9 * b - 6 * c) * ddd
+                                 + (-18 * (1 << 24) + 12 * b + 6 * c) * dd
+                                 + (6 * (1 << 24) - 2 * b) * (1 << 30))
+                    else:
+                        coeff = ((-b - 6 * c) * ddd + (6 * b + 30 * c) * dd
+                                 + (-12 * b - 48 * c) * d + (8 * b + 24 * c) * (1 << 30))
+                row.append(_c_div(coeff, (1 << 54) // fone))
+                xx += 1
+            filt.append(row)
+            x += 2 * inc
+    # trim near-zero taps: from the left by moving the filter, then count the right
+    min_size = 0
+    for i in range(dst - 1, -1, -1):
+        keep, cut = size, 0
+        for _ in range(size):
+            cut += abs(filt[i][0])
+            if cut > 0.002 * fone or (i < dst - 1 and pos[i] >= pos[i + 1]):
+                break
+            filt[i] = filt[i][1:] + [0]
+            pos[i] += 1
+        cut = 0
+        for j in range(size - 1, 0, -1):
+            cut += abs(filt[i][j])
+            if cut > 0.002 * fone:
+                break
+            keep -= 1
+        min_size = max(min_size, keep)
+    if min_size == 1 and align == 2:
+        align = 1
+    out_size = (min_size + align - 1) & ~(align - 1)
+    filt = [[r[j] if j < size else 0 for j in range(out_size)] for r in filt]
+    for i, r in enumerate(filt):          # taps past the edges fold onto them
+        if pos[i] < 0:
+            for j in range(1, out_size):
+                left = max(j + pos[i], 0)
+                r[left] += r[j]
+                r[j] = 0
+            pos[i] = 0
+        if pos[i] + out_size > src:
+            shift = pos[i] + min(out_size - src, 0)
+            acc = 0
+            for j in range(out_size - 1, -1, -1):
+                if pos[i] + j >= src:
+                    acc += r[j]
+                    r[j] = 0
+            for j in range(out_size - 1, -1, -1):
+                r[j] = 0 if j < shift else r[j - shift]
+            pos[i] -= shift
+            r[src - 1 - pos[i]] += acc
+    taps = np.zeros((dst, out_size), np.int64)
+    for i, r in enumerate(filt):
+        total = max((sum(r) + one // 2) // one, 1)
+        err = 0
+        for j in range(out_size):
+            v = r[j] + err
+            taps[i, j] = _rounded_div(v, total)
+            err = v - int(taps[i, j]) * total
+    return taps, np.array(pos, np.int64)
+
+
+def _taps(src: int, dst: int, one: int, align: int, src_pos: int, dst_pos: int, device):
+    taps, pos = sws_filter(src, dst, one, align, src_pos, dst_pos)
+    index = np.minimum(pos[:, None] + np.arange(taps.shape[1]), src - 1)
+    return (torch.from_numpy(taps).to(device=device, dtype=torch.int32),
+            torch.from_numpy(index).to(device))
+
+
+def _hscale(plane: torch.Tensor, dst: int, src_pos: int, dst_pos: int) -> torch.Tensor:
+    """The horizontal pass: (rows, src) uint8 -> (rows, dst) int32, 15 bits."""
+    taps, index = _taps(plane.shape[1], dst, SWS_ONE_H, 4, src_pos, dst_pos, plane.device)
+    acc = (plane.int()[:, index] * taps).sum(-1, dtype=torch.int32)
+    return torch.clamp(acc >> 7, max=(1 << 15) - 1)
+
+
+def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Two's complement wrap-around of ``x`` to ``bits`` bits."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _pmulhw(a: torch.Tensor, b) -> torch.Tensor:
+    return (a * b) >> 16
+
+
+def _yuv_tables(matrix: str, full_range: bool, device):
+    """The lookup tables of swscale's C yuv2rgb (ff_yuv2rgb_c_init_tables at
+    24 bits per pixel): the luma table and each chroma term's offset into it
+    (table_rV, table_gU, table_gV, table_bU), indexed by sample + 512."""
+    crv, cbu, cgu, cgv = MATRICES[matrix]
+    cgu, cgv = -cgu, -cgv
+    cy, oy = 1 << 16, 0
+    if full_range:
+        crv, cbu, cgu, cgv = (_c_div(c * 224, 255) for c in (crv, cbu, cgu, cgv))
+    else:
+        cy, oy = cy * 255 // 219, 16 << 16
+    crv, cbu, cgu, cgv = (_c_div(c * (1 << 16) + 0x8000, cy) for c in (crv, cbu, cgu, cgv))
+    yoffs = (384 if full_range else 326) + 512
+    base = -(384 << 16) - 512 * cy - oy
+    luma = torch.clamp((base + torch.arange(2048, dtype=torch.int64) * cy + 0x8000) >> 16, 0, 255)
+    cl = torch.clamp(torch.arange(1280, dtype=torch.int64) - 512, 0, 255)
+    r_v, g_u, b_u = (yoffs - (c >> 9) + ((cl * c) >> 16) for c in (crv, cgu, cbu))
+    g_v = -(cgv >> 9) + ((cl * cgv) >> 16)
+    return tuple(t.to(device) for t in (luma, r_v, g_u, g_v, b_u))
+
+
+def _vertical(rows: torch.Tensor, taps: torch.Tensor, index: torch.Tensor, start: int,
+              stop: int, mmx: bool, rounder: int = 4) -> torch.Tensor:
+    """Output rows [start, stop) of the vertical pass over the 15-bit
+    ``rows``: the MMX filter (pmulhw per tap, 16-bit sums, times 8 the
+    sample) or the C sum (times 2^27)."""
+    out = None
+    for j in range(taps.shape[1]):
+        src = rows[index[start:stop, j]]
+        c = taps[start:stop, j, None]
+        if mmx:
+            term = _pmulhw(src, _wrap(c, 16))
+            out = _wrap((rounder if out is None else out) + term, 16)
+        else:
+            out = src * c if out is None else out + src * c
+    return out
+
+
+def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int,
+                    width: int, matrix: str = "bt601", full_range: bool = False) -> np.ndarray:
+    """Y, U and V uint8 planes (any device; chroma subsampled by 1 or 2 in
+    each direction, or by 4 horizontally) -> RGB uint8 (height, width, 3)
+    numpy, as swscale's generic scaler with SWS_BICUBIC to BGR24 gives it
+    (see the notes above this function)."""
+    if matrix not in MATRICES:
+        raise ValueError(f"matrix must be one of {sorted(MATRICES)}, got {matrix!r}")
+    h, w = y.shape
+    ch, cw = u.shape
+    subs = {(-(-w >> s), s) for s in range(3)}
+    sh = next((s for n, s in subs if n == cw), None)
+    sv = next((s for s in (0, 1) if -(-h >> s) == ch), None)
+    if sh is None or sv is None or v.shape != u.shape:
+        raise ValueError(f"chroma planes {tuple(u.shape)} and {tuple(v.shape)} do not fit "
+                         f"luma {h}x{w}")
+    full = bool(width & 1) or (sh == 0 and sv == 0)
+    dsh = 0 if full else 1
+    cdw = -(-width >> dsh)
+    lum_v = _taps(h, height, SWS_ONE_V, 2, 128, 128, y.device)
+    chr_v = _taps(ch, height, SWS_ONE_V, 2, _sample_pos(sv), _sample_pos(0), y.device)
+    if 2 in (lum_v[0].shape[1], chr_v[0].shape[1]):
+        raise ValueError(f"scaling {w}x{h} to {width}x{height}: swscale's two-tap vertical "
+                         "output (yuv2packed1/2, pictures at most 8 rows high) is not copied")
+    yh = _hscale(y, width, 128, 128)
+    uh, vh = (_hscale(c, cdw, _sample_pos(sh), _sample_pos(dsh)) for c in (u, v))
+    cy, oy, vr, ub, ug, vg = _fixed_point(matrix, full_range)
+    if full:      # the C yuv2rgb_full_X, every row
+        yy = (_vertical(yh, *lum_v, 0, height, False).long() + (1 << 9)) >> 10
+        uu, vv = ((_vertical(c, *chr_v, 0, height, False).long() + (1 << 9) - (128 << 19)) >> 10
+                  for c in (uh, vh))
+        k = _fixed_point(matrix, full_range, c_output=True)
+        yy = (yy - k[1]) * k[0] + (1 << 21)
+        r, g, b = yy + vv * k[2], yy + vv * k[5] + uu * k[4], yy + uu * k[3]
+        rgb = torch.stack([_wrap(x, 32).clamp_(0, (1 << 30) - 1) >> 22 for x in (r, g, b)], -1)
+        return rgb.to(torch.uint8).cpu().numpy()
+    rgb = torch.empty(height, width, 3, dtype=torch.uint8, device=y.device)
+    split = max(height - 2, 0)
+    if split:     # MMXEXT yuv2bgr24_X (yuv2bgr24_1 for one tap)
+        rounder = 0 if lum_v[0].shape[1] == 1 and chr_v[0].shape[1] == 1 else 4
+        yy = _vertical(yh, *lum_v, 0, split, True, rounder)
+        uu, vv = (_wrap(_vertical(c, *chr_v, 0, split, True, rounder) - (128 << 3), 16)
+                  for c in (uh, vh))
+        luma = _pmulhw(_wrap(yy - oy, 16), cy)
+        rep = lambda t: t.repeat_interleave(2, 1)[:, :width]  # noqa: E731
+        r = luma + rep(_pmulhw(vv, vr))
+        g = luma + rep(_wrap(_pmulhw(uu, ug) + _pmulhw(vv, vg), 16))
+        b = luma + rep(_pmulhw(uu, ub))
+        rgb[:split] = torch.stack([_wrap(x, 16) for x in (r, g, b)], -1).clamp_(0, 255)
+    if split < height:     # the C yuv2rgb_X for the last two rows
+        table, r_v, g_u, g_v, b_u = _yuv_tables(matrix, full_range, y.device)
+        yy = (_vertical(yh, *lum_v, split, height, False) + (1 << 18)) >> 19
+        uu, vv = (((_vertical(c, *chr_v, split, height, False) + (1 << 18)) >> 19)
+                  .repeat_interleave(2, 1)[:, :width].long() + 512 for c in (uh, vh))
+        yy = yy.long()
+        rgb[split:] = torch.stack([table[r_v[vv] + yy], table[g_u[uu] + g_v[vv] + yy],
+                                   table[b_u[uu] + yy]], -1).to(torch.uint8)
+    return rgb.cpu().numpy()
+
+
+def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int,
+               matrix: str = "bt601", full_range: bool = False) -> np.ndarray:
+    """A decoded picture's planes (any device; ``u``/``v`` None for
+    greyscale) -> RGB uint8 (height, width, 3) numpy, as cv2 converts it:
+    swscale's unscaled converter (:func:`nv12_to_rgb`'s arithmetic, chroma
+    repeated) for 4:2:0 and 4:2:2 at the output size with an even height,
+    grey repeated into the three channels, and :func:`swscale_bicubic`
+    for everything else."""
+    h, w = y.shape
+    if u is None:
+        if (h, w) != (height, width):
+            raise ValueError(f"a {w}x{h} greyscale picture shown at {width}x{height}: "
+                             "swscale's scaled grey path is not copied")
+        return y[..., None].expand(h, w, 3).cpu().numpy()
+    if (h, w) == (height, width) and not h & 1 and u.shape[1] == (w + 1) // 2 \
+            and u.shape[0] in (h, h // 2):
+        return _unscaled(y, torch.stack([u, v], -1), 1 if u.shape[0] == h else 2, matrix,
+                         full_range)
+    return swscale_bicubic(y, u, v, height, width, matrix, full_range)

@@ -36,7 +36,8 @@ from typing import List, Optional
 from cap4d_torch.data import mp4
 
 # codec -> the four-character code cv2's ffmpeg writes into an AVI
-AVI_FOURCC = {"h264": b"H264", "mpeg4": b"FMP4", "mjpeg": b"MJPG", "png": b"MPNG", "vp9": b"VP90"}
+AVI_FOURCC = {"h264": b"H264", "mpeg4": b"FMP4", "mjpeg": b"MJPG", "png": b"MPNG", "vp9": b"VP90",
+              "vp8": b"VP80"}
 AVIIF_KEYFRAME = 0x10
 
 
@@ -252,7 +253,8 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
               strip: int = 0, compress: bool = False, encrypted: bool = False,
               fps: int = 25, audio: bool = False,
               codec_id: Optional[str] = None, codec_private: Optional[bytes] = None,
-              negative: bool = False, vfw: bool = False, decoy: Optional[bytes] = None) -> None:
+              negative: bool = False, vfw: bool = False, decoy: Optional[bytes] = None,
+              block_additions: Optional[List[bytes]] = None) -> None:
     """Write ``s`` as Matroska (``doc_type`` "webm" for WebM). ``blocks``
     "simple" or "group", clusters of 8 frames or from a key frame on;
     ``lacing`` "xiph", "fixed" or "ebml" puts up to 3 frames a block (a key
@@ -265,7 +267,9 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
     V_MS/VFW/FOURCC (H.264 then as Annex-B, as an AVI carries it);
     ``codec_id`` / ``codec_private`` override the track's; ``decoy`` (a
     JPEG) adds a second video track after it, that JPEG in a block beside
-    each of the first's."""
+    each of the first's; ``block_additions`` (one payload a sample, with
+    ``blocks="group"``) gives each block a BlockAdditions element
+    (BlockAddID 1), where browsers put a VP8 alpha plane."""
     ms = 1000 // fps
     track_no = 2 if audio else 1
     if codec_id is None:
@@ -275,7 +279,7 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
             private = bitmap_info_header(AVI_FOURCC[s.codec], s.width, s.height, extra)
         else:
             codec_id = {"h264": "V_MPEG4/ISO/AVC", "mpeg4": "V_MPEG4/ISO/ASP",
-                        "mjpeg": "V_MJPEG", "vp9": "V_VP9"}[s.codec]
+                        "mjpeg": "V_MJPEG", "vp9": "V_VP9", "vp8": "V_VP8"}[s.codec]
             private = avcc(s.avc) if s.codec == "h264" else s.dsi
             samples = list(s.samples)
     else:
@@ -359,7 +363,9 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
                 inner += el(0xA3, block)
             else:
                 ref = b"" if key else el(0xFB, struct.pack(">b", -ms))
-                inner += el(0xA0, el(0xA1, block) + ref)
+                more = (el(0x75A1, el(0xA6, uint(0xEE, 1) + el(0xA5, block_additions[g[0]])))
+                        if block_additions else b"")
+                inner += el(0xA0, el(0xA1, block) + more + ref)
             if key:
                 cue_points.append((s.rank[g[0]] * ms, len(body_parts)))
         body_parts.append(inner)
@@ -397,10 +403,10 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
 # tests hold those frames against cap4d_tpu's cv2 reader; chip_smoke.py
 # holds the card's read of the same files, on a machine without cv2, here
 PINNED_CV2_RGB_SHA256 = {
-    "mjpg_avi": (24, "38a6b6c0566ce0f2868398fa4620054b74d1b44ec6fd629720cc8f7a6286f424"),
+    "mjpg_avi": (24, "342d8c47cd436a4a6169a3ddde90bc755fc312281764f2890f2ed9bf4f14508a"),
     "xvid_avi": (26, "60d79d5d6c3aa176bc8f0759501ecf2f86a07e87a098e15f24a64539c0a41db6"),
     "png_avi": (10, "da398da1ca8010cdba009979d893cee0026ad110820e845a98b560cf581ea778"),
-    "mjpg_mkv": (20, "04616a6c1952e679babf37aa9a33b7c7d2987b1e3fdd7fb1bc782cef3ac0bd54"),
+    "mjpg_mkv": (20, "fb95c10fd552bea5e8829685a8c58b5d28b20592163d244fed1694629360a659"),
     "mp4v_mkv": (26, "be39e977d43e397cb01354fcd9d70ab171ef5e8460f757f0dce8be07f4d97071"),
     "vp90_webm": (6, "a12092ffe59acde1c994c260a8c9af1d822be1639503405eda222b28a32568b2"),
 }

@@ -78,8 +78,16 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      to the SHA-256 of ffmpeg's planes that tier-1 pins, the RGB on the card
      equal to the CPU's, and a 16-frame 1080x1920 libvpx load timed (ms a
      frame decoding alone and with the RGB on the card, random access);
-     Motion-JPEG at 1080p (.mp4 and .mov) through the runtime, sequential
-     and random access, timed; MPEG-4 Part 2 (``runtime/mpeg4.cpp``):
+     swscale's bicubic scaler (``runtime/nvdec.py``) on the card equal to
+     the CPU on VP9's odd-height and rescaled frames; VP8
+     (``runtime/vp8.cpp``): every committed file under ``tests/data/vp8/``
+     (libvpx's, cv2's ``VP80`` writes, the MediaRecorder layout and
+     ``utils/vp8_writer.py``'s) decoded to the SHA-256 of ffmpeg's planes
+     that tier-1 pins, the RGB on the card equal to the CPU's, and a
+     16-frame 1080x1920 libvpx load timed the same way; Motion-JPEG at
+     1080p (.mp4 and .mov) through the runtime, its planes to the SHA-256
+     of ffmpeg's mjpeg decoder's, sequential and random access, timed;
+     MPEG-4 Part 2 (``runtime/mpeg4.cpp``):
      the cv2-written ``mp4v`` files under ``tests/data/mpeg4/`` and the
      random-syntax streams of ``utils/mpeg4_writer.py`` decoded to the
      SHA-256 of ffmpeg's planes that tier-1 pins, and a 60-frame 1080x1920
@@ -186,6 +194,14 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS = 989e12           # dense bf16 tensor cores
 FP32_FLOPS = 67e12            # fp32 outside the tensor cores
+
+
+# SHA-256 of ffmpeg's mjpeg planes (Y; U and V) of phase_video's 24 Motion-JPEG
+# frames (test_image(1080, 1920, k) through utils/synthetic_assets.py's
+# write_mjpeg_video), computed with cv2's libavcodec and held by
+# tests/test_torch_swscale.py
+MJPEG_1080_PLANES_SHA256 = (24, ("06c25030735ccc76767161ff954453b92a263f472b53ff51b8724e7632577fa0",
+                                 "c0ce0ab441d90314972dfea76f975136e99d5495db654cce3bad8fb6dcff3fbe"))
 
 
 def log(msg: str) -> None:
@@ -1413,8 +1429,11 @@ def phase_video(work: Path, card: str):
     timed (sequential frames/s, a random-access read and the samples it
     decodes, the decodes of a sequential read); VP9 (``phase_video_vp9``:
     the committed streams to ffmpeg's pinned plane hashes, RGB on the card
-    against the CPU, a 1080x1920 libvpx load timed); Motion-JPEG at 1080p (.mp4 and .mov)
-    through the runtime, sequential and random access, timed; MPEG-4 Part 2:
+    against the CPU, swscale's scaler on the card against the CPU, a
+    1080x1920 libvpx load timed); VP8 (``phase_video_vp8``: the same for
+    ``tests/data/vp8/``); Motion-JPEG at 1080p (.mp4 and .mov) through the
+    runtime, its planes to ffmpeg's pinned hashes, the RGB on the card
+    against the CPU, sequential and random access, timed; MPEG-4 Part 2:
     the committed cv2 files and the writer's streams to ffmpeg's pinned
     plane hashes, and a 1080x1920 Advanced Simple load timed; stage 1's
     reference loader on a Motion-JPEG and on an MPEG-4 video against the
@@ -1609,8 +1628,10 @@ def phase_video(work: Path, card: str):
     log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'} (a probe: no "
         f"codec goes to it)")
     phase_video_vp9(card, rng, count_decodes)
+    phase_video_vp8(card, rng, count_decodes)
 
-    # Motion-JPEG at 1080p through the runtime, in both sample entries
+    # Motion-JPEG at 1080p through the runtime, in both sample entries: the
+    # planes of ffmpeg's mjpeg decoder (pinned), the RGB on the card
     frames = [test_image(1080, 1920, k) for k in range(24)]
     reads = {}
     for name in ("mjpeg.mp4", "mjpeg.mov"):
@@ -1619,8 +1640,16 @@ def phase_video(work: Path, card: str):
         reader = VideoFrameReader(path, device="cuda")
         assert len(reader) == 24 and reader.track.codec == "mjpeg"
         t0 = time.perf_counter()
+        planes = [reader.planes(k) for k in range(24)]
+        planes_ms = 1e3 * (time.perf_counter() - t0) / 24
+        got = (len(planes), mw.planes_sha256(planes))
+        assert got == MJPEG_1080_PLANES_SHA256, f"{name}: planes {got}, ffmpeg's {MJPEG_1080_PLANES_SHA256}"
+        reader = VideoFrameReader(path, device="cuda")
+        t0 = time.perf_counter()
         seq = [reader[k] for k in range(24)]
         seq_ms = 1e3 * (time.perf_counter() - t0) / 24
+        cpu = VideoFrameReader(path, device="cpu")
+        assert all(np.array_equal(seq[k], cpu[k]) for k in (0, 11, 23)), "card vs CPU RGB"
         order = np.random.default_rng(0).permutation(24)
         t0 = time.perf_counter()
         rand = {int(k): load_frame(path, int(k)) for k in order}
@@ -1630,7 +1659,9 @@ def phase_video(work: Path, card: str):
         assert err < 4.0, err    # quality 90 and the frames' noise (std 4)
         reads[name] = seq
         log(f"[video] Motion-JPEG {name} 1920x1080, 24 frames ({path.stat().st_size} bytes): "
-            f"{seq_ms:.2f} ms a frame sequential, {rand_ms:.2f} ms a load_frame(k) in random "
+            f"planes equal ffmpeg's mjpeg decoder's (pinned SHA-256), {planes_ms:.2f} ms a frame "
+            f"decoding alone on one host thread; with the RGB on the card {seq_ms:.2f} ms a "
+            f"frame sequential (equal to the CPU's), {rand_ms:.2f} ms a load_frame(k) in random "
             f"order, equal; mean |frame - source| {err:.3f} | on {card}")
     assert all(np.array_equal(a, b) for a, b in zip(*reads.values())), ".mp4 and .mov differ"
 
@@ -1685,6 +1716,7 @@ def phase_video_vp9(card: str, rng, count_decodes):
     decoding alone, with the RGB conversion on the card, the decodes of a
     sequential read, and a random read's ms and samples decoded."""
     import numpy as np
+    import torch
 
     from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
     from cap4d_torch.utils import mpeg4_writer as mw
@@ -1716,6 +1748,26 @@ def phase_video_vp9(card: str, rng, count_decodes):
             f"SHA-256 equal ffmpeg's ({want[0][:16]}..., {want[1][:16]}...), RGB on the card "
             f"equals the CPU's")
 
+    # swscale's scaler (odd heights, frames coded at another size) on the card
+    from cap4d_torch.runtime.nvdec import swscale_bicubic
+
+    scaled = 0
+    for name in ("odd.webm", "resize.webm"):
+        reader = VideoFrameReader(data / name, device="cpu")
+        h, w = reader.track.height, reader.track.width
+        for k in range(len(reader._order)):
+            planes = reader.planes(k)
+            if planes[0].shape == (h, w) and h % 2 == 0:
+                continue       # the unscaled converter
+            outs = [swscale_bicubic(*(torch.from_numpy(p).to(dev) for p in planes), h, w,
+                                    reader._vp9.matrix, reader._vp9.full_range)
+                    for dev in ("cuda", "cpu")]
+            assert np.array_equal(*outs), f"{name} frame {k}: the scaler on the card vs the CPU"
+            scaled += 1
+    assert scaled >= 10, scaled
+    log(f"[video] swscale's bicubic scaler (runtime/nvdec.py) on the card equals the CPU on "
+        f"{scaled} VP9 frames of odd.webm and resize.webm (odd height, coded at other sizes)")
+
     # the timed load
     path = data / "load_1080.mp4"
     reader = VideoFrameReader(path, device="cuda")
@@ -1746,6 +1798,82 @@ def phase_video_vp9(card: str, rng, count_decodes):
         f"{1e3 * rgb_s / n:.1f} ms a frame; a random-access load_frame {rand_ms:.1f} ms "
         f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds {decode_s:.2f} "
         f"| on {card}")
+
+
+def phase_video_vp8(card: str, rng, count_decodes):
+    """VP8 input (``runtime/vp8.cpp``): every committed file under
+    ``tests/data/vp8/`` (libvpx's settings of each tool, cv2's VP80 writes in
+    WebM, Matroska and AVI, the MediaRecorder layout, and the writer's
+    header-level tools) decoded on the card's machine to the SHA-256 of
+    ffmpeg's planes (``vp8_writer.PINNED_SHA256``), in order and, but for
+    the timed load, shuffled; the RGB on the card equal to the CPU's on
+    every frame; then the 16-frame 1080x1920 libvpx load (vp08 in mp4,
+    realtime, 1.2 Mbit/s target, a key frame every 8) timed on one host
+    thread: ms a frame decoding alone, with the RGB conversion on the card,
+    the decodes of a sequential read, and a random read's ms and samples
+    decoded."""
+    import numpy as np
+
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
+    from cap4d_torch.utils import mpeg4_writer as mw
+    from cap4d_torch.utils import vp8_writer as vw
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "vp8"
+    files = sorted(data.glob("*.*"))
+    stems = {f.name.rsplit(".", 1)[0] for f in files}
+    assert stems == set(vw.PINNED_SHA256), sorted(stems ^ set(vw.PINNED_SHA256))
+    for path in files:
+        name = path.name.rsplit(".", 1)[0]
+        n, want = vw.PINNED_SHA256[name]
+        reader = VideoFrameReader(path, device="cuda")
+        pictures = [reader.planes(k) for k in range(len(reader._order))]
+        got = mw.planes_sha256(pictures)
+        assert (len(pictures), got) == (n, want), \
+            f"{path.name}: {len(pictures)} pictures, SHA-256 {got}; ffmpeg's {n}, {want}"
+        if name != "load_1080":
+            shuffled = VideoFrameReader(path, device="cuda")
+            for k in rng.permutation(n):
+                for a, b in zip(shuffled.planes(int(k)), pictures[k]):
+                    assert np.array_equal(a, b), f"{path.name} picture {k} (shuffled)"
+        cpu = VideoFrameReader(path, device="cpu")
+        for k in range(n):
+            assert np.array_equal(reader[k], cpu[k]), f"{path.name} frame {k}: card vs CPU RGB"
+        t = reader.track
+        log(f"[video] VP8 {path.name} {t.width}x{t.height}, {len(t)} samples, {n} pictures "
+            f"({path.stat().st_size} bytes, {len(reader._vp8.tools)} decoder tools): Y and U/V "
+            f"SHA-256 equal ffmpeg's ({want[0][:16]}..., {want[1][:16]}...), RGB on the card "
+            f"equals the CPU's")
+
+    # the timed load
+    path = data / "load_1080.mp4"
+    reader = VideoFrameReader(path, device="cuda")
+    n, (h, w) = len(reader), (reader.track.height, reader.track.width)
+    mbps = path.stat().st_size * 8 / (n / 30) / 1e6
+    calls = count_decodes(reader)
+    t0 = time.perf_counter()
+    for k in range(n):
+        reader.planes(k)
+    decode_s = time.perf_counter() - t0
+    assert calls[0] == n, f"a sequential read decoded {calls[0]} samples for {n} frames"
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    frames = [reader[k] for k in range(n)]
+    rgb_s = time.perf_counter() - t0
+    assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    order = rng.permutation(n)[:8]
+    decoded = count_decodes(open_video(path, "cuda"))
+    t0 = time.perf_counter()
+    for k in order:
+        assert np.array_equal(load_frame(path, int(k), device="cuda"), frames[k]), k
+    rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+    keys = int(np.count_nonzero(reader.track.sync))
+    log(f"[video] VP8 1080x1920 libvpx load (vp08 in mp4, realtime, cpu-used -8; a real "
+        f"encoder's stream), {n} frames ({path.stat().st_size} bytes, {mbps:.2f} Mbit/s at 30 "
+        f"fps, {keys} key frames): decode {1e3 * decode_s / n:.1f} ms a frame on one host "
+        f"thread, a sequential read decoded {calls[0]} samples for {n} frames; with the RGB "
+        f"conversion on the card {1e3 * rgb_s / n:.1f} ms a frame; a random-access load_frame "
+        f"{rand_ms:.1f} ms ({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
+        f"{decode_s:.2f} | on {card}")
 
 
 def phase_video_mpeg4(d: Path, card: str, rng, count_decodes):

@@ -3,11 +3,13 @@ in-memory decode, ``VideoFrameReader`` / ``load_frame``, ``nv12_to_rgb``)
 against cap4d_tpu's cv2 reader and cv2 itself, on files that cv2 or the
 port's own writers (``utils/synthetic_assets.py``) write into ``tmp_path``.
 
-Tolerances (measured here, cv2 5.0.0 on ffmpeg):
-- Motion-JPEG: the port decodes libjpeg-exact (equal to ``cv2.imdecode`` of
-  the same sample), cv2's ``VideoCapture`` through ffmpeg's mjpeg decoder
-  and swscale (nearest chroma, fixed point): max 13, mean 2.20 of 255 on
-  these frames; held at max 16, mean 3 (the reference frame set too).
+Exact, no tolerance (cv2 5.0.0 on ffmpeg):
+- Motion-JPEG: the port's video samples decode to the planes of ffmpeg's
+  mjpeg decoder (libavcodec's simple IDCT, ``runtime/loader.py``'s
+  ``decode_jpeg_planes``) and convert as swscale converts ``yuvj420p``
+  (full-range BT.601), so every frame equals cap4d_tpu's ``load_frame``
+  byte for byte (the reference frame set too); still images keep
+  libjpeg's decode, as ``cv2.imread`` does.
 - ``nv12_to_rgb`` (BT.601, limited range, chroma repeated over 2x2, in
   swscale's fixed point) against cv2's decode of the port's H.264 stream:
   bit for bit. A wrong range gives a mean of 5.9, a wrong matrix 7.9.
@@ -24,14 +26,13 @@ import torch
 from cap4d_torch.data import mp4
 from cap4d_torch.data.utils import VideoFrameReader, load_frame
 from cap4d_torch.runtime import loader as tl
-from cap4d_torch.runtime.nvdec import nv12_to_rgb
+from cap4d_torch.runtime.nvdec import nv12_to_rgb, yuv_to_rgb
 from cap4d_torch.utils import mpeg4_writer as mw
 from cap4d_torch.utils import synthetic_assets as sa
 from cap4d_tpu.data import utils as ju
 from tests.test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 H, W = 96, 128
-MJPEG_MAX, MJPEG_MEAN = 16, 3.0
 NV12_MAX, NV12_MEAN = 3, 1.0
 
 
@@ -164,7 +165,8 @@ def test_sample_tables_co64_chunks_and_ctts(tmp_path):
         assert t.sample(d) == jpegs[d]
     reader = VideoFrameReader(path, device="cpu")
     for k in range(6):
-        np.testing.assert_array_equal(reader[k], tl.decode_bytes(jpegs[t.order[k]]))
+        y, u, v = (torch.from_numpy(x) for x in tl.MjpegDecoder().decode(jpegs[t.order[k]]))
+        np.testing.assert_array_equal(reader[k], yuv_to_rgb(y, u, v, 32, 48, "bt601", True))
     # offsets above 4 GiB, chunks of 3, 3 and 1 samples
     sizes = np.array([10, 20, 30, 40, 50, 60, 70], np.int64)
     chunks = np.array([5 << 32, (5 << 32) + 1000, (6 << 32)], np.int64)
@@ -194,22 +196,22 @@ def test_decode_bytes_with_any_expected_shape(tmp_path, kind, shape):
 @pytest.mark.parametrize("label", ["mjpeg_mp4", "mjpeg_mov", "port_mjpeg_mp4",
                                    "port_mjpeg_mov"])
 def test_load_frame_mjpeg_matches_jax(videos, label):
-    """The port's load_frame on a Motion-JPEG file against cap4d_tpu's (cv2)
-    for every index, one past the end included (both warn and read the last
-    frame); each frame equals libjpeg's decode of its sample exactly."""
+    """The port's load_frame on a Motion-JPEG file equals cap4d_tpu's (cv2)
+    byte for byte for every index, in order and shuffled, one past the end
+    included (both warn and read the last frame); a sample decoded as a
+    still image keeps libjpeg's decode (cv2.imdecode), which differs."""
     path, frames = videos[label]
     t = mp4.read_track(path)
-    gaps = []
-    for k in range(len(frames) + 1):
+    n = len(frames) + 1
+    for k in list(range(n)) + [int(k) for k in np.random.default_rng(3).permutation(n)]:
         port = load_frame(path, k, device="cpu")
         ref = ju.load_frame(path, k)
         assert port.shape == ref.shape == (H, W, 3) and port.dtype == np.uint8
-        d = np.abs(port.astype(int) - ref)
-        gaps.append((d.max(), d.mean()))
-        exact = cv2.imdecode(np.frombuffer(t.sample(min(k, len(t) - 1)), np.uint8),
-                             cv2.IMREAD_COLOR)[..., ::-1]
-        np.testing.assert_array_equal(port, exact)
-    assert max(g[0] for g in gaps) <= MJPEG_MAX and max(g[1] for g in gaps) <= MJPEG_MEAN, gaps
+        np.testing.assert_array_equal(port, ref, err_msg=f"{label} frame {k}")
+    sample = t.sample(0)
+    still = cv2.imdecode(np.frombuffer(sample, np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+    np.testing.assert_array_equal(tl.decode_bytes(sample, "sample 0"), still)
+    assert not np.array_equal(load_frame(path, 0, device="cpu"), still)
 
 
 def test_nv12_to_rgb_against_cv2_h264(videos):
@@ -323,8 +325,11 @@ def test_reference_frame_set_from_mjpeg_video_matches_jax(tmp_path):
         items, extr = data.load_reference_items(ref_dir)
         sets.append(data.build_frame_set(fm, items, head, extr, 64, is_reference=True))
     j, t = sets
-    d = np.abs(t.images - j.images) * 127.5
-    assert np.abs(t.images).max() > 0.1 and d.max() <= MJPEG_MAX and d.mean() <= MJPEG_MEAN
+    for k in range(3):
+        np.testing.assert_array_equal(load_frame(video, k, device="cpu"),
+                                      ju.load_frame(video, k), err_msg=f"frame {k}")
+    assert np.abs(t.images).max() > 0.1
+    np.testing.assert_array_equal(t.images, j.images)
     np.testing.assert_allclose(t.out_crop_mask, j.out_crop_mask, atol=1e-6)
 
     # the decoded frames as a PNG directory with a white background

@@ -57,6 +57,7 @@ def _vpx():
     lib = ctypes.CDLL(glob.glob(str(LIBS / "libvpx-*.so*"))[0])
     for name, res, args in [
             ("vpx_codec_vp9_cx", _P, []), ("vpx_codec_vp9_dx", _P, []),
+            ("vpx_codec_vp8_cx", _P, []), ("vpx_codec_vp8_dx", _P, []),
             ("vpx_codec_enc_config_default", ctypes.c_int, [_P, _P, ctypes.c_uint]),
             ("vpx_codec_enc_init_ver", ctypes.c_int, [_P, _P, _P, ctypes.c_long, ctypes.c_int]),
             ("vpx_codec_dec_init_ver", ctypes.c_int, [_P, _P, _P, ctypes.c_long, ctypes.c_int]),
@@ -76,12 +77,15 @@ def _vpx():
 VPX_ENCODER_ABI = 37          # libvpx v1.15's VPX_ENCODER_ABI_VERSION
 VPX_DECODER_ABI = 12
 # vp8e_enc_control_id in libvpx v1.15 (VP9E_SET_ROI_MAP at 40 moves the later ones)
-CONTROLS = {"scale_mode": 11, "cpu_used": 13, "auto_alt_ref": 14, "sharpness": 16,
-            "lossless": 32, "tile_columns": 33, "tile_rows": 34, "frame_parallel": 35,
-            "aq_mode": 36, "color_space": 46, "color_range": 51, "render_size": 53,
-            "delta_q_uv": 67}
-# vpx_codec_enc_cfg_t fields by byte offset (libvpx v1.15, x86-64)
-CFG = {"threads": 4, "w": 12, "h": 16, "timebase": 28, "error_resilient": 36, "pass": 40,
+CONTROLS = {"scale_mode": 11, "cpu_used": 13, "auto_alt_ref": 14, "noise_sensitivity": 15,
+            "sharpness": 16, "static_threshold": 17, "token_partitions": 18, "arnr_max_frames": 21,
+            "arnr_strength": 22, "lossless": 32, "tile_columns": 33, "tile_rows": 34,
+            "frame_parallel": 35, "aq_mode": 36, "color_space": 46, "color_range": 51,
+            "render_size": 53, "delta_q_uv": 67}
+# vpx_codec_enc_cfg_t fields by byte offset (libvpx v1.15, x86-64); g_profile selects
+# VP8's version
+CFG = {"threads": 4, "profile": 8, "w": 12, "h": 16, "timebase": 28, "error_resilient": 36,
+       "pass": 40,
        "lag": 44, "end_usage": 72, "stats_buf": 80, "stats_size": 88, "bitrate": 112,
        "kf_max_dist": 168}
 GOOD, REALTIME = 1000000, 1      # vpx_codec_encode deadlines
@@ -115,20 +119,22 @@ def content(k, w, h, kind):
 
 
 def encode(w, h, n, kind="texture", deadline=GOOD, lag=0, cfg=None, controls=None, at=None,
-           two_pass=False):
-    """libvpx's VP9 encoder, one thread (deterministic): [(sample, key)].
-    ``cfg`` sets config fields (:data:`CFG` names), ``controls``
-    vpx_codec_control_ values (ints, or tuples passed as an int array),
-    ``at`` {frame: {control: value}} before that frame."""
+           two_pass=False, codec="vp9"):
+    """libvpx's VP9 (or, with ``codec="vp8"``, VP8) encoder, one thread
+    (deterministic): [(sample, key)]. ``cfg`` sets config fields
+    (:data:`CFG` names), ``controls`` vpx_codec_control_ values (ints, or
+    tuples passed as an int array), ``at`` {frame: {control: value}} before
+    that frame."""
+    args = (w, h, n, kind, deadline, lag, cfg, controls, at, codec)
     if two_pass:
-        stats = _encode(w, h, n, kind, deadline, lag, cfg, controls, at, 1)
-        return _encode(w, h, n, kind, deadline, lag, cfg, controls, at, 2, stats)
-    return _encode(w, h, n, kind, deadline, lag, cfg, controls, at, 0)
+        stats = _encode(*args, 1)
+        return _encode(*args, 2, stats)
+    return _encode(*args, 0)
 
 
-def _encode(w, h, n, kind, deadline, lag, cfg, controls, at, pass_, stats=None):
+def _encode(w, h, n, kind, deadline, lag, cfg, controls, at, codec, pass_, stats=None):
     lib = _vpx()
-    iface = lib.vpx_codec_vp9_cx()
+    iface = getattr(lib, f"vpx_codec_{codec}_cx")()
     conf = (ctypes.c_uint8 * 4096)()
     assert lib.vpx_codec_enc_config_default(iface, conf, 0) == 0
     u32 = np.frombuffer(conf, np.uint32, count=1024)
@@ -265,13 +271,14 @@ def ffmpeg_planes(samples):
     return ffmpeg_decode("vp9", samples)
 
 
-def libvpx_planes(samples):
+def libvpx_planes(samples, codec="vp9"):
     """libvpx's own decoder's (Y, U, V) of every picture (vpx_image_t's
     planes, strides and d_w/d_h at 48, 80 and 24/28)."""
     lib = _vpx()
     ctx = (ctypes.c_uint8 * 512)()
     cfg = (ctypes.c_uint32 * 8)(1)                          # threads 1
-    assert lib.vpx_codec_dec_init_ver(ctx, lib.vpx_codec_vp9_dx(), cfg, 0, VPX_DECODER_ABI) == 0
+    iface = getattr(lib, f"vpx_codec_{codec}_dx")()
+    assert lib.vpx_codec_dec_init_ver(ctx, iface, cfg, 0, VPX_DECODER_ABI) == 0
     out = []
     try:
         for s in samples:
@@ -364,22 +371,22 @@ def test_planes_bit_for_bit_and_pinned(refs, file_name):
     assert (t.codec, t.fourcc) == ("vp9", "vp09" if file_name.endswith(".mp4") else "V_VP9")
 
 
-# Streams whose RGB cv2 does not give by swscale's unscaled YUV -> BGR
-# converter, which nv12_to_rgb is (ROADMAP, "Measured parity gaps"): an odd
-# frame height and frames coded at another size than the stream's take
-# swscale's generic scaler (chroma interpolated, error-diffusion dither),
-# which the port approximates within these bounds (max, mean of 255); the
-# reserved colour space 6 swscale refuses, and cv2 returns its output buffer
-# as it stands (black, or bytes of an earlier conversion)
-RGB_GAPS = {"odd": (80, 8.0), "resize": (30, 4.0), "color60": None, "color61": None}
+# Streams whose RGB the port does not give as cv2 does (ROADMAP, "Measured
+# parity gaps"): the reserved colour space 6 swscale refuses, and cv2
+# returns its output buffer as it stands (black, or bytes of an earlier
+# conversion). An odd frame height and frames coded at another size than
+# the stream's take swscale's generic scaler, which runtime/nvdec.py copies
+# (swscale_bicubic): those are exact, in test_rgb_matches_cap4d_tpu
+RGB_GAPS = {"color60", "color61"}
 
 
 @pytest.mark.parametrize("file_name", [f for f in FILES if not f.startswith("load_1080")
                                        and _stream_of(f) not in RGB_GAPS])
 def test_rgb_matches_cap4d_tpu(file_name):
     """len is cv2's frame count; every frame's RGB equals cap4d_tpu's
-    load_frame (cv2's decode and conversion), read in order and shuffled;
-    past the pictures both raise IndexError."""
+    load_frame (cv2's decode and conversion: swscale's scaler for the odd
+    height of ``odd`` and the frames ``resize`` codes at other sizes), read
+    in order and shuffled; past the pictures both raise IndexError."""
     path = DATA / file_name
     reader = VideoFrameReader(path, device="cpu")
     jax_reader = ju.VideoFrameReader(path)
@@ -398,36 +405,20 @@ def test_rgb_matches_cap4d_tpu(file_name):
 
 @pytest.mark.parametrize("file_name", [f for f in FILES if _stream_of(f) in RGB_GAPS])
 def test_rgb_parity_gaps(file_name):
-    """Where cv2 leaves swscale's unscaled converter, the port's RGB has
-    cv2's length and shapes (a frame coded smaller is resampled to the
-    stream's size) and stays within the measured bounds, exact on the
-    frames that take the unscaled converter; the reserved colour space
-    converts as BT.601 where cv2 converts nothing. The planes are exact
-    (test_planes_bit_for_bit_and_pinned)."""
+    """The reserved colour space converts as BT.601 where cv2 converts
+    nothing; the port's RGB has cv2's length and shapes. The planes are
+    exact (test_planes_bit_for_bit_and_pinned)."""
     path = DATA / file_name
     reader = VideoFrameReader(path, device="cpu")
     assert len(reader) == int(cv2.VideoCapture(str(path)).get(cv2.CAP_PROP_FRAME_COUNT))
-    bound = RGB_GAPS[_stream_of(file_name)]
-    worst, means = 0, []
     for k in range(len(reader)):
         got, want = reader[k], ju.load_frame(path, k)
         assert got.shape == want.shape, k
-        if bound is None:
-            y, u, v = (torch.from_numpy(p) for p in reader.planes(k))
-            uv = torch.stack([u, v], -1)
-            np.testing.assert_array_equal(got, nv12_to_rgb(y, uv, "bt601", reader._vp9.full_range))
-            assert not any(np.array_equal(want, nv12_to_rgb(y, uv, m, r))
-                           for m in MATRICES for r in (False, True)), "cv2 converted colour space 6"
-            continue
-        diff = np.abs(got.astype(int) - want)
-        if reader.planes(k)[0].shape == (reader.track.height, reader.track.width) and \
-                reader.track.height % 2 == 0:
-            assert not diff.any(), f"frame {k} at the stream's even size"
-        worst, means = max(worst, int(diff.max())), means + [float(diff.mean())]
-    if bound is not None:
-        print(f"{file_name}: max |port - cv2| {worst}, mean over frames {np.round(means, 3)}")
-        assert worst <= bound[0] and max(means) <= bound[1], (worst, max(means))
-        assert worst > 0
+        y, u, v = (torch.from_numpy(p) for p in reader.planes(k))
+        uv = torch.stack([u, v], -1)
+        np.testing.assert_array_equal(got, nv12_to_rgb(y, uv, "bt601", reader._vp9.full_range))
+        assert not any(np.array_equal(want, nv12_to_rgb(y, uv, m, r))
+                       for m in MATRICES for r in (False, True)), "cv2 converted colour space 6"
 
 
 def test_load_1080_rgb_matches_cv2():
