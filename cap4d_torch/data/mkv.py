@@ -5,7 +5,10 @@ What it walks: the EBML header (DocType ``matroska`` or ``webm``), then
 the ``Segment``: ``Info`` (``TimestampScale``, ``Duration``), ``Tracks``
 (the first ``TrackEntry`` whose ``TrackType`` is 1, ffmpeg's first video
 stream: ``CodecID``, ``CodecPrivate``, ``PixelWidth``/``PixelHeight``,
-``DefaultDuration``, ``ContentEncodings``) and every ``Cluster``
+``Colour``'s ``ChromaSitingHorz``/``ChromaSitingVert`` (the chroma location
+ffmpeg gives the stream, which cv2's swscale applies to VP8 and VP9
+pictures: ``chroma_location``), ``DefaultDuration``, ``ContentEncodings``)
+and every ``Cluster``
 (``Timestamp``, then its ``SimpleBlock``s and ``BlockGroup``s). ``Cues``,
 ``SeekHead``, ``Tags`` and the rest are skipped: every cluster is read, so
 a file without ``Cues``, as live writers leave it, reads the same. A
@@ -71,6 +74,10 @@ _ABOVE_CLUSTER = {CLUSTER, 0x1C53BB6B, 0x1254C367, 0x1043A770, 0x1941A469, 0x114
                   TRACKS, SEGMENT, EBML}
 # bytes of a block read to parse its header and lace sizes
 HEAD_BYTES = 4096
+# Video/Colour's (ChromaSitingHorz, ChromaSitingVert) -> ffmpeg's chroma
+# location (matroskadec: av_chroma_location_pos_to_enum((h - 1) << 7,
+# (v - 1) << 7)); 0 (unspecified) in either gives none
+CHROMA_SITING = {(1, 2): "left", (2, 2): "center", (1, 1): "topleft", (2, 1): "top"}
 
 
 def _vint(buf: bytes, pos: int, keep_marker: bool = False) -> Tuple[int, int, bool]:
@@ -157,10 +164,15 @@ class _Track:
         self.private = bytes(buf[slice(*one(0x63A2, (0, 0)))])
         self.default_duration = _uint(buf, *one(0x23E383, (0, 0)))
         self.width = self.height = 0
+        self.chroma_location = None
         if 0xE0 in kids:
             video = _children(buf, *kids[0xE0][0])
             self.width = _uint(buf, *video.get(0xB0, [(0, 0)])[0])
             self.height = _uint(buf, *video.get(0xBA, [(0, 0)])[0])
+            if 0x55B0 in video:
+                colour = _children(buf, *video[0x55B0][0])
+                siting = tuple(_uint(buf, *colour.get(e, [(0, 0)])[0]) for e in (0x55B7, 0x55B8))
+                self.chroma_location = CHROMA_SITING.get(siting)
         self.prefix, self.zlib = b"", False
         if 0x6D80 in kids:
             self._encodings(buf, kids[0x6D80][0], where)
@@ -393,7 +405,7 @@ def _read(f: _File) -> VideoTrack:
     pts = np.array(times, np.int64) * scale
     t = VideoTrack(where, codec, fourcc, track.width, track.height, 1_000_000_000, offsets,
                    sizes, pts, pts.copy(), np.array(keys, bool), np.argsort(pts, kind="stable"),
-                   prefix=track.prefix, zlib=track.zlib)
+                   prefix=track.prefix, zlib=track.zlib, chroma_location=track.chroma_location)
     avc = m4v = None
     annexb = False
     if codec == "h264" and track.codec_id == "V_MPEG4/ISO/AVC":

@@ -1,5 +1,6 @@
 """An ISO-BMFF (``.mp4`` / ``.mov``) demuxer in pure Python: the sample
-table of a file's first video track.
+table of a file's first video track, as ffmpeg's mov demuxer (inside cv2)
+indexes it when it opens a seekable file.
 
 The JAX package reads video through cv2's ``VideoCapture`` (ffmpeg's mov
 demuxer); the card's machine has neither cv2 nor ffmpeg, so the port reads
@@ -10,9 +11,14 @@ What it walks: ``ftyp`` (optional, as in older QuickTime files), then
 ``moov/trak/mdia/{mdhd,hdlr,minf/stbl}``, taking the first track whose
 handler is ``vide``; in ``stbl`` the boxes ``stsd``, ``stts``, ``ctts``,
 ``stss``, ``stsc``, ``stsz``/``stz2`` and ``stco``/``co64``, and the track's
-``edts/elst``.
+``edts/elst``; then, where ``moov/mvex`` holds a ``trex`` for the track, the
+top-level ``moof`` and ``sidx`` boxes (fragmented mp4: MediaRecorder, OBS,
+ffmpeg's ``frag_keyframe``, DASH segments joined). ``styp``, ``mfra``,
+``emsg``, ``prft``, ``free`` and ``mdat`` carry no samples; ``mehd`` is read
+by no one (ffmpeg's count ignores it).
 
-Codecs (the first sample description; ``stsc`` may name no other):
+Codecs (the first sample description; ``stsc`` and the fragments may name
+no other):
 
 - ``avc1``/``avc3``: H.264, with ``avcC``'s SPS and PPS as Annex-B NAL units
   and its NAL length size;
@@ -31,32 +37,66 @@ Codecs (the first sample description; ``stsc`` may name no other):
 An ``mp4v`` of any other object type (MPEG-1 or MPEG-2 video, 0x60-0x65 and
 0x6A, ...) raises ``ValueError`` naming it. Anything else (HEVC's
 ``hvc1``/``hev1``, AV1's ``av01``, ...) raises naming the four-character
-code, as do
-fragmented files (a ``moof`` box), files without a video track and a
-malformed ``moov`` (a table that overruns its box, or that lists more
-samples than the file can hold).
+code, as do files without a video track and a malformed ``moov`` or
+``moof`` (a table that overruns its box, a flat table that lists more
+samples than the file can hold, a ``traf`` of a track without ``trex``).
 
-Frame ``k`` is the k-th sample in presentation order (decode times from
-``stts`` plus ``ctts``'s offsets, ties kept in decode order), as cv2's
+Frame ``k`` is the k-th frame in presentation order (decode times plus the
+composition offsets, ties kept in decode order), as cv2's
 ``CAP_PROP_POS_FRAMES`` counts them.
 
-The edit list: leading empty edits (``media_time`` -1, a delay) change no
-frame. The first non-empty edit's ``media_time`` drops the samples presented
-before it, as ffmpeg's mov demuxer does when it builds its index (it decodes
-them as references and discards them); an ``elst`` whose ``media_time``
-equals the first presentation time (x264's B-frame delay) drops nothing.
-The edit's duration is not applied: frames past it stay, where ffmpeg may
-drop them. An edit list of more than one non-empty edit raises. Every file
-that cv2 writes carries an ``elst`` that skips nothing, and the tests hold
-the frame count and frame order against cv2 on those.
+Fragments (ffmpeg's ``mov_read_tfhd``/``mov_read_trun``): each ``traf`` of
+the video track, others skipped (their runs still move the implicit data
+offset). ``tfhd`` gives the base (``base-data-offset``, the ``moof`` with
+``default-base-is-moof``, else the ``moof`` for the first ``traf`` and the
+end of the last run's data for a later one; a run without data offset
+starts at its ``traf``'s base) and overrides ``trex``'s sample description,
+duration, size and flags. A run's decode time is, in ffmpeg's order: where
+the last run of its ``traf`` ended; ``tfdt`` (v0/v1) less the edit list's
+offset; a ``sidx``'s time for its ``moof``; the track's end. ``tfdt``
+therefore wins over the summed durations: a gap stays a gap, and a sample
+whose time is not past the index entry before its run is decoded and
+shows no frame (ffmpeg's "fragments can overlap in time"). ``trun`` v0 and
+v1 composition offsets are both read signed. A sample is a key frame
+unless its flags (per sample, the first-sample flags, ``tfhd``'s or
+``trex``'s defaults) set ``sample_is_non_sync_sample`` or
+``sample_depends_on`` 1. A ``moov`` that holds samples is read first and
+its fragments after (hybrid files). A recording cut short keeps the
+samples before the first the file does not hold whole (a sample cut in
+two is dropped with those after it, where ffmpeg decodes it damaged); a
+file with none left raises ``ValueError``, as cv2 reads nothing.
+
+cv2's frame count: the moov's sample count (ffmpeg's ``nb_frames``, edit
+list or not); where the moov lists no sample, floor(duration × fps + 0.5)
+with ffmpeg's duration of the file (the longest track, each track's the
+larger of its ``mdhd`` duration and its runs' end, a ``sidx`` setting it
+to its own end; or the span from the earliest track start to the latest
+end) and the video's mean rate over its samples.
+
+The edit list (ffmpeg's ``mov_fix_index``) on a flat track: leading empty
+edits (``media_time`` -1) are a delay; every edit from the first media
+edit on shows the samples presented in [media time, media time +
+duration), one edit after another (an edit may repeat samples or put them
+out of order; an empty edit there reads as media time -1), and the samples
+outside every edit are decoded as references where needed and give no
+frame. ``media_rate`` is read as 1 for every edit, as ffmpeg reads it. An
+edit list of empty edits only shows nothing. cv2's count stays the
+sample count, so frames past the edited ones raise ``IndexError``, as cv2's
+read does. Several edits whose edited index cv2 cannot seek in (see
+:func:`edited_order`) raise ``ValueError``. In a fragmented file ffmpeg
+takes only the time offset (the first media edit's time less a leading
+empty edit) from the edit list, and every sample shows; a hybrid file whose
+moov's edits drop or repeat samples raises. Every file that cv2 writes
+carries an ``elst`` that skips nothing.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -112,8 +152,9 @@ class Mp4vConfig:
 @dataclass(frozen=True)
 class VideoTrack:
     """The first video track of ``path`` (an mp4/mov, AVI or Matroska file).
-    Sample arrays are in decode order; ``order[k]`` is the decode index of
-    frame ``k`` (presentation order).
+    Sample arrays are in decode order, ``len`` counts the samples;
+    ``order[k]`` is the decode index of frame ``k`` (presentation order, an
+    edit list applied: a sample may show twice, or not at all).
 
     ``timed`` is False where the container carries no presentation times
     (AVI): ``pts`` are then the decode indices and ``order`` is decode
@@ -121,7 +162,10 @@ class VideoTrack:
     own clock (``VideoFrameReader``). ``frame_count`` is cv2's
     CAP_PROP_FRAME_COUNT where it is not the number of samples (AVI's
     ``dwLength``; Matroska's duration times its frame rate, negative
-    without a duration). How :meth:`sample` restores each sample's bytes:
+    without a duration; a fragmented mp4's duration times its frame rate).
+    ``chroma_location`` is the chroma siting the container gives the
+    stream (Matroska's ChromaSiting), as ffmpeg names it; None where it
+    gives none. How :meth:`sample` restores each sample's bytes:
     zlib-compressed (``zlib``), after a stripped header (``prefix``; both
     Matroska ContentCompression), or Annex-B access units to rewrite with
     4-byte NAL lengths (``annexb``: H.264 in AVI)."""
@@ -146,9 +190,10 @@ class VideoTrack:
     prefix: bytes = b""
     zlib: bool = False
     annexb: bool = False
+    chroma_location: Optional[str] = None
 
     def __len__(self) -> int:
-        return len(self.order)
+        return len(self.sizes)
 
     def sample(self, index: int, limit: Optional[int] = None) -> bytes:
         """The bytes of the sample at decode index ``index``; with ``limit``,
@@ -207,12 +252,13 @@ def _child(boxes: Dict[str, Tuple[int, int]], kind: str, where: str) -> Tuple[in
     return boxes[kind]
 
 
-def _top_level(fh, where: str) -> Dict[str, Tuple[int, int]]:
-    """{type: (payload offset, payload size)} of the file's top-level boxes,
-    found by seeking (``mdat`` is never read here)."""
+def _top_level(fh, where: str) -> List[Tuple[str, int, int, int]]:
+    """(type, offset, header bytes, size) of each of the file's top-level
+    boxes in file order, found by seeking (``mdat`` is never read here); a
+    box the end of the file cuts keeps its stated size."""
     fh.seek(0, 2)
     file_size = fh.tell()
-    pos, out = 0, {}
+    pos, out = 0, []
     while pos + 8 <= file_size:
         fh.seek(pos)
         head = fh.read(16)
@@ -222,10 +268,9 @@ def _top_level(fh, where: str) -> Dict[str, Tuple[int, int]]:
             size, header = struct.unpack_from(">Q", head, 8)[0], 16
         elif size == 0:
             size = file_size - pos
-        name = kind.decode("latin-1")
         if size < header:
             raise ValueError(f"{where}: malformed box header at byte {pos}")
-        out.setdefault(name, (pos + header, min(size, file_size - pos) - header))
+        out.append((kind.decode("latin-1"), pos, header, size))
         pos += size
     return out
 
@@ -488,7 +533,7 @@ def sample_times(stts: np.ndarray, ctts: Optional[np.ndarray], n: int,
     if stts[:, 0].sum() != n:
         raise ValueError(f"{where}: stts covers {int(stts[:, 0].sum())} samples, stsz {n}")
     deltas = np.repeat(stts[:, 1], stts[:, 0])
-    dts = np.concatenate([[0], np.cumsum(deltas)[:-1]]).astype(np.int64)
+    dts = np.concatenate([[0], np.cumsum(deltas)])[:n].astype(np.int64)
     if ctts is None:
         return dts, dts.copy()
     if ctts[:, 0].sum() != n:
@@ -500,62 +545,417 @@ def sample_times(stts: np.ndarray, ctts: Optional[np.ndarray], n: int,
     return dts, dts + offs
 
 
-def edit_start(buf: bytes, elst: Optional[Tuple[int, int]], where: str) -> Optional[int]:
-    """The media time (in the track's timescale) the first non-empty edit
-    starts at, None without one; raises on more than one non-empty edit."""
+# ------------------------------------------------------------- edit lists ----
+
+def edit_list(buf: bytes, elst: Optional[Tuple[int, int]], where: str) -> Optional[np.ndarray]:
+    """``elst``'s (duration in the movie's timescale, media time in the
+    track's) rows, None without one; ``media_rate`` is not read (ffmpeg
+    reads every edit at rate 1, dwells and fast edits too)."""
     if elst is None:
         return None
-    a, _ = elst
-    version = buf[a]
-    fields = "QqhH" if version == 1 else "IihH"
-    table = _table(buf, elst, fields, where, "elst")
-    media = table[table[:, 1] != -1]
-    if len(media) == 0:
-        return None
-    if len(media) > 1:
-        raise ValueError(f"{where}: an edit list of {len(media)} media edits is not supported")
-    return int(media[0, 1])
+    fields = "QqhH" if buf[elst[0]] == 1 else "IihH"
+    return _table(buf, elst, fields, where, "elst")[:, :2]
 
+
+def _rescale(a: int, b: int, c: int) -> int:
+    """av_rescale: a * b / c rounded to the nearest, halves away from 0."""
+    q, r = divmod(abs(a) * b + c // 2, c)
+    return q if a >= 0 else -q
+
+
+def edited_order(dts: np.ndarray, pts: np.ndarray, sync: np.ndarray,
+                 edits: Optional[np.ndarray], media_scale: int, movie_scale: int,
+                 where: str, seekable: bool = True) -> np.ndarray:
+    """The frames of a flat track as ffmpeg's mov_fix_index shows them: the
+    edits from the first with a media time on, each the samples presented
+    in [media time, media time + duration) in presentation order (decode
+    order on ties), one after another; empty edits (media time -1) before
+    it are a delay, and one after it reads as an edit at media time -1. No
+    edit list: every sample; one of empty edits only: none.
+
+    cv2's seek finds frame k by the times of ffmpeg's edited index, so the
+    port reads frame k of several edits as the k-th frame only where that
+    index is a plain timeline (:func:`_plain_timeline`); several edits that
+    make another (edits of a stream that reorders, one after another, whose
+    decodes overlap) raise ``ValueError``, as cv2's seek there departs from
+    its sequential read. One edit keeps the stream's own times. ``seekable`` False skips that check (a hybrid file's
+    moov, whose edits the caller holds to showing every sample)."""
+    by_pts = np.argsort(pts, kind="stable")
+    if edits is None or not len(edits):
+        return by_pts
+    media = np.flatnonzero(edits[:, 1] != -1)
+    if not len(media):
+        return by_pts[:0]
+    if movie_scale <= 0:
+        raise ValueError(f"{where}: an edit list with a movie timescale of {movie_scale}")
+    sorted_pts = pts[by_pts]
+    spans = []
+    for k, (duration, time) in enumerate(edits):
+        length = _rescale(int(duration), media_scale, movie_scale)
+        spans.append((None if k < media[0] else int(time), length))
+    parts = [by_pts[slice(*np.searchsorted(sorted_pts, [t, t + d]))] for t, d in spans
+             if t is not None]
+    bad = _plain_timeline(dts, pts, sync, spans) if seekable and len(parts) > 1 else ""
+    if bad:
+        raise ValueError(f"{where}: an edit list of {len(parts)} media edits whose edited index "
+                         f"is no plain timeline ({bad}): cv2's seek there departs from its "
+                         "sequential read, so the port refuses the file")
+    return np.concatenate(parts)
+
+
+def _plain_timeline(dts: np.ndarray, pts: np.ndarray, sync: np.ndarray, spans) -> str:
+    """Where ffmpeg's edited index (mov_fix_index) is not a plain timeline,
+    what breaks it; "" where it is. Each edit ((media time or None for a
+    leading empty edit, length)) walks the samples from the sync sample
+    presented at or before its start to the second sync sample past its end
+    (the first one without reordering), times each with a counter that
+    starts where the edits before it end and runs from its first sample
+    inside it, and shows the samples inside it at that time plus their
+    composition offset. The timeline is plain when the index's times rise
+    and the shown frames follow one another a frame apart."""
+    n = len(dts)
+    reorders = bool(np.any(pts != dts))
+    frame = int(np.median(np.diff(np.sort(pts)))) if n > 1 else 1
+    index, shown = [], []
+    end = 0
+    for t, d in spans:
+        counter, end = end, end + d
+        if t is None:
+            continue
+        keys = np.flatnonzero(sync & (pts <= t) & (dts <= t))
+        i = int(keys[-1]) if len(keys) else 0
+        before, started, past, times = [], False, False, []
+        while i < n:
+            step = int(dts[i + 1] - dts[i]) if i + 1 < n else d
+            c = int(pts[i])
+            index.append(counter)
+            if t <= c < t + d:
+                if not started:       # the samples before it end where it starts
+                    started, at = True, counter
+                    for pos, dur in reversed(before):
+                        at -= dur
+                        index[pos] = at
+                times.append(counter + c - int(dts[i]))
+            elif not started:
+                before.append((len(index) - 1, step))
+            if started:
+                counter += step
+            if c + step >= t + d and sync[i]:
+                if reorders and not past:
+                    past = True
+                    i += 1
+                    continue
+                break
+            i += 1
+        shown += sorted(times)      # the decoder gives them in presentation order
+    if np.any(np.diff(index) <= 0):
+        return "its times fall back where an edit starts"
+    if shown and np.any(np.diff(shown) != frame):
+        k = int(np.flatnonzero(np.diff(shown) != frame)[0]) + 1
+        return f"frame {k} is not one frame after frame {k - 1}"
+    return ""
+
+
+def time_offset(edits: Optional[np.ndarray], media_scale: int, movie_scale: int) -> int:
+    """ffmpeg's time_offset of a track: the first media edit's media time
+    less a leading empty edit's duration (in the track's timescale)."""
+    if edits is None or not len(edits):
+        return 0
+    empty, first = 0, 0
+    if edits[0, 1] == -1:
+        empty = _rescale(int(edits[0, 0]), media_scale, movie_scale) if movie_scale > 0 else 0
+        first = 1
+    start = int(edits[first, 1]) if first < len(edits) and edits[first, 1] >= 0 else 0
+    return start - empty
+
+
+# -------------------------------------------------------------- fragments ----
+
+# tfhd and trun flags (ISO/IEC 14496-12 8.8.7, 8.8.8)
+TFHD_BASE, TFHD_DESCRIPTION, TFHD_DURATION, TFHD_SIZE, TFHD_FLAGS, TFHD_MOOF = (
+    0x1, 0x2, 0x8, 0x10, 0x20, 0x20000)
+TRUN_DATA, TRUN_FIRST, TRUN_DURATION, TRUN_SIZE, TRUN_FLAGS, TRUN_CTS = (
+    0x1, 0x4, 0x100, 0x200, 0x400, 0x800)
+# sample flags that make a sample no key frame, as ffmpeg's mov_read_trun
+# reads them: sample_is_non_sync_sample, and sample_depends_on 1
+NON_SYNC_BITS = 0x00010000 | 0x01000000
+
+
+@dataclass
+class _Trak:
+    """What a track's moov boxes give the fragment walk, and its state there:
+    times in the track's timescale, ``dts`` corrected by ``offset``
+    (ffmpeg's time_offset), ``end`` (ffmpeg's track_end) not."""
+
+    timescale: int
+    duration: int                      # mdhd's, then ffmpeg's st->duration
+    offset: int                        # time_offset
+    trex: Optional[Tuple[int, int, int, int]] = None   # description, duration, size, flags
+    end: int = 0
+    last_dts: Optional[int] = None     # the last index entry's
+    first_pts: Optional[int] = None
+    frames_for_fps: int = 0
+    duration_for_fps: int = 0
+    has_sidx: bool = False
+
+
+@dataclass
+class _Samples:
+    """The video track's samples in ffmpeg's index order."""
+
+    offsets: list
+    sizes: list
+    dts: list
+    cts: list
+    sync: list
+    shown: list
+
+
+def _walk_fragments(frags, traks: Dict[int, _Trak], video: int, out: _Samples, file_size: int,
+                    top, where: str) -> None:
+    """Each top-level ``sidx`` and ``moof`` (``frags``: (type, box offset,
+    box size, payload)), in file order, as ffmpeg's mov demuxer reads them
+    when it opens a seekable file: the video track's samples into ``out``,
+    every track's durations into ``traks``."""
+    sidx_pts: Dict[Tuple[int, int], int] = {}
+    for kind, box_at, box_size, p in frags:
+        if kind == "sidx":
+            _read_sidx(p, box_at + box_size, traks, sidx_pts, file_size, top, where)
+            continue
+        implicit = box_at
+        next_dts: Dict[int, int] = {}
+        for tkind, ta, tb in iter_boxes(p, 0, len(p), where):
+            if tkind != "traf":
+                continue
+            traf = list(iter_boxes(p, ta, tb, where))
+            heads = [(a, b) for k, a, b in traf if k == "tfhd"]
+            if not heads:
+                raise ValueError(f"{where}: a traf without tfhd")
+            a, _ = heads[0]
+            flags = int.from_bytes(p[a + 1:a + 4], "big")
+            track_id = struct.unpack_from(">I", p, a + 4)[0]
+            t = traks.get(track_id)
+            if t is None or t.trex is None:
+                raise ValueError(f"{where}: a traf of track {track_id}, which has no trex "
+                                 "(ffmpeg refuses the file)")
+            pos = a + 8
+            base = implicit
+            if flags & TFHD_BASE:
+                base = struct.unpack_from(">Q", p, pos)[0]
+                pos += 8
+            elif flags & TFHD_MOOF:
+                base = box_at
+            defaults = list(t.trex)      # description, duration, size, flags
+            for i, bit in enumerate((TFHD_DESCRIPTION, TFHD_DURATION, TFHD_SIZE, TFHD_FLAGS)):
+                if flags & bit:
+                    defaults[i] = struct.unpack_from(">I", p, pos)[0]
+                    pos += 4
+            description, duration, size, sflags = defaults
+            if track_id == video and description != 1:
+                raise ValueError(f"{where}: a fragment's samples use sample description "
+                                 f"{description}; the port reads the first only")
+            tfdt = None
+            for k, da, db in traf:
+                if k == "tfdt":
+                    tfdt = (struct.unpack_from(">Q", p, da + 4)[0] if p[da] == 1 else
+                            struct.unpack_from(">I", p, da + 4)[0])
+            for k, ra, rb in traf:
+                if k != "trun":
+                    continue
+                # ffmpeg's order: a run after another in the traf continues
+                # it; else tfdt (it wins over the summed durations, and a
+                # sample it puts at or before the index entry ahead of it
+                # is decoded and dropped), else the sidx's time, else the
+                # track's end; a run without data offset starts at the
+                # traf's base, the one after it too
+                if track_id in next_dts:
+                    dts = next_dts[track_id] - t.offset
+                elif tfdt is not None:
+                    dts = tfdt - t.offset
+                elif (box_at, track_id) in sidx_pts:
+                    dts = sidx_pts[box_at, track_id]
+                else:
+                    dts = t.end - t.offset
+                implicit = _read_trun(p, ra, rb, t, track_id == video, base, dts,
+                                      (duration, size, sflags), out, where)
+                next_dts[track_id] = t.end
+
+
+def _read_trun(p: bytes, a: int, b: int, t: _Trak, is_video: bool, base: int, dts: int,
+               defaults, out: _Samples, where: str) -> int:
+    """One ``trun``: the video track's samples into ``out``; returns the end
+    of its data (the next implicit base)."""
+    flags = int.from_bytes(p[a + 1:a + 4], "big")
+    n = struct.unpack_from(">I", p, a + 4)[0]
+    pos = a + 8
+    data = 0
+    if flags & TRUN_DATA:
+        data = struct.unpack_from(">i", p, pos)[0]
+        pos += 4
+    duration, size, sflags = defaults
+    first = sflags
+    if flags & TRUN_FIRST:
+        first = struct.unpack_from(">I", p, pos)[0]
+        pos += 4
+    fields = [f for f in (TRUN_DURATION, TRUN_SIZE, TRUN_FLAGS, TRUN_CTS) if flags & f]
+    if pos + 4 * len(fields) * n > b:
+        raise ValueError(f"{where}: trun lists {n} samples but holds fewer")
+    rows = np.frombuffer(p, ">u4", n * len(fields), pos).reshape(n, len(fields)).astype(np.int64)
+    col = {f: rows[:, i] for i, f in enumerate(fields)}
+    durations = col.get(TRUN_DURATION, np.full(n, duration, np.int64))
+    sizes = col.get(TRUN_SIZE, np.full(n, size, np.int64))
+    sample_flags = col.get(TRUN_FLAGS, np.array([first] + [sflags] * (n - 1), np.int64)[:n])
+    # composition offsets are signed in both versions, as ffmpeg reads them
+    cts = col.get(TRUN_CTS, np.zeros(n, np.int64)).astype(np.uint32).astype(np.int32)
+    starts = base + data + np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    times = dts + np.concatenate([[0], np.cumsum(durations)[:-1]]).astype(np.int64)
+    if n:
+        # fragments may overlap in time: ffmpeg decodes the samples whose
+        # dts is not past the index entry before them and drops their pictures
+        prev = t.last_dts
+        shown = times > prev if prev is not None else np.ones(n, bool)
+        if t.first_pts is None:
+            t.first_pts = int(times[0] + cts[0])
+        t.last_dts = int(times[-1])
+        if is_video:
+            out.offsets += starts.tolist()
+            out.sizes += sizes.tolist()
+            out.dts += times.tolist()
+            out.cts += cts.astype(np.int64).tolist()
+            out.sync += ((sample_flags & NON_SYNC_BITS) == 0).tolist()
+            out.shown += shown.tolist()
+    t.frames_for_fps += n
+    t.duration_for_fps += int(durations.sum())
+    t.end = dts + int(durations.sum()) + t.offset
+    t.duration = max(t.duration, t.end)
+    return int(base + data + sizes.sum())
+
+
+def _read_sidx(p: bytes, end: int, traks: Dict[int, _Trak], sidx_pts, file_size: int, top,
+               where: str) -> None:
+    """A ``sidx``: each referenced fragment's presentation time (ffmpeg times
+    a fragment without tfdt by it), and the track's duration."""
+    version = p[0]
+    track_id, scale = struct.unpack_from(">II", p, 4)
+    if scale == 0:
+        raise ValueError(f"{where}: sidx with a timescale of 0")
+    if version == 0:
+        pts, first = struct.unpack_from(">II", p, 12)
+        pos = 20
+    else:
+        pts, first = struct.unpack_from(">QQ", p, 12)
+        pos = 28
+    count = struct.unpack_from(">H", p, pos + 2)[0]
+    pos += 4
+    t = traks.get(track_id)
+    if t is None:
+        return
+    offset = end + first
+    for _ in range(count):
+        size, duration = struct.unpack_from(">II", p, pos)
+        pos += 12
+        if size & 0x80000000:
+            raise ValueError(f"{where}: sidx reference_type 1 (a sidx of sidx boxes) is not "
+                             "supported, as ffmpeg does not read it")
+        sidx_pts[offset, track_id] = _rescale(pts, t.timescale, scale)
+        offset += size
+        pts += duration
+    t.duration = t.end = pts       # as ffmpeg sets them: in the sidx's timescale
+    # the sidx reaches the end of the file, or an mfra that ends it: ffmpeg's index is complete
+    if offset == file_size or any(k == "mfra" and s == offset and s + n == file_size
+                                  for k, s, _, n in top):
+        for other in traks.values():      # ffmpeg gives tracks without a sidx this one's duration
+            if other is not t and not other.has_sidx:
+                other.duration = other.end = _rescale(t.duration, other.timescale, t.timescale)
+    t.has_sidx = True
+
+
+def frame_count(traks: Dict[int, _Trak], video: int) -> int:
+    """cv2's CAP_PROP_FRAME_COUNT of a track whose moov lists no sample:
+    floor(duration × fps + 0.5), the duration ffmpeg gives the file (the
+    longest track, or the span from the earliest start to the latest end,
+    in microseconds) and the video's mean frame rate over its samples."""
+    v = traks[video]
+    if not v.duration_for_fps:
+        return 0
+    spans = [(_rescale(t.first_pts, 1_000_000, t.timescale) if t.first_pts is not None else None,
+              _rescale(t.duration, 1_000_000, t.timescale)) for t in traks.values()]
+    duration = max(d for _, d in spans)
+    started = [(s, d) for s, d in spans if s is not None]
+    if started:
+        duration = max(duration, max(s + d for s, d in started) - min(s for s, _ in started))
+    fps = v.timescale * v.frames_for_fps / v.duration_for_fps
+    return int(math.floor(duration / 1_000_000 * fps + 0.5))
+
+
+# ------------------------------------------------------------------ tracks ----
 
 def read_track(path) -> VideoTrack:
-    """The sample table of the first video track of the mp4/mov ``path``."""
+    """The sample table of the first video track of the mp4/mov ``path``
+    (its moov's tables and, after them, its fragments')."""
     where = str(path)
     with open(path, "rb") as fh:
         top = _top_level(fh, where)
-        if "moof" in top:
-            raise ValueError(f"{where}: fragmented mp4 (moof) is not supported")
-        if "moov" not in top:
+        moov = next((box for box in top if box[0] == "moov"), None)
+        if moov is None:
             raise ValueError(f"{where}: no moov box (not an mp4/mov file, or a cut one)")
-        off, size = top["moov"]
-        fh.seek(off)
-        buf = fh.read(size)
+        _, start, header, size = moov
+        fh.seek(start + header)
+        buf = fh.read(size - header)
         file_size = fh.seek(0, 2)
+        # the fragments' boxes; a moof the end of the file cuts is not read
+        frags = []
+        for kind, start, header, size in top:
+            if kind in ("moof", "sidx") and start + size <= file_size:
+                fh.seek(start + header)
+                frags.append((kind, start, size, fh.read(size - header)))
     try:
-        return _first_video_track(buf, file_size, where)
+        return _first_video_track(buf, file_size, where, frags, top)
     except (struct.error, IndexError) as e:     # a field past the end of its box
-        raise ValueError(f"{where}: malformed moov box ({e})") from e
+        raise ValueError(f"{where}: malformed moov or moof box ({e})") from e
 
 
-def _first_video_track(buf: bytes, file_size: int, where: str) -> VideoTrack:
+def _first_video_track(buf: bytes, file_size: int, where: str, frags, top) -> VideoTrack:
     moov = _children(buf, 0, len(buf), where)
-    if "mvex" in moov:
-        raise ValueError(f"{where}: fragmented mp4 (mvex) is not supported")
+    movie_scale = struct.unpack_from(">I", buf, moov["mvhd"][0] + (20 if buf[moov["mvhd"][0]] == 1
+                                                                     else 12))[0] \
+        if "mvhd" in moov else 0
+    traks: Dict[int, _Trak] = {}
+    video = None
     for kind, ta, tb in iter_boxes(buf, 0, len(buf), where):
         if kind != "trak":
             continue
         trak = _children(buf, ta, tb, where)
-        if "mdia" not in trak:
+        if "mdia" not in trak or "tkhd" not in trak:
             continue
         mdia = _children(buf, *trak["mdia"], where)
-        if "hdlr" not in mdia or buf[mdia["hdlr"][0] + 8:mdia["hdlr"][0] + 12] != b"vide":
+        if "mdhd" not in mdia:
             continue
-        return _video_track(buf, trak, mdia, file_size, where)
-    raise ValueError(f"{where}: no video track")
+        a, _ = trak["tkhd"]
+        track_id = struct.unpack_from(">I", buf, a + (20 if buf[a] == 1 else 12))[0]
+        a, _ = mdia["mdhd"]
+        scale, duration = struct.unpack_from(">IQ" if buf[a] == 1 else ">II", buf,
+                                             a + (20 if buf[a] == 1 else 12))
+        edts = _children(buf, *trak["edts"], where) if "edts" in trak else {}
+        edits = edit_list(buf, edts.get("elst"), where)
+        traks.setdefault(track_id, _Trak(scale, duration, time_offset(edits, scale, movie_scale)))
+        if video is None and "hdlr" in mdia and \
+                buf[mdia["hdlr"][0] + 8:mdia["hdlr"][0] + 12] == b"vide":
+            video = (track_id, trak, mdia, edits)
+    if video is None:
+        raise ValueError(f"{where}: no video track")
+    if "mvex" in moov:
+        for kind, a, _ in iter_boxes(buf, *moov["mvex"], where):
+            if kind == "trex":
+                track_id, *trex = struct.unpack_from(">5I", buf, a + 4)
+                if track_id in traks:
+                    traks[track_id].trex = tuple(trex)
+    return _video_track(buf, *video, traks, movie_scale, file_size, where, frags, top)
 
 
-def _video_track(buf: bytes, trak, mdia, file_size: int, where: str) -> VideoTrack:
-    a, _ = _child(mdia, "mdhd", where)
-    timescale = struct.unpack_from(">I", buf, a + (20 if buf[a] == 1 else 12))[0]
+def _video_track(buf: bytes, track_id: int, trak, mdia, edits, traks, movie_scale: int,
+                 file_size: int, where: str, frags, top) -> VideoTrack:
+    t = traks[track_id]
     minf = _children(buf, *_child(mdia, "minf", where), where)
     stbl = _children(buf, *_child(minf, "stbl", where), where)
     codec, fourcc, width, height, avc, vpc, m4v = _sample_entry(buf, *_child(stbl, "stsd", where),
@@ -566,10 +966,12 @@ def _video_track(buf: bytes, trak, mdia, file_size: int, where: str) -> VideoTra
         chunks = _table(buf, stbl["co64"], "Q", where, "co64")[:, 0]
     else:
         chunks = _table(buf, stbl.get("stco"), "I", where, "stco")[:, 0]
-    offsets = sample_offsets(sizes, chunks, _table(buf, stbl.get("stsc"), "III", where, "stsc"),
-                             where)
+    stsc = _table(buf, stbl.get("stsc"), "III", where, "stsc")
+    offsets = (sample_offsets(sizes, chunks, stsc, where) if n or len(stsc) or len(chunks)
+               else np.zeros(0, np.int64))
+    stts = _table(buf, stbl.get("stts"), "II", where, "stts")
     ctts = _table(buf, stbl["ctts"], "II", where, "ctts") if "ctts" in stbl else None
-    dts, pts = sample_times(_table(buf, stbl.get("stts"), "II", where, "stts"), ctts, n, where)
+    dts, pts = sample_times(stts, ctts, n, where)
     if "stss" in stbl:
         sync = np.zeros(n, bool)
         idx = _table(buf, stbl["stss"], "I", where, "stss")[:, 0] - 1
@@ -578,11 +980,45 @@ def _video_track(buf: bytes, trak, mdia, file_size: int, where: str) -> VideoTra
         sync[idx] = True
     else:
         sync = np.ones(n, bool)
-    order = np.argsort(pts, kind="stable")
-    edts = _children(buf, *trak["edts"], where) if "edts" in trak else {}
-    start = edit_start(buf, edts.get("elst"), where)
-    if start is not None:
-        order = order[pts[order] >= start]
-    return VideoTrack(where, codec, fourcc, width, height, timescale, offsets, sizes, dts, pts,
-                      sync, order, avc, vpc, m4v)
-
+    fragmented = t.trex is not None and any(k == "moof" for k, *_ in frags)
+    order = edited_order(dts, pts, sync, edits, t.timescale, movie_scale, where, not fragmented)
+    if not fragmented:
+        if not n:
+            raise ValueError(f"{where}: the video track has no samples")
+        return VideoTrack(where, codec, fourcc, width, height, t.timescale, offsets, sizes, dts,
+                          pts, sync, order, avc, vpc, m4v, frame_count=n)
+    if n and (len(order) != n or np.any(order != np.argsort(pts, kind="stable"))):
+        raise ValueError(f"{where}: an edit list that drops or repeats samples of a moov that "
+                         "fragments follow (a hybrid file): cv2's seek there does not follow its "
+                         "read")
+    # the moov's samples, then the fragments'
+    t.end = t.duration_for_fps = int(stts[:, 0] @ stts[:, 1]) if n else 0
+    t.frames_for_fps = n
+    t.last_dts = int(dts[-1] - t.offset) if n else None
+    t.first_pts = int(pts[0] - t.offset) if n else None
+    out = _Samples(offsets.tolist(), sizes.tolist(), (dts - t.offset).tolist(),
+                   (pts - dts).tolist(), sync.tolist(), [True] * n)
+    _walk_fragments(frags, traks, track_id, out, file_size, top, where)
+    offsets = np.array(out.offsets, np.int64)
+    sizes = np.array(out.sizes, np.int64)
+    if not len(offsets):
+        raise ValueError(f"{where}: the video track has no samples")
+    # a recording cut short: cv2 reads the samples before the first the file
+    # does not hold whole (one the end cuts in two, which ffmpeg decodes
+    # damaged, goes with those after it)
+    past = np.flatnonzero(offsets + sizes > file_size)
+    keep = int(past[0]) if len(past) else len(offsets)
+    if keep == 0:
+        raise ValueError(f"{where}: no sample of the video track lies in the file "
+                         f"({len(offsets)} listed past its {file_size} bytes)")
+    dts = np.array(out.dts[:keep], np.int64)
+    cts = np.array(out.cts[:keep], np.int64)
+    shift = -min(0, int(np.min(out.cts)))      # ffmpeg's dts_shift
+    pts = dts + cts + shift
+    shown = np.flatnonzero(np.array(out.shown[:keep], bool))
+    order = shown[np.argsort(pts[shown], kind="stable")]
+    t.first_pts += shift
+    count = n or frame_count(traks, track_id)
+    return VideoTrack(where, codec, fourcc, width, height, t.timescale, offsets[:keep],
+                      sizes[:keep], dts, pts, np.array(out.sync[:keep], bool), order, avc, vpc,
+                      m4v, frame_count=count)

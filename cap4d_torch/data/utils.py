@@ -26,7 +26,7 @@ from cap4d_torch.data.mp4 import slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
 from cap4d_torch.runtime.loader import MjpegDecoder, decode_bytes, decode_image
 from cap4d_torch.runtime.mpeg4 import Mpeg4Decoder
-from cap4d_torch.runtime.nvdec import yuv_to_rgb
+from cap4d_torch.runtime.nvdec import CHROMA_POSITIONS, yuv_to_rgb
 from cap4d_torch.runtime import vp8
 from cap4d_torch.runtime.vp9 import Vp9Decoder, scan
 
@@ -167,7 +167,8 @@ class VideoFrameReader:
     0x20), VP8 (``runtime/vp8.py``: ``vp08``, ``V_VP8``, ``VP80``) and VP9
     (``runtime/vp9.py``: profile 0, ``vp09``, ``V_VP9``, ``VP90``) share one
     path, :meth:`planes`, and are read as cv2 counts frames: frame k is the
-    sample ``order[k]`` (``ctts`` order, the edit list applied; Matroska's
+    sample ``order[k]`` (``ctts`` order, the edit list applied, a
+    fragmented mp4's runs read as ffmpeg reads them; Matroska's
     block times; in an AVI, which carries no times, H.264's picture order
     count from a header scan, for MPEG-4 ffmpeg's output order: each anchor
     VOP after the B-VOPs that follow it in the file, and for VP8 and VP9
@@ -192,10 +193,15 @@ class VideoFrameReader:
     the stream's size, and so does the port (``runtime/nvdec.py``'s
     :func:`yuv_to_rgb`): the unscaled converter for 4:2:0 and 4:2:2 at the
     stream's size with an even height, else a copy of swscale's bicubic
-    scaler (an odd height, a VP8 or VP9 frame coded at another size), each
-    bit for bit. cv2's count
-    may differ from the samples (AVI's ``dwLength``, Matroska's duration
-    times its frame rate): frames past the samples raise ``IndexError``; a
+    scaler (an odd height, a VP8 or VP9 frame coded at another size) at the
+    chroma siting cv2 hands swscale (left for MPEG-4 Part 2, whose ffmpeg
+    decoder sets it on every picture; a Matroska track's ChromaSiting for
+    VP8 and VP9; swscale's default for the rest), each bit for bit. cv2's
+    count may differ from the frames it reads (AVI's ``dwLength``,
+    Matroska's duration times its frame rate, an mp4 edit list that shows
+    fewer frames than the samples, a fragmented mp4's duration times its
+    frame rate, a recording cut short): frames past them raise
+    ``IndexError``, as cv2's read does; a
     Matroska file without a duration gets a negative count from cv2, so
     ``len`` raises ``ValueError`` as Python's ``len`` does on the JAX
     reader, while indexing still reads its frames. The planes convert with
@@ -224,6 +230,7 @@ class VideoFrameReader:
         self._device = torch.device("cpu") if device is None else torch.device(device)
         self._h264 = self._mpeg4 = self._vp9 = self._vp8 = self._mjpeg = None
         self._order = t.order
+        self._chroma_pos = None
         self._count = len(t) if t.frame_count is None else t.frame_count
         if t.codec in ("h264", "mpeg4", "vp9", "vp8", "mjpeg"):
             if t.codec == "mjpeg":
@@ -246,6 +253,12 @@ class VideoFrameReader:
                 self._vp9 = Vp9Decoder(str(self.path))
                 self._hold_max = 0     # pictures show in decode order
                 self._scan_shown(lambda data, what: scan(data, what).shows)
+            # the chroma siting cv2 hands swscale: the decoder's (ffmpeg's
+            # decoders set it, but for VP8 and VP9), else the container's;
+            # centre it leaves at swscale's default (Motion-JPEG: the same
+            # RGB in every sampling layout, tests/test_torch_swscale.py)
+            loc = self._decoder.chroma_location or t.chroma_location
+            self._chroma_pos = None if loc in (None, "center") else CHROMA_POSITIONS[loc]
             self._frame_of = np.full(len(t), -1, np.int64)   # -1: not shown
             self._frame_of[self._order] = np.arange(len(self._order))
             # presentation times: the container's, else each sample's place
@@ -340,17 +353,32 @@ class VideoFrameReader:
                      if d is not None), None)
 
     def __getitem__(self, index: int) -> np.ndarray:
-        if not 0 <= index < len(self.track):
-            raise IndexError(index)
         if self._decoder is None:
-            sample = int(self.track.order[index])
+            if not 0 <= index < len(self._order):
+                raise IndexError(self._no_picture(index))
+            sample = int(self._order[index])
             return decode_bytes(self.track.sample(sample), f"{self.path} frame {index}",
                                 (self.track.height, self.track.width))
         y, u, v = (None if p is None else torch.from_numpy(p).to(self._device)
                    for p in self.planes(index))
         dec = self._decoder
         return yuv_to_rgb(y, u, v, self.track.height, self.track.width, dec.matrix,
-                          dec.full_range)
+                          dec.full_range, self._chroma_pos)
+
+    def _no_picture(self, index: int) -> str:
+        """Why cv2's read of frame ``index`` fails (its count may exceed the
+        frames it reads), for the IndexError."""
+        t, n, shown = self.track, len(self.track), len(self._order)
+        why = []
+        if len(t.order) != n:
+            why.append(f"the edit list (or a fragment's times or the end of the file) shows "
+                       f"{len(t.order)} of its {n} samples")
+        if shown < len(t.order):
+            what = ("are not-coded VOPs (vop_coded 0)" if self._mpeg4 is not None else
+                    "hold only hidden frames (show_frame 0)")
+            why.append(f"{len(t.order) - shown} {what}, which give ffmpeg no picture")
+        return (f"{self.path} frame {index}: cv2 reads {shown} frames of this file "
+                f"({'; '.join(why) or 'no frame past the last'}), though it counts {self._count}")
 
     def h264_planes(self, index: int):
         """Frame ``index`` of an H.264 track as its decoded (Y, U, V) uint8
@@ -367,15 +395,8 @@ class VideoFrameReader:
             raise ValueError(f"{self.path} is a {self.track.codec} track, which decodes to RGB "
                              "only")
         t = self.track
-        n = len(t)
         if not 0 <= index < len(self._order):
-            if not 0 <= index < n:
-                raise IndexError(index)
-            what = ("are not-coded VOPs (vop_coded 0)" if self._mpeg4 is not None else
-                    "hold only hidden frames (show_frame 0)")
-            raise IndexError(f"{self.path} frame {index}: the track has {n} samples but "
-                             f"{n - len(self._order)} {what}, which give ffmpeg no picture, "
-                             f"so cv2 reads {len(self._order)} frames")
+            raise IndexError(self._no_picture(index))
         sample = int(self._order[index])
         with self._lock:
             if self._last is not None and self._last[0] == sample:
@@ -451,12 +472,13 @@ class VideoFrameReader:
             key, clock = (0, j), "decode order"
         else:
             return self._mjpeg.decode(t.sample(j), what)    # each sample stands alone
-        if not t.timed:     # the order came from this clock
-            return planes
+        if not t.timed or self._frame_of[j] < 0:
+            return planes   # the order came from this clock, or the picture shows nowhere
         pts = int(t.pts[j])
         at = bisect.bisect_left(self._run, (key,))
         for other in self._run[max(at - 1, 0):at + 1]:
-            if (other[0] < key) != (other[1] < pts) or other[0] == key:
+            # equal times keep decode order, as the presentation order does
+            if (other[0] < key) != (other[1:] < (pts, j)) or other[0] == key:
                 (ke, pe, e), (kl, pl, l) = sorted([(key, pts, j), other], key=lambda r: r[1])
                 raise ValueError(
                     f"{self.path}: frame {self._frame_of[e]} (sample {e}) shows before frame "

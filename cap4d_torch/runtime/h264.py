@@ -50,7 +50,11 @@ class H264Decoder:
     no output process, so B streams' pictures come in decode order, each
     with its :class:`Picture` in :attr:`picture`. :attr:`dpb_frames` is the
     SPS's max_dec_frame_buffering (None without a VUI bitstream
-    restriction)."""
+    restriction). :attr:`chroma_location` is left, ffmpeg's for an SPS
+    without chroma_loc_info (the VUI's is not kept: 4:2:0 pictures have
+    even heights and take swscale's unscaled converter, which ignores it)."""
+
+    chroma_location = "left"
 
     def __init__(self, avc_config, name: str = "H.264 stream"):
         self.name = name

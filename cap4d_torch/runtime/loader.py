@@ -264,9 +264,10 @@ class MjpegDecoder:
     planes path: full-range BT.601 (swscale converts ffmpeg's ``yuvj``
     formats so), U and V None for a greyscale JPEG. Layouts ffmpeg gives
     another format (RGB components, other sampling factors) and progressive
-    frames raise ``ValueError`` naming them."""
+    frames raise ``ValueError`` naming them. :attr:`chroma_location` is
+    centre, what ffmpeg's ``mjpeg`` decoder sets on every picture."""
 
-    matrix, full_range = "bt601", True
+    matrix, full_range, chroma_location = "bt601", True, "center"
 
     def __init__(self, name: str = "Motion-JPEG stream"):
         self.name = name

@@ -45,7 +45,11 @@ class Mpeg4Decoder:
     :meth:`decode` takes the samples in decode order from a sync sample on
     (after :meth:`reset` when it jumps) and returns each sample's picture as
     (Y, U, V) uint8 planes of the VOL's size, in decode order (a B-VOP after
-    the reference that follows it), with its :class:`Vop` in :attr:`vop`."""
+    the reference that follows it), with its :class:`Vop` in :attr:`vop`.
+    :attr:`chroma_location` is left, what ffmpeg's ``mpeg4`` decoder sets on
+    every picture whatever the container says (cv2 hands it to swscale)."""
+
+    chroma_location = "left"
 
     def __init__(self, dsi: bytes, name: str = "MPEG-4 stream"):
         self.name = name

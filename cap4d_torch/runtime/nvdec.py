@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,9 +171,14 @@ def _unscaled(y: torch.Tensor, uv: torch.Tensor, rows: int, matrix: str,
 #   past an edge folded onto the edge sample, then normalised to 2^14
 #   (horizontal) or 2^12 (vertical) with the rounding error carried along
 #   the taps.
-# - Chroma siting: the sample positions of get_local_pos (a subsampled
-#   plane's sample centred between its luma samples vertically and
-#   horizontally, 128 + 128 << sub >> sub in 1/256 of a sample).
+# - Chroma siting: the sample positions of get_local_pos, from the source
+#   chroma position (src_h_chr_pos, src_v_chr_pos: 1/256 of a luma sample
+#   from the first luma sample, as av_chroma_location_enum_to_pos gives
+#   them; cv2 sets them from the frame's chroma location, left (0, 128)
+#   for MPEG-4 Part 2, Matroska's ChromaSiting for VP8 and VP9) or, unset,
+#   swscale's default: a subsampled plane's sample centred between its luma
+#   samples (128 << sub) - 128. Either way (pos + 128) >> sub in 1/256 of a
+#   chroma sample; the output's chroma keeps the default.
 # - Horizontal pass: 8-bit samples times the taps, >> 7, capped at 2^15 - 1.
 # - Output: an odd output width, or chroma not subsampled in the input,
 #   forces full horizontal chroma interpolation, which the C
@@ -191,6 +196,10 @@ def _unscaled(y: torch.Tensor, uv: torch.Tensor, rows: int, matrix: str,
 # copied and raise.
 
 SWS_ONE_H, SWS_ONE_V = 1 << 14, 1 << 12
+# ffmpeg's chroma locations (AVChromaLocation) as av_chroma_location_enum_to_pos
+# gives them: (horizontal, vertical) in 1/256 of a luma sample
+CHROMA_POSITIONS = {"left": (0, 128), "center": (128, 128), "topleft": (0, 0), "top": (128, 0),
+                    "bottomleft": (0, 256), "bottom": (128, 256)}
 
 
 def _c_div(a: int, b: int) -> int:
@@ -204,10 +213,13 @@ def _rounded_div(a: int, b: int) -> int:
     return (a + (b >> 1)) // b if a >= 0 else -((-a + (b >> 1)) // b)
 
 
-def _sample_pos(sub: int) -> int:
+def _sample_pos(sub: int, pos: Optional[int] = None) -> int:
     """get_local_pos: a plane's first sample position, 1/256 sample units,
-    for chroma subsampled by ``sub`` (the default, unspecified siting)."""
-    return ((128 << sub) - 128 + 128) >> sub
+    for chroma subsampled by ``sub`` at the chroma position ``pos`` (1/256
+    of a luma sample; None: unspecified, swscale's default)."""
+    if pos is None or pos == -1 or pos <= -513:
+        pos = (128 << sub) - 128
+    return (pos + 128) >> sub
 
 
 def _xinc(src: int, dst: int) -> int:
@@ -366,11 +378,13 @@ def _vertical(rows: torch.Tensor, taps: torch.Tensor, index: torch.Tensor, start
 
 
 def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int,
-                    width: int, matrix: str = "bt601", full_range: bool = False) -> np.ndarray:
+                    width: int, matrix: str = "bt601", full_range: bool = False,
+                    chroma_pos: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """Y, U and V uint8 planes (any device; chroma subsampled by 1 or 2 in
     each direction, or by 4 horizontally) -> RGB uint8 (height, width, 3)
     numpy, as swscale's generic scaler with SWS_BICUBIC to BGR24 gives it
-    (see the notes above this function)."""
+    (see the notes above this function). ``chroma_pos`` is the source's
+    (src_h_chr_pos, src_v_chr_pos), None for swscale's default."""
     if matrix not in MATRICES:
         raise ValueError(f"matrix must be one of {sorted(MATRICES)}, got {matrix!r}")
     h, w = y.shape
@@ -385,12 +399,13 @@ def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: i
     dsh = 0 if full else 1
     cdw = -(-width >> dsh)
     lum_v = _taps(h, height, SWS_ONE_V, 2, 128, 128, y.device)
-    chr_v = _taps(ch, height, SWS_ONE_V, 2, _sample_pos(sv), _sample_pos(0), y.device)
+    hpos, vpos = chroma_pos or (None, None)
+    chr_v = _taps(ch, height, SWS_ONE_V, 2, _sample_pos(sv, vpos), _sample_pos(0), y.device)
     if 2 in (lum_v[0].shape[1], chr_v[0].shape[1]):
         raise ValueError(f"scaling {w}x{h} to {width}x{height}: swscale's two-tap vertical "
                          "output (yuv2packed1/2, pictures at most 8 rows high) is not copied")
     yh = _hscale(y, width, 128, 128)
-    uh, vh = (_hscale(c, cdw, _sample_pos(sh), _sample_pos(dsh)) for c in (u, v))
+    uh, vh = (_hscale(c, cdw, _sample_pos(sh, hpos), _sample_pos(dsh)) for c in (u, v))
     cy, oy, vr, ub, ug, vg = _fixed_point(matrix, full_range)
     if full:      # the C yuv2rgb_full_X, every row
         yy = (_vertical(yh, *lum_v, 0, height, False).long() + (1 << 9)) >> 10
@@ -426,13 +441,15 @@ def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: i
 
 
 def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int,
-               matrix: str = "bt601", full_range: bool = False) -> np.ndarray:
+               matrix: str = "bt601", full_range: bool = False,
+               chroma_pos: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """A decoded picture's planes (any device; ``u``/``v`` None for
     greyscale) -> RGB uint8 (height, width, 3) numpy, as cv2 converts it:
     swscale's unscaled converter (:func:`nv12_to_rgb`'s arithmetic, chroma
-    repeated) for 4:2:0 and 4:2:2 at the output size with an even height,
-    grey repeated into the three channels, and :func:`swscale_bicubic`
-    for everything else."""
+    repeated, which ignores the chroma siting) for 4:2:0 and 4:2:2 at the
+    output size with an even height, grey repeated into the three channels,
+    and :func:`swscale_bicubic` at the source's ``chroma_pos`` for
+    everything else."""
     h, w = y.shape
     if u is None:
         if (h, w) != (height, width):
@@ -443,4 +460,4 @@ def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, w
             and u.shape[0] in (h, h // 2):
         return _unscaled(y, torch.stack([u, v], -1), 1 if u.shape[0] == h else 2, matrix,
                          full_range)
-    return swscale_bicubic(y, u, v, height, width, matrix, full_range)
+    return swscale_bicubic(y, u, v, height, width, matrix, full_range, chroma_pos)

@@ -71,9 +71,11 @@ class Vp8Decoder:
     as the colour range, and cv2, whose ffmpeg decodes with frame threads
     that each keep the bit they read last, converts that key frame as full
     range and the inter frames after it as limited range (all but those the
-    key frame's thread decodes again: ROADMAP's measured parity gaps)."""
+    key frame's thread decodes again: ROADMAP's measured parity gaps).
+    :attr:`chroma_location` is None: ffmpeg's ``vp8`` decoder sets none, so
+    the container's (Matroska's ChromaSiting) reaches swscale."""
 
-    matrix = "bt601"
+    matrix, chroma_location = "bt601", None
 
     def __init__(self, name: str = "VP8 stream"):
         self.name = name

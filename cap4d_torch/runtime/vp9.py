@@ -74,7 +74,11 @@ class Vp9Decoder:
     returns each sample's shown picture as (Y, U, V) uint8 planes of the
     frame's size (which may change from frame to frame), or None when the
     sample shows none (its frames are all hidden). :attr:`matrix` and
-    :attr:`full_range` are the colour of the last picture returned."""
+    :attr:`full_range` are the colour of the last picture returned.
+    :attr:`chroma_location` is None: ffmpeg's ``vp9`` decoder sets none, so
+    the container's (Matroska's ChromaSiting) reaches swscale."""
+
+    chroma_location = None
 
     def __init__(self, name: str = "VP9 stream"):
         self.name = name

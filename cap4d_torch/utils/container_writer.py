@@ -31,7 +31,7 @@ import struct
 import zlib as _zlib
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from cap4d_torch.data import mp4
 
@@ -54,6 +54,7 @@ class Stream:
     rank: List[int]
     avc: Optional[mp4.AvcConfig] = None
     dsi: bytes = b""
+    vpc: Optional[mp4.VpcConfig] = None
 
 
 def stream_of_mp4(path) -> Stream:
@@ -63,7 +64,7 @@ def stream_of_mp4(path) -> Stream:
     for k, j in enumerate(t.order):
         rank[int(j)] = k
     return Stream(t.codec, t.width, t.height, [t.sample(i) for i in range(len(t))],
-                  [bool(s) for s in t.sync], rank, t.avc, t.m4v.dsi if t.m4v else b"")
+                  [bool(s) for s in t.sync], rank, t.avc, t.m4v.dsi if t.m4v else b"", t.vpc)
 
 
 def _annexb_params(avc: mp4.AvcConfig) -> bytes:
@@ -254,7 +255,8 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
               fps: int = 25, audio: bool = False,
               codec_id: Optional[str] = None, codec_private: Optional[bytes] = None,
               negative: bool = False, vfw: bool = False, decoy: Optional[bytes] = None,
-              block_additions: Optional[List[bytes]] = None) -> None:
+              block_additions: Optional[List[bytes]] = None,
+              chroma_siting: Optional[Tuple[int, int]] = None) -> None:
     """Write ``s`` as Matroska (``doc_type`` "webm" for WebM). ``blocks``
     "simple" or "group", clusters of 8 frames or from a key frame on;
     ``lacing`` "xiph", "fixed" or "ebml" puts up to 3 frames a block (a key
@@ -269,7 +271,9 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
     JPEG) adds a second video track after it, that JPEG in a block beside
     each of the first's; ``block_additions`` (one payload a sample, with
     ``blocks="group"``) gives each block a BlockAdditions element
-    (BlockAddID 1), where browsers put a VP8 alpha plane."""
+    (BlockAddID 1), where browsers put a VP8 alpha plane; ``chroma_siting``
+    (ChromaSitingHorz, ChromaSitingVert: 0 unspecified, 1 left or top
+    collocated, 2 half) adds a Colour element with the two."""
     ms = 1000 // fps
     track_no = 2 if audio else 1
     if codec_id is None:
@@ -311,7 +315,9 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
                + (el(0x63A2, private) if private else b"")
                + (uint(0x23E383, ms * 1_000_000 if default_duration is True else default_duration)
                   if default_duration else b"")
-               + el(0xE0, uint(0xB0, s.width) + uint(0xBA, s.height))
+               + el(0xE0, uint(0xB0, s.width) + uint(0xBA, s.height)
+                    + (el(0x55B0, uint(0x55B7, chroma_siting[0]) + uint(0x55B8, chroma_siting[1]))
+                       if chroma_siting else b""))
                + (el(0x6D80, encodings) if encodings else b""))
     tracks = el(0x1654AE6B, (el(0xAE, uint(0xD7, 1) + uint(0x73C5, 0x1235) + uint(0x83, 2)
                                    + el(0x86, b"A_PCM/INT/LIT")
@@ -397,6 +403,315 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
     Path(path).write_bytes(out)
 
 
+# ------------------------------------------------------- fragmented mp4 --
+
+# The layouts the tests hold against cv2 and chip_smoke.py reads on the
+# card: name -> write_fragmented_mp4's keyword arguments
+FRAGMENTED_LAYOUTS = {
+    "gop": {},                       # ffmpeg's frag_keyframe: trex defaults, moof base, tfdt v1
+    "count5_tfhd_implicit": dict(fragment=5, defaults="tfhd", base="implicit"),
+    "sample_explicit_no_tfdt": dict(defaults="sample", base="explicit", tfdt=None),
+    "tfdt_v0_trun_v1": dict(tfdt=0, trun_version=1),
+    "trun_v0_negative": dict(delay=0),
+    "audio_implicit": dict(audio=True, base="implicit", fragment=4),
+    "audio_trun_v1": dict(audio=True, trun_version=1),
+    "dash_mfra": dict(dash=True, mfra=True),
+    "hybrid": dict(moov_samples=6),
+    "cut_short": dict(fragment=4, cut="short"),
+    "cut_no_mdat": dict(fragment=4, cut="no_mdat"),
+    "live": dict(zero_durations=True, tfdt=None),
+}
+# edit lists in frames ((media time, frames), -1 an empty edit): the four
+# ffmpeg reads with several media edits (a cut, a swap, a repeat, a delay
+# and a cut), on a stream of sync samples
+EDIT_LISTS = {"cut": [(0, 10), (20, 10)], "swap": [(20, 10), (0, 10)],
+              "repeat": [(5, 5), (5, 5)], "delay_cut": [(-1, 4), (0, 10), (15, 5)]}
+
+# trun/trex sample flags as ffmpeg's muxer writes them: a sync sample
+# depends on no other; any other depends on others and is not a sync sample
+SYNC_FLAGS, NON_SYNC_FLAGS = 0x02000000, 0x01010000
+TFHD_BASE, TFHD_DESCRIPTION, TFHD_DURATION, TFHD_SIZE, TFHD_FLAGS, TFHD_MOOF = (
+    0x1, 0x2, 0x8, 0x10, 0x20, 0x20000)
+TRUN_DATA, TRUN_FIRST, TRUN_DURATION, TRUN_SIZE, TRUN_FLAGS, TRUN_CTS = (
+    0x1, 0x4, 0x100, 0x200, 0x400, 0x800)
+AUDIO_TICKS = 512       # PCM frames (2 bytes each) of an audio sample, one a video frame
+
+
+def fragment_streams(d, mjpeg_frames) -> dict:
+    """{name: (flat file, Stream)} of the streams FRAGMENTED_LAYOUTS wraps,
+    written into the directory ``d``: the H.264 B and MPEG-4 B-VOP
+    writers' (their planes pinned in ``h264_writer`` and ``mpeg4_writer``),
+    the committed VP9 ``tests/data/vp9/writer.mp4`` and ``mjpeg_frames``
+    (RGB uint8) as Motion-JPEG of the port's encoder."""
+    from cap4d_torch.utils import h264_writer as hw
+    from cap4d_torch.utils import mpeg4_writer as mw
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    d = Path(d)
+    hw.write_h264_syntax_mp4(d / "h264_b.mp4", 128, 96, 16, 1, "cavlc", b_frames=True)
+    mw.write_mpeg4_syntax_mp4(d / "mpeg4_b.mp4", *mw.STREAMS["advanced"][:4],
+                              **mw.STREAMS["advanced"][4])
+    sa.write_mjpeg_video(d / "mjpeg.mov", mjpeg_frames)
+    vp9 = Path(__file__).resolve().parents[2] / "tests" / "data" / "vp9" / "writer.mp4"
+    return {name: (path, stream_of_mp4(path)) for name, path in (
+        ("h264_b", d / "h264_b.mp4"), ("mpeg4_b", d / "mpeg4_b.mp4"), ("vp9", vp9),
+        ("mjpeg", d / "mjpeg.mov"))}
+
+
+def write_edited_mp4(path, s: Stream, edits) -> None:
+    """``s`` as a flat mp4 (``synthetic_assets.write_mp4``) with the edit
+    list ``edits``, whose media times count frames from the first shown
+    (the stream's B-frame delay added, as ffmpeg's muxer writes it)."""
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    delay = max(j - r for j, r in enumerate(s.rank))
+    ctts = [r - j + delay for j, r in enumerate(s.rank)] if delay else None
+    edits = [(t + delay if t >= 0 else t, *rest) for t, *rest in edits]
+    sa.write_mp4(path, s.samples, mp4_sample_entry(s), s.width, s.height, sync=s.sync, ctts=ctts,
+                 edits=edits)
+
+
+def mp4_sample_entry(s: Stream) -> bytes:
+    """The mp4 sample entry of ``s``'s codec (``avc1``, ``mp4v``, ``vp09``,
+    ``vp08``, ``jpeg``, ``png ``)."""
+    from cap4d_torch.utils import synthetic_assets as sa
+    from cap4d_torch.utils.mpeg4_writer import esds_box
+
+    if s.codec == "h264":
+        kids = [sa._box(b"avcC", avcc(s.avc))]
+    elif s.codec == "mpeg4":
+        kids = [esds_box(s.dsi)]
+    elif s.codec == "vp9":
+        v = s.vpc
+        kids = [sa._full_box(b"vpcC", 1, 0, bytes([
+            v.profile, v.level, (v.bit_depth << 4) | (v.chroma_subsampling << 1) | v.full_range,
+            v.colour_primaries, v.transfer, v.matrix, 0, 0]))]
+    else:
+        kids = []
+    fourcc = {"h264": b"avc1", "mpeg4": b"mp4v", "vp9": b"vp09", "vp8": b"vp08", "mjpeg": b"jpeg",
+              "png": b"png "}[s.codec]
+    return sa.visual_sample_entry(fourcc, s.width, s.height, *kids)
+
+
+def _trak(track_id: int, handler: bytes, entry: bytes, stbl: List[bytes], width: int,
+          height: int, duration: int, edts: bytes = b"") -> bytes:
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    media = (sa._full_box(b"vmhd", 0, 1, b"\0" * 8) if handler == b"vide" else
+             sa._full_box(b"smhd", 0, 0, b"\0" * 4))
+    minf = sa._box(b"minf", media, sa._box(b"dinf", sa._full_box(
+        b"dref", 0, 0, struct.pack(">I", 1), sa._full_box(b"url ", 0, 1))),
+        sa._box(b"stbl", sa._full_box(b"stsd", 0, 0, struct.pack(">I", 1), entry), *stbl))
+    mdia = sa._box(b"mdia", sa._full_box(b"mdhd", 0, 0, struct.pack(
+        ">IIIIHH", 0, 0, sa.VIDEO_TIMESCALE, duration, 0x55C4, 0)),
+        sa._full_box(b"hdlr", 0, 0, b"\0" * 4, handler, b"\0" * 12, b"Handler\0"), minf)
+    tkhd = sa._full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, track_id, 0, duration),
+                        b"\0" * 8, struct.pack(">hhhH", 0, 0, 0, 0x100 if handler == b"soun" else 0),
+                        sa.UNITY_MATRIX, struct.pack(">II", width << 16, height << 16))
+    return sa._box(b"trak", tkhd, edts, mdia)
+
+
+def _flat_stbl(sizes: List[int], offsets: List[int], sync: List[bool],
+               cts: Optional[List[int]], ticks: int) -> List[bytes]:
+    """Sample tables of samples stored one a chunk (the hybrid file's moov)."""
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    n = len(sizes)
+    stbl = [sa._full_box(b"stts", 0, 0, struct.pack(">I", 1 if n else 0),
+                         struct.pack(">II", n, ticks) if n else b"")]
+    if cts is not None and n:
+        stbl.append(sa._full_box(b"ctts", 0, 0, struct.pack(f">I{2 * n}i", n, *[
+            v for c in cts for v in (1, c)])))
+    if n and not all(sync):
+        keys = [i + 1 for i, k in enumerate(sync) if k]
+        stbl.append(sa._full_box(b"stss", 0, 0, struct.pack(f">I{len(keys)}I", len(keys), *keys)))
+    stbl += [sa._full_box(b"stsc", 0, 0, struct.pack(">I", 1 if n else 0),
+                          struct.pack(">III", 1, 1, 1) if n else b""),
+             sa._full_box(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *sizes)),
+             sa._full_box(b"stco", 0, 0, struct.pack(f">I{n}I", n, *offsets))]
+    return stbl
+
+
+def write_fragmented_mp4(path, s: Stream, *, fragment="gop", defaults: str = "trex",
+                         base: str = "moof", tfdt: Optional[int] = 1, trun_version: int = 0,
+                         delay: Optional[int] = None, edits=None, audio: bool = False,
+                         dash: bool = False, mfra: bool = False, moov_samples: int = 0,
+                         cut: Optional[str] = None, tfdt_frames: Optional[List[int]] = None,
+                         zero_durations: bool = False,
+                         non_sync_flags: int = NON_SYNC_FLAGS) -> None:
+    """Write ``s`` at 24 fps as a fragmented mp4.
+
+    ``fragment``: "gop" (a fragment from each sync sample on, ffmpeg's
+    ``frag_keyframe``) or a sample count. ``defaults``: the sample
+    duration and flags in "trex", in "tfhd", or every field in each
+    "sample" of the ``trun`` (a run whose non-first sample is a sync sample
+    carries flags per sample in every mode). ``base``: "moof"
+    (default-base-is-moof, data offsets from the moof), "explicit"
+    (base-data-offset, the file offset of the traf's data) or "implicit"
+    (neither: the first traf's data offset is from its moof, a later
+    traf's data follows the previous traf's). ``tfdt``: its version, None
+    for none; ``tfdt_frames`` overrides each fragment's decode time (in
+    frames). ``trun_version`` 0 writes composition offsets plus ``delay``
+    frames (None: the least that makes them non-negative; a negative
+    offset is written as the signed number), 1 signed offsets with
+    ``delay`` 0; the edit list's media time is ``delay`` unless ``edits``
+    (``synthetic_assets.edit_box``'s edits; ``[]`` for none) is given.
+    ``audio``: a PCM track whose traf comes first in each moof, its data
+    first in each mdat. ``dash``: ``styp`` and ``sidx`` before each
+    fragment (DASH media segments joined after their init segment).
+    ``mfra``: ``mfra/tfra/mfro`` at the end. ``moov_samples``: that many
+    first samples in a flat ``mdat`` and the moov's tables (a hybrid file).
+    ``cut``: "short" ends the file after the first half of the last
+    fragment's samples (its ``mdat`` keeps its size), "no_mdat" before the
+    last fragment's ``mdat``. ``zero_durations`` writes 0 as the
+    mvhd, tkhd and mdhd durations, as a live writer leaves them;
+    ``non_sync_flags`` are the sample flags of a sample that is no sync
+    sample."""
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    box, full = sa._box, sa._full_box
+    ticks, n = sa.FRAME_TICKS, len(s.samples)
+    offsets_frames = [r - j for j, r in enumerate(s.rank)]
+    if delay is None:
+        delay = max(0, -min(offsets_frames)) if trun_version == 0 else 0
+    cts = [(c + delay) * ticks for c in offsets_frames]
+    has_cts = any(cts)
+    edts = sa.edit_box(edits if edits is not None else [(delay, n)], ticks) if (
+        edits or (edits is None and delay)) else b""
+    duration = 0 if zero_durations else n * ticks
+    entry = mp4_sample_entry(s)
+    audio_entry = box(b"sowt", b"\0" * 6, struct.pack(">H", 1), b"\0" * 8,
+                      struct.pack(">HHHHI", 1, 16, 0, 0, sa.VIDEO_TIMESCALE << 16))
+    ftyp = box(b"ftyp", b"iso6" if dash else b"isom", struct.pack(">I", 0x200),
+               b"iso6dashmsix" if dash else b"isomiso2iso5mp41")
+    # a hybrid file's flat part: ftyp, mdat with the first samples, then the moov
+    m = moov_samples
+    head = ftyp
+    flat_offsets = []
+    if m:
+        pos = len(ftyp) + 8
+        for j in range(m):
+            flat_offsets.append(pos)
+            pos += len(s.samples[j])
+        head += box(b"mdat", *s.samples[:m])
+    stbl = _flat_stbl([len(x) for x in s.samples[:m]], flat_offsets, s.sync[:m],
+                      cts[:m] if has_cts else None, ticks)
+    trex_dur, trex_flags = (ticks, non_sync_flags) if defaults == "trex" else (0, 0)
+    mvex = box(b"mvex", full(b"mehd", 0, 0, struct.pack(">I", duration)),
+               full(b"trex", 0, 0, struct.pack(">IIIII", 1, 1, trex_dur, 0, trex_flags)),
+               *([full(b"trex", 0, 0, struct.pack(">IIIII", 2, 1, ticks, 2 * AUDIO_TICKS, 0))]
+                 if audio else []))
+    traks = [_trak(1, b"vide", entry, stbl, s.width, s.height, duration, edts)]
+    if audio:
+        traks.append(_trak(2, b"soun", audio_entry, _flat_stbl([], [], [], None, 1), 0, 0,
+                           duration))
+    mvhd = full(b"mvhd", 0, 0, struct.pack(">IIIIIH", 0, 0, sa.VIDEO_TIMESCALE, duration,
+                                           0x10000, 0x100), b"\0" * 10, sa.UNITY_MATRIX,
+                b"\0" * 24, struct.pack(">I", 3 if audio else 2))
+    out = bytearray(head + box(b"moov", mvhd, *traks, mvex))
+
+    # the fragments: runs of decode indices
+    rest = list(range(m, n))
+    runs: List[List[int]] = []
+    for j in rest:
+        new = (s.sync[j] if fragment == "gop" else (j - m) % fragment == 0) or not runs
+        if new:
+            runs.append([j])
+        else:
+            runs[-1].append(j)
+    tfra = []
+    for seq, run in enumerate(runs, 1):
+        last = seq == len(runs)
+        video = [s.samples[j] for j in run]
+        pcm = [b"\0" * (2 * AUDIO_TICKS)] * len(run) if audio else []
+        per_sample_flags = defaults == "sample" or any(s.sync[j] for j in run[1:])
+        start = run[0] if tfdt_frames is None else tfdt_frames[seq - 1]
+
+        def trafs(moof_size: int, moof_pos: int):
+            data_pos = moof_pos + moof_size + 8      # the mdat's payload
+            parts, implicit_first = [], True
+            tracks = ([(2, pcm)] if audio else []) + [(1, video)]
+            at = data_pos
+            for track, samples in tracks:
+                size_all = sum(map(len, samples))
+                if track == 2:
+                    tf_flags = TFHD_DURATION | TFHD_SIZE
+                    tf_fields = struct.pack(">II", ticks, 2 * AUDIO_TICKS)
+                    count, tr_flags, rows, tr_first = len(samples), 0, b"", b""
+                    decode_time = start * ticks
+                else:
+                    tf_flags, tf_fields = 0, b""
+                    if defaults == "tfhd":
+                        tf_flags |= TFHD_DESCRIPTION | TFHD_DURATION | TFHD_FLAGS
+                        tf_fields = struct.pack(">III", 1, ticks, non_sync_flags)
+                    tr_flags = TRUN_SIZE | (TRUN_CTS if has_cts else 0)
+                    if defaults == "sample":
+                        tr_flags |= TRUN_DURATION
+                    tr_first = b""
+                    if per_sample_flags:
+                        tr_flags |= TRUN_FLAGS
+                    elif s.sync[run[0]]:
+                        tr_flags |= TRUN_FIRST
+                        tr_first = struct.pack(">I", SYNC_FLAGS)
+                    count = len(run)
+                    rows = b""
+                    for j in run:
+                        if tr_flags & TRUN_DURATION:
+                            rows += struct.pack(">I", ticks)
+                        rows += struct.pack(">I", len(s.samples[j]))
+                        if tr_flags & TRUN_FLAGS:
+                            rows += struct.pack(">I", SYNC_FLAGS if s.sync[j] else non_sync_flags)
+                        if tr_flags & TRUN_CTS:
+                            rows += struct.pack(">i", cts[j])
+                    decode_time = start * ticks
+                data_offset = b""
+                if base == "moof":
+                    tf_flags |= TFHD_MOOF
+                    tr_flags |= TRUN_DATA
+                    data_offset = struct.pack(">i", at - moof_pos)
+                elif base == "explicit":
+                    tf_flags |= TFHD_BASE
+                    tf_fields = struct.pack(">Q", at) + tf_fields
+                elif implicit_first:
+                    tr_flags |= TRUN_DATA
+                    data_offset = struct.pack(">i", at - moof_pos)
+                implicit_first = False
+                tfhd = full(b"tfhd", 0, tf_flags, struct.pack(">I", track), tf_fields)
+                dt = b"" if tfdt is None else full(
+                    b"tfdt", tfdt, 0, struct.pack(">Q" if tfdt else ">I", decode_time))
+                trun = full(b"trun", trun_version if track == 1 else 0, tr_flags,
+                            struct.pack(">I", count), data_offset, tr_first, rows)
+                parts.append(box(b"traf", tfhd, dt, trun))
+                at += size_all
+            return parts
+
+        mfhd = full(b"mfhd", 0, 0, struct.pack(">I", seq))
+        size = len(box(b"moof", mfhd, *trafs(0, 0)))
+        if dash:      # the segment's earliest presentation time, its moof and mdat
+            seg_pts = min(s.rank[j] for j in run) + delay
+            out += box(b"styp", b"msdh", struct.pack(">I", 0), b"msdhmsix")
+            out += full(b"sidx", 1, 0, struct.pack(">IIQQHH", 1, sa.VIDEO_TIMESCALE,
+                                                   seg_pts * ticks, 0, 0, 1),
+                        struct.pack(">III", size + 8 + sum(map(len, video + pcm)),
+                                    len(run) * ticks, 0x90000000))
+        moof_pos = len(out)
+        out += box(b"moof", mfhd, *trafs(size, moof_pos))
+        tfra.append((start * ticks, moof_pos))
+        payload = b"".join(pcm) + b"".join(video)
+        if last and cut == "no_mdat":
+            break
+        if last and cut == "short":     # the file ends after half the run's samples
+            out += struct.pack(">I4s", 8 + len(payload), b"mdat")
+            out += b"".join(pcm) + b"".join(video[:len(video) // 2])
+            break
+        out += box(b"mdat", payload)
+    if mfra:      # tfra (version 1, one-byte traf, trun and sample numbers), then mfro
+        body = full(b"tfra", 1, 0, struct.pack(">III", 1, 0, len(tfra)),
+                    b"".join(struct.pack(">QQBBB", t, p, 1, 1, 1) for t, p in tfra))
+        out += box(b"mfra", body, full(b"mfro", 0, 0, struct.pack(">I", 8 + len(body) + 16)))
+    Path(path).write_bytes(bytes(out))
+
+
 # The cv2-written files under tests/data/containers/ (cv2 5.0.0's
 # VideoWriter; tests/test_torch_containers.py writes them): cv2's frame
 # count and the SHA-256 of the port's RGB frames, every frame in order. The
@@ -412,6 +727,47 @@ PINNED_CV2_RGB_SHA256 = {
 }
 CV2_FILE_SUFFIX = {"mjpg_avi": ".avi", "xvid_avi": ".avi", "png_avi": ".avi", "mjpg_mkv": ".mkv",
                    "mp4v_mkv": ".mkv", "vp90_webm": ".webm"}
+
+
+# SHA-256 of the port's RGB frames of every FRAGMENTED_LAYOUTS layout of
+# each stream (layouts_sha256) and of EDIT_LISTS' files (rgb_sha256, with the
+# frame count); tests/test_torch_fragmented.py holds those frames against
+# cv2, chip_smoke.py reads the same files on the card
+PINNED_FRAGMENTED_RGB_SHA256 = {
+    "h264_b": "c3ec1b04ab576931f11b5797c01c1eafd20303f015997059001ed0bf33f9356e",
+    "mpeg4_b": "91233b63e4bd02899bec73d232ff376bb30865e786a559361f07f0c4442a30cb",
+    "vp9": "4aa7432bf164b7f73ec92eb6da3b20bc010d29492f3b6fa993df860676bfdd95",
+    "mjpeg": "d2fa827e5271d6e06e505fdd93db95ef7ae4caca6d40439da72d6d682cb0b937",
+}
+PINNED_EDIT_RGB_SHA256 = {
+    "cut": (20, "08e49bdeb8b49dff5bafc43c349a82ae351f187167a9cdf2b2586fe5ee9243dd"),
+    "swap": (20, "ca1873fb37f9a70ae16766e1d8e504a00977679290c01e99dd6fa83bcd5d86b2"),
+    "repeat": (10, "83389b99f611eea66dbf428f0c4ae94bf2102f6b06ec56a82d812b1ffbb91430"),
+    "delay_cut": (15, "53112772d44f633249c8e3c1f2ce546946926e4a4dd1be4c48005ab1124f4078"),
+    "fragmented": (20, "326b60f7cda25fb6bc3da12c53fbbc67f1eda21bf8bd58007761c6cfe4136d55"),
+}
+# the fragmented file of PINNED_EDIT_RGB_SHA256: the MPEG-4 B-VOP stream with
+# two media edits, of which ffmpeg takes only the first's time offset
+FRAGMENTED_EDITS = [(1, 10), (6, 5)]
+
+
+def layouts_sha256(readers) -> str:
+    """SHA-256 of each reader's length and RGB frames (up to the first that
+    raises IndexError), reader after reader."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for r in readers:
+        h.update(struct.pack("<q", len(r)))
+        for k in range(len(r)):
+            try:
+                frame = r[k]
+            except IndexError:
+                break
+            h.update(np.ascontiguousarray(frame).tobytes())
+    return h.hexdigest()
 
 
 def rgb_sha256(frames) -> str:

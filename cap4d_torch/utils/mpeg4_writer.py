@@ -898,6 +898,17 @@ PINNED_CV2_SHA256: Dict[str, Tuple[str, str]] = {
                    "23200f198d61c08a9eb4ac2476b52637639ec45e29348de0f2c8164ae09e3a36"),
 }
 
+# A stream at an odd height (B-VOPs, so every VOP is coded): cv2 converts its
+# pictures through swscale's scaler with the left chroma siting ffmpeg's
+# mpeg4 decoder gives them. The SHA-256 of the port's RGB frames (its frame
+# count first; container_writer.rgb_sha256), held against cap4d_tpu's
+# load_frame by tests/test_torch_swscale.py, and on the card by chip_smoke.py
+ODD_STREAM = dict(n_frames=6, seed=1, b_frames=True)
+PINNED_ODD_RGB_SHA256 = {
+    (99, 57): (6, "f3fac20f083a28f2491a9fd1bf295d192b5f55838d56d314b3c54103bf673690"),
+    (97, 57): (6, "460f447cd3af044d53b397ebf232d3fd49d92c5cd156312bd66b997214311a4c"),
+}
+
 REFUSALS = {"interlaced": "interlaced", "sprite": "sprite_enable 1", "gmc": "sprite_enable 2",
             "data_partitioned": "data_partitioned", "rvlc": "reversible_vlc",
             "short_header": "short_video_header", "scalability": "scalability",

@@ -519,15 +519,18 @@ def visual_sample_entry(fourcc: bytes, width: int, height: int, *children: bytes
 
 def write_mp4(path, samples, entry: bytes, width: int, height: int, sync=None,
               brand: bytes = b"isom", ctts=None, per_chunk: int = 1, co64: bool = False,
-              edit_start: int = 0) -> None:
+              edit_start: int = 0, edits=None) -> None:
     """One video track at 24 fps: ``samples`` (bytes each, in decode order)
     described by the sample entry ``entry``, ``sync`` the sync flags (all
     when None), an edit list that skips nothing (as cv2 writes), or whose
     media time is ``edit_start`` frames (the first sample's composition
-    offset, as ffmpeg's muxer writes it for B pictures). ``brand`` b"qt  "
-    makes a QuickTime ``.mov``. ``ctts`` the composition offsets in frames;
-    for the demuxer's tests ``per_chunk`` samples a chunk (the last chunk
-    takes the rest), ``co64`` 64-bit chunk offsets."""
+    offset, as ffmpeg's muxer writes it for B pictures). ``edits`` replaces
+    that edit list: ``(media_time, frames)`` or ``(media_time, frames,
+    media_rate)`` edits in frames (``media_time`` -1: an empty edit, a
+    delay of ``frames``). ``brand`` b"qt  " makes a QuickTime ``.mov``.
+    ``ctts`` the composition offsets in frames; for the demuxer's tests
+    ``per_chunk`` samples a chunk (the last chunk takes the rest), ``co64``
+    64-bit chunk offsets."""
     n, delta = len(samples), FRAME_TICKS
     duration = n * delta
     ftyp = _box(b"ftyp", brand, struct.pack(">I", 0x200 if brand == b"isom" else 0),
@@ -564,13 +567,21 @@ def write_mp4(path, samples, entry: bytes, width: int, height: int, sync=None,
     tkhd = _full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, duration), b"\0" * 8,
                      struct.pack(">hhhH", 0, 0, 0, 0), UNITY_MATRIX,
                      struct.pack(">II", width << 16, height << 16))
-    edts = _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">IIiI", 1, duration,
-                                                              edit_start * delta, 0x10000)))
+    edts = edit_box([(edit_start, n)] if edits is None else edits, delta)
     mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIIIIH", 0, 0, VIDEO_TIMESCALE, duration,
                                                 0x10000, 0x100), b"\0" * 10, UNITY_MATRIX,
                      b"\0" * 24, struct.pack(">I", 2))
     moov = _box(b"moov", mvhd, _box(b"trak", tkhd, edts, mdia))
     Path(path).write_bytes(ftyp + mdat + moov)
+
+
+def edit_box(edits, delta: int) -> bytes:
+    """``edts/elst`` of ``(media_time, frames[, media_rate])`` edits in
+    frames of ``delta`` ticks (media time -1: an empty edit)."""
+    rows = [(round(e[1] * delta), -1 if e[0] < 0 else round(e[0] * delta), e[2] if len(e) > 2 else 1)
+            for e in edits]
+    return _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">I", len(rows)), *[
+        struct.pack(">IihH", d, t, r, 0) for d, t, r in rows]))
 
 
 class _Bits:

@@ -1667,6 +1667,7 @@ def phase_video(work: Path, card: str):
 
     phase_video_mpeg4(d, card, rng, count_decodes)
     phase_video_containers(d, card, rng, count_decodes, d / "syntax_cabac_b_1080x1920.mp4")
+    phase_video_fragmented(d, card, rng, count_decodes)
 
     # stage 1's reference loader: images/cam0.mp4 (Motion-JPEG, then MPEG-4
     # Part 2 of random syntax at the frames' size) against a PNG directory
@@ -2078,6 +2079,136 @@ def phase_video_containers(d: Path, card: str, rng, count_decodes, h264_b: Path)
                 f"{decoded[0] / len(order):.2f} samples decoded a read), RGB on the card "
                 f"| on {card}")
         del frames
+
+
+def phase_video_fragmented(d: Path, card: str, rng, count_decodes):
+    """Fragmented mp4 and edit lists (``data/mp4.py``) and MPEG-4 Part 2 at
+    an odd height: every layout of ``container_writer.FRAGMENTED_LAYOUTS``
+    around the H.264 B, MPEG-4 B-VOP, committed VP9 and Motion-JPEG
+    streams, ``EDIT_LISTS``' four edit lists and a fragmented file with two
+    edits, written with the port's writer and read on the card (RGB) to the
+    SHA-256 tests/test_torch_fragmented.py pins to frames held against cv2,
+    sequential (one decode a sample) and shuffled; the 99x57 and 97x57
+    MPEG-4 streams (left chroma siting) to tests/test_torch_swscale.py's
+    pins; then, timed on the host with the RGB on the card, phase_video_containers'
+    240-sample 1080x1920 Motion-JPEG file flat and fragmented (a fragment
+    a sample, as ffmpeg's frag_keyframe cuts an all-key stream, and 24
+    samples a fragment), the flat file read first and again last: demux ms,
+    reader open ms, ms a frame sequential and for random load_frame calls on
+    the same frames."""
+    import numpy as np
+
+    from cap4d_torch.data import container
+    from cap4d_torch.data.utils import VideoFrameReader, load_frame, open_video
+    from cap4d_torch.utils import container_writer as cw
+    from cap4d_torch.utils import mpeg4_writer as mw
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    def check_shuffled(path, frames, label):
+        reader = VideoFrameReader(path, device="cuda")
+        for k in rng.permutation(len(frames)):
+            assert np.array_equal(reader[int(k)], frames[k]), f"{label}: frame {k} shuffled"
+
+    fd = d / "fragmented"
+    fd.mkdir(exist_ok=True)
+    streams = cw.fragment_streams(fd, [test_image(48, 64, k) for k in range(12)])
+    for name, (_, s) in streams.items():
+        readers, shown = [], 0
+        for layout, kw in cw.FRAGMENTED_LAYOUTS.items():
+            path = fd / f"{name}_{layout}.mp4"
+            cw.write_fragmented_mp4(path, s, **kw)
+            reader = VideoFrameReader(path, device="cuda")
+            calls = count_decodes(reader)
+            frames = [reader[k] for k in range(len(reader._order))]
+            assert calls[0] == len(reader.track), f"{path.name}: {calls[0]} decodes"
+            check_shuffled(path, frames, path.name)
+            readers.append(reader)
+            shown += len(frames)
+        got = cw.layouts_sha256(readers)
+        assert got == cw.PINNED_FRAGMENTED_RGB_SHA256[name], f"{name}: layouts' RGB SHA-256 {got}"
+        log(f"[video] fragmented mp4, {name} {s.width}x{s.height}x{len(s.samples)} in "
+            f"{len(readers)} layouts ({', '.join(cw.FRAGMENTED_LAYOUTS)}): cv2's counts "
+            f"{[len(r) for r in readers]}, {shown} frames, RGB on the card equal to the pin held "
+            f"against cv2 ({got[:16]}...), one decode a sample, shuffled reads equal | on {card}")
+
+    flat = fd / "sync.mov"
+    sa.write_mjpeg_video(flat, [test_image(32, 48, k) for k in range(30)])
+    edited = {name: (cw.stream_of_mp4(flat), edits) for name, edits in cw.EDIT_LISTS.items()}
+    for name, (s, edits) in list(edited.items()) + [
+            ("fragmented", (streams["mpeg4_b"][1], cw.FRAGMENTED_EDITS))]:
+        path = fd / f"edit_{name}.mp4"
+        if name == "fragmented":
+            cw.write_fragmented_mp4(path, s, edits=edits)
+        else:
+            cw.write_edited_mp4(path, s, edits)
+        reader = VideoFrameReader(path, device="cuda")
+        frames = [reader[k] for k in range(len(reader._order))]
+        got = (len(frames), cw.rgb_sha256(frames))
+        assert got == cw.PINNED_EDIT_RGB_SHA256[name], f"edit list {name}: {got}"
+        try:
+            reader[len(frames)]
+            raise AssertionError(f"edit list {name}: a frame past the edited ones read")
+        except IndexError:
+            pass
+        check_shuffled(path, frames, f"edit list {name}")
+        log(f"[video] edit list {name} {edits}: cv2's count {len(reader)}, {len(frames)} frames "
+            f"equal to the pin held against cv2 ({got[1][:16]}...), IndexError past them, "
+            f"shuffled reads equal | on {card}")
+
+    for (w, h), (n, want) in sorted(mw.PINNED_ODD_RGB_SHA256.items()):
+        path = fd / f"mpeg4_{w}x{h}.mp4"
+        mw.write_mpeg4_syntax_mp4(path, w, h, **mw.ODD_STREAM)
+        reader = VideoFrameReader(path, device="cuda")
+        frames = [reader[k] for k in range(len(reader))]
+        got = (len(frames), cw.rgb_sha256(frames))
+        assert got == (n, want), f"MPEG-4 {w}x{h}: RGB {got}, pinned {want}"
+        check_shuffled(path, frames, f"MPEG-4 {w}x{h}")
+        log(f"[video] MPEG-4 Part 2 {w}x{h} (odd height, left chroma siting {reader._chroma_pos} "
+            f"through swscale's scaler on the card): {n} frames equal to the pin held against cv2 "
+            f"({want[:16]}...), shuffled reads equal | on {card}")
+
+    # timed: phase_video_containers' 240 Motion-JPEG samples, flat and fragmented
+    mov = d / "timed_mjpeg.mov"
+    s = cw.stream_of_mp4(mov)
+    n = len(s.samples)
+    order = [int(k) for k in rng.permutation(n)[:12]]
+    paths = [("flat", mov)]
+    for label, kw in (("a fragment a sample", {}), ("24 samples a fragment", dict(fragment=24))):
+        paths.append((label, fd / f"timed_{len(paths)}.mp4"))
+        cw.write_fragmented_mp4(paths[-1][1], s, **kw)
+    paths.append(("flat again", mov))       # flat on both sides of the fragmented reads
+    reads = []
+    for label, path in paths:
+        demux = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            t = container.read_track(path)
+            demux.append(1e3 * (time.perf_counter() - t0))
+        assert len(t) == n
+        t0 = time.perf_counter()
+        reader = VideoFrameReader(path, device="cuda")
+        open_ms = 1e3 * (time.perf_counter() - t0)
+        assert len(reader) == n, (label, len(reader))
+        calls = count_decodes(reader)
+        t0 = time.perf_counter()
+        frames = [reader[k] for k in range(48)]
+        seq_ms = 1e3 * (time.perf_counter() - t0) / 48
+        assert calls[0] == 48 and all(f.shape == (1920, 1080, 3) for f in frames)
+        cached = open_video(path, "cuda")
+        decoded = count_decodes(cached)
+        t0 = time.perf_counter()
+        for k in order:
+            got = load_frame(path, k, device="cuda")
+            assert k >= 48 or np.array_equal(got, frames[k]), k
+        rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+        reads.append(frames)
+        log(f"[video] Motion-JPEG 1080x1920 {path.suffix[1:]}, {label}, {n} samples ({path.stat().st_size} "
+            f"bytes): demux {min(demux):.2f} ms (best of 3), reader open {open_ms:.2f} ms, "
+            f"sequential {seq_ms:.2f} ms a frame (48 frames), random load_frame {rand_ms:.2f} ms a "
+            f"frame (the same 12 frames, {decoded[0] / len(order):.2f} samples decoded a read), "
+            f"RGB on the card | on {card}")
+    assert all(np.array_equal(a, b) for f in reads[1:] for a, b in zip(reads[0], f)), \
+        "the fragmented files' frames differ from the flat file's"
 
 
 # ------------------------------------ the held-out quality of the head fit ----

@@ -26,11 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from cap4d_torch.data import container
+from cap4d_torch.data import container, mkv
 from cap4d_torch.data.utils import VideoFrameReader, load_frame
 from cap4d_torch.runtime import loader as tl
-from cap4d_torch.runtime.nvdec import MATRICES, swscale_bicubic, sws_filter, yuv_to_rgb
+from cap4d_torch.runtime.nvdec import (CHROMA_POSITIONS, MATRICES, swscale_bicubic, sws_filter,
+                                        yuv_to_rgb)
 from cap4d_torch.utils import container_writer as cw
+from cap4d_torch.utils import mpeg4_writer as mw
 from cap4d_tpu.data import utils as ju
 from tests.test_torch_containers import ffmpeg_decode
 from tests.test_torch_mpeg4 import _content
@@ -60,16 +62,30 @@ def _sws():
     sws.sws_getCoefficients.argtypes = [ctypes.c_int]
     sws.sws_setColorspaceDetails.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                              ctypes.c_void_p] + [ctypes.c_int] * 4
+    sws.sws_alloc_context.restype = ctypes.c_void_p
+    sws.sws_init_context.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    avutil.av_opt_set_int.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_int]
     return avutil, sws
 
 
-def sws_scale(planes, fmt, width, height, matrix="bt601", full_range=False):
+def sws_scale(planes, fmt, width, height, matrix="bt601", full_range=False, chroma_pos=None):
     """libswscale's RGB (height, width, 3) of Y, U and V ``planes`` in pixel
-    format ``fmt`` through SWS_BICUBIC to BGR24, as cv2 converts a frame."""
+    format ``fmt`` through SWS_BICUBIC to BGR24, as cv2 converts a frame;
+    ``chroma_pos`` sets src_h_chr_pos and src_v_chr_pos (a context built by
+    sws_alloc_context and sws_init_context, as cv2 builds it)."""
     avutil, sws = _sws()
     h, w = planes[0].shape
-    ctx = sws.sws_getContext(w, h, avutil.av_get_pix_fmt(fmt.encode()), width, height,
-                             avutil.av_get_pix_fmt(b"bgr24"), SWS_BICUBIC, None, None, None)
+    src, dst = avutil.av_get_pix_fmt(fmt.encode()), avutil.av_get_pix_fmt(b"bgr24")
+    if chroma_pos is None:
+        ctx = sws.sws_getContext(w, h, src, width, height, dst, SWS_BICUBIC, None, None, None)
+    else:
+        ctx = sws.sws_alloc_context()
+        for key, value in (("srcw", w), ("srch", h), ("src_format", src), ("dstw", width),
+                           ("dsth", height), ("dst_format", dst), ("sws_flags", SWS_BICUBIC),
+                           ("src_h_chr_pos", chroma_pos[0]), ("src_v_chr_pos", chroma_pos[1])):
+            assert avutil.av_opt_set_int(ctypes.c_void_p(ctx), key.encode(), value, 0) >= 0, key
+        assert sws.sws_init_context(ctypes.c_void_p(ctx), None, None) >= 0
     assert ctx
     try:
         table = sws.sws_getCoefficients(SWS_CS[matrix])
@@ -114,6 +130,26 @@ def test_scaler_matches_sws_scale(src, dst, matrix, full_range):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("location", ["left", "topleft", "top", "center"])
+@pytest.mark.parametrize("src,dst,fmt", [((57, 99), (57, 99), "yuv420p"),
+                                         ((57, 98), (57, 98), "yuv420p"),
+                                         ((48, 64), (57, 99), "yuv420p"),
+                                         ((99, 57), (66, 40), "yuv420p"),
+                                         ((57, 99), (57, 99), "yuv422p")])
+def test_scaler_chroma_siting_matches_sws_scale(src, dst, fmt, location):
+    """A source chroma position (ffmpeg's chroma locations, as cv2 hands a
+    frame's to swscale) through swscale_bicubic and through libswscale: the
+    same bytes."""
+    planes = _planes(*src, fmt, hash((src, dst, location)) % 1000)
+    pos = CHROMA_POSITIONS[location]
+    want = sws_scale(planes, fmt, dst[1], dst[0], "bt601", False, pos)
+    got = swscale_bicubic(*(torch.from_numpy(p) for p in planes), *dst, "bt601", False, pos)
+    np.testing.assert_array_equal(got, want)
+    if location == "left":       # the default siting gives other bytes
+        assert not np.array_equal(swscale_bicubic(*(torch.from_numpy(p) for p in planes), *dst),
+                                  want)
+
+
 @pytest.mark.parametrize("fmt", list(LAYOUTS))
 @pytest.mark.parametrize("src,dst", [((57, 98), (57, 98)), ((56, 99), (56, 99)),
                                      ((56, 98), (56, 98)), ((40, 64), (60, 90))])
@@ -144,22 +180,50 @@ def test_filters_and_refusals():
         swscale_bicubic(y, u[:-1], v, 8, 16)
 
 
-@pytest.mark.parametrize("kind", ["mjpeg", "vp8", "vp9"])
-def test_odd_size_files_match_cv2(tmp_path, kind):
+@pytest.mark.parametrize("kind,width", [("mjpeg", 99), ("vp8", 99), ("vp9", 99), ("mpeg4", 99),
+                                        ("mpeg4", 97)])
+def test_odd_size_files_match_cv2(tmp_path, kind, width):
     """A 99x57 file of each codec (cv2's writers round odd sizes down, so
     Motion-JPEG samples cv2 encodes go into the port's AVI writer; VP8 and
-    VP9 are libvpx's): every frame, in order and shuffled, equals
-    cap4d_tpu's load_frame (cv2 sends each through swscale's scaler)."""
+    VP9 are libvpx's; MPEG-4 Part 2 the writer's, at 97x57 too, converted
+    with the left chroma siting ffmpeg's mpeg4 decoder gives its pictures):
+    every frame, in order and shuffled, equals cap4d_tpu's load_frame (cv2
+    sends each through swscale's scaler); the MPEG-4 frames hash to the pin
+    chip_smoke.py holds on the card."""
     if kind == "mjpeg":
         jpegs = [cv2.imencode(".jpg", _content("smooth", k, 99, 57))[1].tobytes() for k in range(6)]
         path = tmp_path / "odd.avi"
         cw.write_avi(path, cw.Stream("mjpeg", 99, 57, jpegs, [True] * 6, list(range(6))))
+    elif kind == "mpeg4":
+        path = tmp_path / "odd.mp4"
+        mw.write_mpeg4_syntax_mp4(path, width, 57, **mw.ODD_STREAM)
     else:
         path = Path(__file__).parent / "data" / kind / "odd.webm"
     reader = VideoFrameReader(path, device="cpu")
-    assert (reader.track.codec, reader.track.width, reader.track.height) == (kind, 99, 57)
+    assert (reader.track.codec, reader.track.width, reader.track.height) == (kind, width, 57)
     n = len(reader)
     for k in list(range(n)) + [int(k) for k in np.random.default_rng(4).permutation(n)]:
+        np.testing.assert_array_equal(reader[k], ju.load_frame(path, k), err_msg=f"frame {k}")
+    if kind == "mpeg4":
+        frames = [reader[k] for k in range(n)]
+        assert (n, cw.rgb_sha256(frames)) == mw.PINNED_ODD_RGB_SHA256[width, 57]
+
+
+@pytest.mark.parametrize("siting", [None, (1, 2), (2, 2), (1, 1), (2, 1), (0, 2), (1, 0)])
+@pytest.mark.parametrize("kind", ["vp8", "vp9"])
+def test_matroska_chroma_siting_matches_cv2(tmp_path, kind, siting):
+    """The odd-sized VP8 and VP9 WebM again with a Colour element's
+    ChromaSitingHorz/Vert (left, centre, top-left, top, and each with one
+    of the two unspecified): cv2 converts with the siting ffmpeg gives the
+    stream, and so does the port, frame for frame."""
+    t = container.read_track(Path(__file__).parent / "data" / kind / "odd.webm")
+    s = cw.Stream(kind, t.width, t.height, [t.sample(i) for i in range(len(t))],
+                  [bool(x) for x in t.sync], [int(x) for x in np.argsort(t.order)])
+    path = tmp_path / "sited.webm"
+    cw.write_mkv(path, s, doc_type="webm", chroma_siting=siting)
+    reader = VideoFrameReader(path, device="cpu")
+    assert reader.track.chroma_location == mkv.CHROMA_SITING.get(siting)
+    for k in range(len(reader)):
         np.testing.assert_array_equal(reader[k], ju.load_frame(path, k), err_msg=f"frame {k}")
 
 

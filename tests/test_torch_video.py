@@ -27,6 +27,7 @@ from cap4d_torch.data import mp4
 from cap4d_torch.data.utils import VideoFrameReader, load_frame
 from cap4d_torch.runtime import loader as tl
 from cap4d_torch.runtime.nvdec import nv12_to_rgb, yuv_to_rgb
+from cap4d_torch.utils import container_writer as cw
 from cap4d_torch.utils import mpeg4_writer as mw
 from cap4d_torch.utils import synthetic_assets as sa
 from cap4d_tpu.data import utils as ju
@@ -157,8 +158,10 @@ def test_sample_tables_co64_chunks_and_ctts(tmp_path):
     pts_frames = [0, 2, 1, 3, 5, 4]
     ctts = [p - d + 1 for d, p in enumerate(pts_frames)]
     path = tmp_path / "reordered.mp4"
+    # the edit starts at the first presentation time (ffmpeg's B-frame
+    # delay): one at 0 would end before the last frame, which cv2 then drops
     sa.write_mp4(path, jpegs, sa.visual_sample_entry(b"jpeg", 48, 32), 48, 32, ctts=ctts,
-                 per_chunk=4, co64=True)
+                 per_chunk=4, co64=True, edit_start=1)
     t = mp4.read_track(path)
     np.testing.assert_array_equal(t.order, [0, 2, 1, 3, 5, 4])
     for d in range(6):
@@ -257,8 +260,9 @@ def test_h264_vp9_need_the_card(videos, label, name):
 
 def test_demuxer_refusals(tmp_path, videos):
     """Codecs the port does not read name their four-character code (or,
-    for an mp4v entry, its esds object type); fragmented files and files
-    without a video track raise."""
+    for an mp4v entry, its esds object type); a fragmented file whose only
+    run lies past the end of the file (cv2 reads no frame of it either) and
+    files without a video track raise."""
     mpeg2 = sa.visual_sample_entry(b"mp4v", 16, 16, mw.esds_box(b"", 0x61))
     sa.write_mp4(tmp_path / "p2.mp4", [b"\0" * 8], mpeg2, 16, 16)
     with pytest.raises(ValueError, match="esds object type 0x61 \\(MPEG-2 Main Profile video\\)"):
@@ -268,8 +272,15 @@ def test_demuxer_refusals(tmp_path, videos):
     with pytest.raises(ValueError, match="codec 'hvc1' is not supported"):
         VideoFrameReader(tmp_path / "h.mp4", device="cpu")
     data = videos["mjpeg_mp4"][0].read_bytes()
-    (tmp_path / "frag.mp4").write_bytes(data + struct.pack(">I4s", 8, b"moof"))
-    with pytest.raises(ValueError, match="fragmented"):
+    s = cw.stream_of_mp4(videos["mjpeg_mp4"][0])
+    cw.write_fragmented_mp4(tmp_path / "frag.mp4", s, fragment=len(s.samples))
+    frag = bytearray((tmp_path / "frag.mp4").read_bytes())
+    struct.pack_into(">i", frag, frag.index(b"trun") + 12, len(frag) + 4096)   # data offset
+    (tmp_path / "frag.mp4").write_bytes(bytes(frag))
+    cap = cv2.VideoCapture(str(tmp_path / "frag.mp4"))
+    assert not cap.read()[0]
+    cap.release()
+    with pytest.raises(ValueError, match="no sample of the video track lies in the file"):
         mp4.read_track(tmp_path / "frag.mp4")
     (tmp_path / "audio.mp4").write_bytes(data.replace(b"vide", b"soun"))
     with pytest.raises(ValueError, match="no video track"):
