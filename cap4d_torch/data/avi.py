@@ -30,8 +30,12 @@ Motion-JPEG, PNG (``MPNG``), MPEG-4 Part 2 (``FMP4``, ``XVID``, ``DIVX``,
 ``X264``, ``AVC1``, ``DAVC``: Annex-B access units, the parameter sets from
 the extradata, an avcC there, or the first key frame) and VP9 (``VP90``, one
 frame or superframe a chunk, as ffmpeg's avienc writes it; cv2 reads such a
-file, so the port does) and VP8 (``VP80``, cv2's VideoWriter's fourcc for
-it: one frame a chunk, the key frames by the frame tag's bit 0). Anything
+file, so the port does), VP8 (``VP80``, cv2's VideoWriter's fourcc for
+it: one frame a chunk, the key frames by the frame tag's bit 0) and HEVC
+(``HEVC``, ``H265``, ``hvc1``, ``hev1``: Annex-B access units, the parameter
+sets from the extradata, an hvcC there, or in band; presentation order from
+the picture order count, as for H.264; key frames after a scan are the IRAP
+pictures). Anything
 else raises
 ``ValueError`` naming the four-character code, as do a zero-size video
 chunk (a dropped frame: ffmpeg's index skips it and its timestamps jump),
@@ -45,8 +49,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from cap4d_torch.data.mp4 import (AvcConfig, Mp4vConfig, VideoTrack, first_slice_header,
-                                  length_prefixed, parse_avcc, split_annexb)
+from cap4d_torch.data.mp4 import (AvcConfig, HvcConfig, Mp4vConfig, VideoTrack,
+                                  first_slice_header, length_prefixed, parse_avcc, parse_hvcc,
+                                  split_annexb)
 
 _MJPEG = ("MJPG", "mjpg", "AVRn", "AVDJ", "ACDV", "QIVG", "SLMJ", "CJPG", "IJPG", "JPGL", "dmb1",
           "JPEG")
@@ -54,16 +59,18 @@ _MPEG4 = ("FMP4", "XVID", "DIVX", "DX50", "MP4V", "MP4S", "M4S2")
 _H264 = ("H264", "X264", "AVC1", "DAVC")
 _VP9 = ("VP90",)
 _VP8 = ("VP80",)
+_HEVC = ("HEVC", "H265", "hevc", "h265", "hvc1", "hev1", "HVC1", "HEV1")
 # biCompression -> codec (CODECS' names)
 AVI_CODECS = {**{f: "mjpeg" for f in _MJPEG}, "MPNG": "png", "PNG ": "png", "png ": "png",
               **{f: "mpeg4" for f in _MPEG4 + tuple(x.lower() for x in _MPEG4)},
               **{f: "h264" for f in _H264 + tuple(x.lower() for x in _H264)},
-              **{f: "vp9" for f in _VP9}, **{f: "vp8" for f in _VP8}}
+              **{f: "vp9" for f in _VP9}, **{f: "vp8" for f in _VP8},
+              **{f: "hevc" for f in _HEVC}}
 # what a refused four-character code is, where the name says little
 REFUSED_NAMES = {"DIV3": "MS-MPEG-4 v3", "div3": "MS-MPEG-4 v3", "MP43": "MS-MPEG-4 v3",
                  "mp43": "MS-MPEG-4 v3", "MP42": "MS-MPEG-4 v2", "mp42": "MS-MPEG-4 v2",
                  "MPG4": "MS-MPEG-4 v1", "DIV4": "MS-MPEG-4 v3",
-                 "HEVC": "HEVC", "H265": "HEVC", "hev1": "HEVC", "hvc1": "HEVC", "AV01": "AV1",
+                 "AV01": "AV1",
                  "WMV3": "WMV9", "mpg2": "MPEG-2 video", "MPG2": "MPEG-2 video"}
 AVIIF_KEYFRAME = 0x10
 # bytes of a sample read to find its picture type after an index-less scan
@@ -246,7 +253,40 @@ def _key_by_content(codec: str, data: bytes, length_size: Optional[int]) -> bool
         return vp9_key(data)
     if codec == "vp8":
         return vp8_key(data)
+    if codec == "hevc":
+        return hevc_irap(data if length_size else length_prefixed(data), length_size or 4)
     return True
+
+
+def hevc_irap(sample: bytes, length_size: int) -> bool:
+    """Whether the first VCL NAL unit of an HEVC sample of length-prefixed NAL
+    units is an IRAP picture's (nal_unit_type 16-23)."""
+    pos = 0
+    while pos + length_size < len(sample):
+        n = int.from_bytes(sample[pos:pos + length_size], "big")
+        pos += length_size
+        if n and pos < len(sample):
+            kind = (sample[pos] >> 1) & 0x3F
+            if kind < 32:
+                return 16 <= kind <= 23
+        pos += n
+    return False
+
+
+def is_hvcc(extra: bytes) -> bool:
+    """Whether extradata is an hvcC record, by ffmpeg's hevc decoder's test
+    (not a start code in its first three bytes)."""
+    return len(extra) > 3 and bool(extra[0] or extra[1] or extra[2] > 1)
+
+
+def hevc_config(extra: bytes) -> HvcConfig:
+    """The parameter sets of an HEVC stream's extradata: an hvcC (samples then
+    carry its NAL lengths), or Annex-B VPS/SPS/PPS (samples Annex-B), or
+    none (in band)."""
+    if is_hvcc(extra):
+        return parse_hvcc(extra)
+    params = tuple(b"\0\0\0\1" + nal for nal in split_annexb(extra)) if extra.strip(b"\0") else ()
+    return HvcConfig(params, 4, 0)
 
 
 def vp8_key(data: bytes) -> bool:
@@ -313,7 +353,7 @@ def _read(fh, where: str) -> VideoTrack:
         raise ValueError(f"{where}: codec {fourcc!r}{f' ({name})' if name else ''} is not "
                          "supported; the port reads AVI video as Motion-JPEG (MJPG), PNG (MPNG), "
                          "MPEG-4 Part 2 (FMP4, XVID, DIVX, DX50, MP4V), H.264 (H264, X264, "
-                         "AVC1, DAVC), VP8 (VP80) and VP9 (VP90)")
+                         "AVC1, DAVC), HEVC (HEVC, H265, hvc1, hev1), VP8 (VP80) and VP9 (VP90)")
     entries = []
     if indx is not None and len(indx) >= 24 and struct.unpack_from("<I", indx, 4)[0]:
         entries = _odml_index(avi, indx, number)
@@ -341,17 +381,23 @@ def _read(fh, where: str) -> VideoTrack:
         return fh.read(int(sizes[j]) if limit is None else min(limit, int(sizes[j])))
 
     if scanned:
-        length_size = parse_avcc(extra).length_size if codec == "h264" and extra[:1] == b"\1" \
-            else None
+        length_size = None
+        if codec == "h264" and extra[:1] == b"\1":
+            length_size = parse_avcc(extra).length_size
+        elif codec == "hevc" and is_hvcc(extra):
+            length_size = parse_hvcc(extra).length_size
         sync = np.array([_key_by_content(codec, head(j, SCAN_BYTES), length_size)
                          for j in range(len(entries))])
     else:
         sync = np.array([bool(e[2]) for e in entries])
-    avc = m4v = None
+    avc = m4v = hvc = None
     annexb = False
     if codec == "h264":
         keys = np.flatnonzero(sync)
         avc, annexb = _avc_config(extra, head(int(keys[0])) if len(keys) else b"", where)
+    elif codec == "hevc":
+        hvc = hevc_config(extra)
+        annexb = not is_hvcc(extra)
     elif codec == "mpeg4":
         m4v = Mp4vConfig(0x20, extra)
     n = len(entries)
@@ -359,4 +405,4 @@ def _read(fh, where: str) -> VideoTrack:
     pts = (start + index) * max(scale, 1)
     return VideoTrack(where, codec, fourcc, abs(width), abs(height), max(rate, 1), offsets, sizes,
                       pts, pts.copy(), sync, index, avc, None, m4v, timed=False,
-                      frame_count=int(length), annexb=annexb)
+                      frame_count=int(length), annexb=annexb, hvc=hvc)

@@ -42,7 +42,16 @@ through ``runtime/vp9.py`` on any device; the profile is in each frame's
 header, so the decoder refuses the others by name); ``V_VP8`` (through
 ``runtime/vp8.py``; a block's ``BlockAdditions``, where browsers put an
 alpha plane, are skipped, as ffmpeg's ``vp8`` decoder ignores them for cv2).
-Anything else raises ``ValueError`` naming the CodecID.
+``V_MPEGH/ISO/HEVC`` (``CodecPrivate`` is an hvcC; intra pictures decode
+through ``runtime/hevc.py``). Anything else raises ``ValueError`` naming
+the CodecID.
+
+``Video/Projection``: ffmpeg turns a rectangular projection (ProjectionType
+0, the default) whose ProjectionPosePitch is 0 and whose ProjectionPoseYaw
+is 0 or ±180 into a display matrix (``mkv_create_display_matrix``: the
+roll negated, turned, then mirrored for a yaw of 180), and cv2 rotates
+the frames by its angle as it does an mp4's (``VideoTrack.rotation``);
+other projections and poses turn nothing.
 """
 
 from __future__ import annotations
@@ -56,12 +65,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from cap4d_torch.data import avi
-from cap4d_torch.data.mp4 import Mp4vConfig, VideoTrack, parse_avcc
+from cap4d_torch.data.mp4 import Mp4vConfig, VideoTrack, matrix_rotation, parse_avcc, parse_hvcc
 
 MKV_CODECS = {"V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4", "V_MPEG4/ISO/SP": "mpeg4",
               "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG4/ISO/AVC": "h264", "V_VP9": "vp9",
-              "V_VP8": "vp8", "V_MS/VFW/FOURCC": None}
-REFUSED_NAMES = {"V_AV1": "AV1", "V_MPEGH/ISO/HEVC": "HEVC",
+              "V_VP8": "vp8", "V_MPEGH/ISO/HEVC": "hevc", "V_MS/VFW/FOURCC": None}
+REFUSED_NAMES = {"V_AV1": "AV1",
                  "V_MPEG2": "MPEG-2 video", "V_MPEG1": "MPEG-1 video", "V_THEORA": "Theora",
                  "V_MPEGI/ISO/VVC": "VVC", "V_PRORES": "ProRes", "V_FFV1": "FFV1"}
 
@@ -78,6 +87,24 @@ HEAD_BYTES = 4096
 # location (matroskadec: av_chroma_location_pos_to_enum((h - 1) << 7,
 # (v - 1) << 7)); 0 (unspecified) in either gives none
 CHROMA_SITING = {(1, 2): "left", (2, 2): "center", (1, 1): "topleft", (2, 1): "top"}
+
+
+def projection_rotation(kind: int, yaw: float, pitch: float, roll: float) -> int:
+    """The clockwise rotation cv2 gives a track whose Projection has these
+    ProjectionType and poses (degrees): ffmpeg's matroskadec display matrix
+    (av_display_rotation_set of the roll, negated unless the yaw mirrors,
+    then av_display_matrix_flip) read as cv2 reads an mp4's."""
+    if kind != 0 or (pitch, yaw, roll) == (0.0, 0.0, 0.0):
+        return 0
+    if pitch != 0.0 or yaw not in (0.0, 180.0, -180.0) or math.isnan(roll):
+        return 0                       # "Ignoring non-2D rectangular projection"
+    hflip = yaw != 0.0
+    rad = -(roll * (2 * hflip - 1)) * math.pi / 180.0
+    c, s = math.cos(rad), math.sin(rad)
+    m = [int(c * 65536), int(-s * 65536), 0, int(s * 65536), int(c * 65536), 0, 0, 0, 1 << 30]
+    if hflip:
+        m = [-v if i % 3 == 0 else v for i, v in enumerate(m)]
+    return matrix_rotation(m)
 
 
 def _vint(buf: bytes, pos: int, keep_marker: bool = False) -> Tuple[int, int, bool]:
@@ -110,6 +137,13 @@ def _elements(buf: bytes, start: int, end: int):
 
 def _uint(buf: bytes, a: int, b: int) -> int:
     return int.from_bytes(buf[a:b], "big")
+
+
+def _float(buf: bytes, a: int, b: int) -> float:
+    """An EBML float element (4 or 8 bytes; 0.0 when empty)."""
+    if b - a in (4, 8):
+        return struct.unpack(">f" if b - a == 4 else ">d", buf[a:b])[0]
+    return 0.0
 
 
 def _children(buf: bytes, a: int, b: int) -> Dict[int, List[Tuple[int, int]]]:
@@ -165,6 +199,7 @@ class _Track:
         self.default_duration = _uint(buf, *one(0x23E383, (0, 0)))
         self.width = self.height = 0
         self.chroma_location = None
+        self.rotation = 0
         if 0xE0 in kids:
             video = _children(buf, *kids[0xE0][0])
             self.width = _uint(buf, *video.get(0xB0, [(0, 0)])[0])
@@ -173,6 +208,12 @@ class _Track:
                 colour = _children(buf, *video[0x55B0][0])
                 siting = tuple(_uint(buf, *colour.get(e, [(0, 0)])[0]) for e in (0x55B7, 0x55B8))
                 self.chroma_location = CHROMA_SITING.get(siting)
+            if 0x7670 in video:
+                proj = _children(buf, *video[0x7670][0])
+                kind = _uint(buf, *proj[0x7671][0]) if 0x7671 in proj else 0
+                pose = [_float(buf, *proj[e][0]) if e in proj else 0.0
+                        for e in (0x7673, 0x7674, 0x7675)]
+                self.rotation = projection_rotation(kind, *pose)
         self.prefix, self.zlib = b"", False
         if 0x6D80 in kids:
             self._encodings(buf, kids[0x6D80][0], where)
@@ -405,8 +446,9 @@ def _read(f: _File) -> VideoTrack:
     pts = np.array(times, np.int64) * scale
     t = VideoTrack(where, codec, fourcc, track.width, track.height, 1_000_000_000, offsets,
                    sizes, pts, pts.copy(), np.array(keys, bool), np.argsort(pts, kind="stable"),
-                   prefix=track.prefix, zlib=track.zlib, chroma_location=track.chroma_location)
-    avc = m4v = None
+                   prefix=track.prefix, zlib=track.zlib, chroma_location=track.chroma_location,
+                   rotation=track.rotation)
+    avc = m4v = hvc = None
     annexb = False
     if codec == "h264" and track.codec_id == "V_MPEG4/ISO/AVC":
         avc = parse_avcc(private)
@@ -414,6 +456,11 @@ def _read(f: _File) -> VideoTrack:
         keys_at = np.flatnonzero(t.sync)
         avc, annexb = avi._avc_config(private, t.sample(int(keys_at[0])) if len(keys_at) else b"",
                                       where)
+    elif codec == "hevc" and track.codec_id == "V_MPEGH/ISO/HEVC":
+        hvc = parse_hvcc(private)
+    elif codec == "hevc":        # VfW, as in an AVI
+        hvc = avi.hevc_config(private)
+        annexb = not avi.is_hvcc(private)
     elif codec == "mpeg4":
         m4v = Mp4vConfig(0x20, private)
     if track.default_duration:
@@ -424,7 +471,7 @@ def _read(f: _File) -> VideoTrack:
         if fps is None:
             span = (pts.max() - pts.min()) / 1e9
             fps = (len(pts) - 1) / span if span > 0 else 1e9 / scale
-    return dataclasses.replace(t, avc=avc, m4v=m4v, annexb=annexb,
+    return dataclasses.replace(t, avc=avc, m4v=m4v, hvc=hvc, annexb=annexb,
                                frame_count=cv2_frame_count(duration, scale, fps))
 
 
@@ -436,7 +483,8 @@ def _codec(track: _Track, where: str) -> Tuple[str, str, bytes]:
         name = REFUSED_NAMES.get(cid)
         raise ValueError(f"{where}: codec {cid!r}{f' ({name})' if name else ''} is not supported; "
                          "the port reads Matroska video as V_MJPEG, V_MPEG4/ISO/ASP (SP, AP), "
-                         "V_MPEG4/ISO/AVC, V_MS/VFW/FOURCC of those, V_VP8 and V_VP9")
+                         "V_MPEG4/ISO/AVC, V_MPEGH/ISO/HEVC, V_MS/VFW/FOURCC of those, V_VP8 and "
+                         "V_VP9")
     if cid != "V_MS/VFW/FOURCC":
         return MKV_CODECS[cid], cid, track.private
     if len(track.private) < 40:
@@ -447,7 +495,7 @@ def _codec(track: _Track, where: str) -> Tuple[str, str, bytes]:
         name = avi.REFUSED_NAMES.get(fourcc)
         raise ValueError(f"{where}: codec V_MS/VFW/FOURCC {fourcc!r}{f' ({name})' if name else ''}"
                          " is not supported; the port reads Motion-JPEG, PNG, MPEG-4 Part 2, "
-                         "H.264, VP8 and VP9 through it")
+                         "H.264, HEVC, VP8 and VP9 through it")
     if not track.width:
         track.width, track.height = struct.unpack_from("<ii", track.private, 4)
         track.width, track.height = abs(track.width), abs(track.height)

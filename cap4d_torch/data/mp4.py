@@ -34,12 +34,27 @@ no other):
   Motion-JPEG (each sample one JPEG image);
 - ``png ``: PNG (each sample one PNG image).
 
+- ``hvc1``/``hev1``: HEVC, with ``hvcC``'s parameter-set arrays (VPS,
+  SPS, PPS as Annex-B NAL units) and its NAL length size; ``hev1`` may
+  carry its parameter sets in band as well.
+
 An ``mp4v`` of any other object type (MPEG-1 or MPEG-2 video, 0x60-0x65 and
-0x6A, ...) raises ``ValueError`` naming it. Anything else (HEVC's
-``hvc1``/``hev1``, AV1's ``av01``, ...) raises naming the four-character
-code, as do files without a video track and a malformed ``moov`` or
-``moof`` (a table that overruns its box, a flat table that lists more
-samples than the file can hold, a ``traf`` of a track without ``trex``).
+0x6A, ...) raises ``ValueError`` naming it. Anything else (AV1's ``av01``,
+...) raises naming the four-character code, as do files without a video
+track and a malformed ``moov`` or ``moof`` (a table that overruns its box,
+a flat table that lists more samples than the file can hold, a ``traf`` of
+a track without ``trex``).
+
+The display matrix: ffmpeg's mov demuxer multiplies the video track's
+``tkhd`` matrix by the ``mvhd`` matrix read before it (each term shifted
+by 16, 16 or 30 bits, the sum kept in 32 bits), and cv2 takes the angle of
+the product (``av_display_rotation_get``, rounded half to even and
+negated, as OpenCV's ``get_rotation_angle`` does) and rotates every frame
+it reads by 90, 180 or 270 degrees clockwise; any other angle (a vertical
+mirror reads 0, 45 degrees is reported but not applied) leaves the frame
+as decoded. :attr:`VideoTrack.rotation` is that rotation. Phones record
+portrait video so: landscape samples and a 90-degree matrix. Flat,
+fragmented and hybrid files keep the matrix in ``moov`` alike.
 
 Frame ``k`` is the k-th frame in presentation order (decode times plus the
 composition offsets, ties kept in decode order), as cv2's
@@ -102,8 +117,7 @@ import numpy as np
 
 # the codec of each sample entry the port reads
 CODECS = {"avc1": "h264", "avc3": "h264", "vp09": "vp9", "vp08": "vp8", "jpeg": "mjpeg",
-          "mjpa": "mjpeg",
-          "png ": "png", "mp4v": "mpeg4"}
+          "mjpa": "mjpeg", "png ": "png", "mp4v": "mpeg4", "hvc1": "hevc", "hev1": "hevc"}
 # esds objectTypeIndication (ISO/IEC 14496-1, Table 5) -> codec, for mp4v
 MP4V_OBJECT_TYPES = {0x20: "mpeg4", 0x6C: "mjpeg"}
 MP4V_OBJECT_NAMES = {0x60: "MPEG-2 Simple Profile video", 0x61: "MPEG-2 Main Profile video",
@@ -111,6 +125,8 @@ MP4V_OBJECT_NAMES = {0x60: "MPEG-2 Simple Profile video", 0x61: "MPEG-2 Main Pro
                      0x64: "MPEG-2 High Profile video", 0x65: "MPEG-2 4:2:2 Profile video",
                      0x6A: "MPEG-1 video", 0x21: "H.264 (in an mp4v entry)"}
 VISUAL_ENTRY_BYTES = 78   # after the box header: SampleEntry's 8 + VisualSampleEntry's 70
+# the identity display matrix (16.16, 16.16, 2.30 fixed point), row by row
+UNITY_MATRIX = (1 << 16, 0, 0, 0, 1 << 16, 0, 0, 0, 1 << 30)
 
 
 @dataclass(frozen=True)
@@ -123,6 +139,18 @@ class AvcConfig:
     length_size: int
     profile: int
     level: int
+
+
+@dataclass(frozen=True)
+class HvcConfig:
+    """``hvcC`` (HEVCDecoderConfigurationRecord): the NAL units of its
+    arrays (VPS, SPS, PPS, SEI) as Annex-B NAL units (start code included),
+    in the record's order, the size in bytes of each sample's NAL length
+    prefix, and general_profile_idc."""
+
+    params: Tuple[bytes, ...]
+    length_size: int
+    profile: int
 
 
 @dataclass(frozen=True)
@@ -191,6 +219,8 @@ class VideoTrack:
     zlib: bool = False
     annexb: bool = False
     chroma_location: Optional[str] = None
+    rotation: int = 0
+    hvc: Optional["HvcConfig"] = None
 
     def __len__(self) -> int:
         return len(self.sizes)
@@ -297,6 +327,59 @@ def parse_avcc(p: bytes) -> AvcConfig:
             pos += 2 + size
         sets.append(tuple(group))
     return AvcConfig(sets[0], sets[1], length_size, p[1], p[3])
+
+
+def parse_hvcc(p: bytes) -> HvcConfig:
+    """``hvcC``'s payload → :class:`HvcConfig`, read as ffmpeg's ``hevc``
+    decoder reads its extradata (the version byte is not checked)."""
+    if len(p) < 23:
+        raise ValueError(f"malformed hvcC ({len(p)} bytes, a record has at least 23)")
+    length_size = (p[21] & 3) + 1
+    if length_size == 3:
+        raise ValueError("hvcC gives a 3-byte NAL length, which HEVC in mp4 does not allow")
+    pos, params = 23, []
+    for _ in range(p[22]):
+        if pos + 3 > len(p):
+            raise ValueError("malformed hvcC: an array overruns the box")
+        n = struct.unpack_from(">H", p, pos + 1)[0]
+        pos += 3
+        for _ in range(n):
+            if pos + 2 > len(p):
+                raise ValueError("malformed hvcC: a NAL unit overruns the box")
+            size = struct.unpack_from(">H", p, pos)[0]
+            if pos + 2 + size > len(p):
+                raise ValueError("malformed hvcC: a NAL unit overruns the box")
+            params.append(b"\x00\x00\x00\x01" + p[pos + 2:pos + 2 + size])
+            pos += 2 + size
+    return HvcConfig(tuple(params), length_size, p[1] & 0x1F)
+
+
+def display_rotation(tkhd: Tuple[int, ...], mvhd: Optional[Tuple[int, ...]]) -> int:
+    """The clockwise rotation cv2 gives the frames of a track whose ``tkhd``
+    holds the display matrix ``tkhd`` (9 signed 32-bit fields, row by row)
+    under a movie whose ``mvhd`` holds ``mvhd`` (None: no mvhd before the
+    track, which ffmpeg reads as zeros): 0, 90, 180 or 270."""
+    movie = mvhd or (0,) * 9
+    shift = (16, 16, 30)
+    m = []
+    for i in range(3):
+        for j in range(3):
+            v = sum((tkhd[3 * i + e] * movie[3 * e + j]) >> shift[e] for e in range(3))
+            m.append((v + (1 << 31)) % (1 << 32) - (1 << 31))      # ffmpeg keeps 32 bits
+    # ffmpeg attaches no display matrix when the product is the identity
+    return 0 if tuple(m) == UNITY_MATRIX else matrix_rotation(m)
+
+
+def matrix_rotation(m) -> int:
+    """The clockwise rotation cv2 applies for the display matrix ``m`` that
+    ffmpeg attaches to a stream: 0, 90, 180 or 270 (any other angle, 0)."""
+    fp = [v / 65536.0 for v in m]
+    s0, s1 = math.hypot(fp[0], fp[3]), math.hypot(fp[1], fp[4])
+    if s0 == 0.0 or s1 == 0.0:
+        return 0                   # av_display_rotation_get gives NaN: cv2 turns nothing
+    angle = -round(-math.atan2(fp[1] / s1, fp[0] / s0) * 180 / math.pi)   # cvRound: half even
+    angle += 360 if angle < 0 else 0
+    return angle if angle in (90, 180, 270) else 0
 
 
 def annexb(sample: bytes, length_size: int) -> bytes:
@@ -415,8 +498,8 @@ def parse_esds(p: bytes) -> Mp4vConfig:
 
 
 def _sample_entry(buf: bytes, a: int, b: int, where: str):
-    """(codec, fourcc, width, height, avcC, vpcC, esds) of the first ``stsd``
-    entry."""
+    """(codec, fourcc, width, height, avcC, vpcC, esds, hvcC) of the first
+    ``stsd`` entry."""
     entries = list(iter_boxes(buf, a + 8, b, where))
     if not entries:
         raise ValueError(f"{where}: the video track has no sample description")
@@ -441,10 +524,13 @@ def _sample_entry(buf: bytes, a: int, b: int, where: str):
             m4v = None
     if codec is None:
         raise ValueError(f"{where}: codec {fourcc!r} is not supported; the port reads "
-                         "H.264 (avc1/avc3), MPEG-4 Part 2 (mp4v), VP8 (vp08), VP9 (vp09), "
-                         "Motion-JPEG "
-                         "and PNG")
-    avc = vpc = None
+                         "H.264 (avc1/avc3), HEVC (hvc1/hev1), MPEG-4 Part 2 (mp4v), VP8 (vp08), "
+                         "VP9 (vp09), Motion-JPEG and PNG")
+    avc = vpc = hvc = None
+    if codec == "hevc":
+        if "hvcC" not in kids:
+            raise ValueError(f"{where}: {fourcc!r} sample entry without hvcC")
+        hvc = parse_hvcc(buf[slice(*kids["hvcC"])])
     if codec == "h264":
         if "avcC" not in kids:
             raise ValueError(f"{where}: {fourcc!r} sample entry without avcC")
@@ -459,7 +545,7 @@ def _sample_entry(buf: bytes, a: int, b: int, where: str):
             raise ValueError(f"{where}: VP9 profile {vpc.profile}, {vpc.bit_depth}-bit {sub} "
                              "(vpcC) is not supported; the port decodes VP9 profile 0, 8-bit "
                              "4:2:0")
-    return codec, fourcc, width, height, avc, vpc, m4v
+    return codec, fourcc, width, height, avc, vpc, m4v, hvc
 
 
 # ---------------------------------------------------------- sample tables ----
@@ -915,14 +1001,26 @@ def read_track(path) -> VideoTrack:
         raise ValueError(f"{where}: malformed moov or moof box ({e})") from e
 
 
+def _display_matrix(buf: bytes, a: int, b: int, kind: str, where: str) -> Tuple[int, ...]:
+    """The display matrix of the ``mvhd`` or ``tkhd`` box whose payload is
+    ``buf[a:b]`` (version 0 or 1)."""
+    at = a + {"mvhd": (36, 48), "tkhd": (40, 52)}[kind][buf[a] == 1]
+    if at + 36 > b:
+        raise ValueError(f"{where}: a {kind} box of {b - a} bytes, too short for its display "
+                         "matrix")
+    return struct.unpack_from(">9i", buf, at)
+
+
 def _first_video_track(buf: bytes, file_size: int, where: str, frags, top) -> VideoTrack:
     moov = _children(buf, 0, len(buf), where)
     movie_scale = struct.unpack_from(">I", buf, moov["mvhd"][0] + (20 if buf[moov["mvhd"][0]] == 1
                                                                      else 12))[0] \
         if "mvhd" in moov else 0
     traks: Dict[int, _Trak] = {}
-    video = None
+    video = movie_matrix = None
     for kind, ta, tb in iter_boxes(buf, 0, len(buf), where):
+        if kind == "mvhd" and movie_matrix is None:
+            movie_matrix = _display_matrix(buf, ta, tb, kind, where)
         if kind != "trak":
             continue
         trak = _children(buf, ta, tb, where)
@@ -941,7 +1039,8 @@ def _first_video_track(buf: bytes, file_size: int, where: str, frags, top) -> Vi
         traks.setdefault(track_id, _Trak(scale, duration, time_offset(edits, scale, movie_scale)))
         if video is None and "hdlr" in mdia and \
                 buf[mdia["hdlr"][0] + 8:mdia["hdlr"][0] + 12] == b"vide":
-            video = (track_id, trak, mdia, edits)
+            tkhd = _display_matrix(buf, *trak["tkhd"], "tkhd", where)
+            video = (track_id, trak, mdia, edits, display_rotation(tkhd, movie_matrix))
     if video is None:
         raise ValueError(f"{where}: no video track")
     if "mvex" in moov:
@@ -953,13 +1052,13 @@ def _first_video_track(buf: bytes, file_size: int, where: str, frags, top) -> Vi
     return _video_track(buf, *video, traks, movie_scale, file_size, where, frags, top)
 
 
-def _video_track(buf: bytes, track_id: int, trak, mdia, edits, traks, movie_scale: int,
-                 file_size: int, where: str, frags, top) -> VideoTrack:
+def _video_track(buf: bytes, track_id: int, trak, mdia, edits, rotation: int, traks,
+                 movie_scale: int, file_size: int, where: str, frags, top) -> VideoTrack:
     t = traks[track_id]
     minf = _children(buf, *_child(mdia, "minf", where), where)
     stbl = _children(buf, *_child(minf, "stbl", where), where)
-    codec, fourcc, width, height, avc, vpc, m4v = _sample_entry(buf, *_child(stbl, "stsd", where),
-                                                           where)
+    codec, fourcc, width, height, avc, vpc, m4v, hvc = _sample_entry(
+        buf, *_child(stbl, "stsd", where), where)
     sizes = sample_sizes(buf, stbl, file_size, where)
     n = len(sizes)
     if "co64" in stbl:
@@ -986,7 +1085,8 @@ def _video_track(buf: bytes, track_id: int, trak, mdia, edits, traks, movie_scal
         if not n:
             raise ValueError(f"{where}: the video track has no samples")
         return VideoTrack(where, codec, fourcc, width, height, t.timescale, offsets, sizes, dts,
-                          pts, sync, order, avc, vpc, m4v, frame_count=n)
+                          pts, sync, order, avc, vpc, m4v, frame_count=n, rotation=rotation,
+                          hvc=hvc)
     if n and (len(order) != n or np.any(order != np.argsort(pts, kind="stable"))):
         raise ValueError(f"{where}: an edit list that drops or repeats samples of a moov that "
                          "fragments follow (a hybrid file): cv2's seek there does not follow its "
@@ -1021,4 +1121,4 @@ def _video_track(buf: bytes, track_id: int, trak, mdia, edits, traks, movie_scal
     count = n or frame_count(traks, track_id)
     return VideoTrack(where, codec, fourcc, width, height, t.timescale, offsets[:keep],
                       sizes[:keep], dts, pts, np.array(out.sync[:keep], bool), order, avc, vpc,
-                      m4v, frame_count=count)
+                      m4v, frame_count=count, rotation=rotation, hvc=hvc)

@@ -7,15 +7,18 @@ and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
 (``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
 (the port's own demuxers, chosen by content in ``data/container.py``:
-mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264, MPEG-4 Part 2, VP8
-and VP9 decode on the host through the runtime).
+mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264, HEVC intra
+pictures, MPEG-4 Part 2, VP8 and VP9 decode on the host through the
+runtime).
 """
 
 from __future__ import annotations
 
 import bisect
 import functools
+import struct
 import threading
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -24,9 +27,10 @@ import torch
 from cap4d_torch.data.container import read_track
 from cap4d_torch.data.mp4 import slice_ref_idc
 from cap4d_torch.runtime.h264 import H264Decoder
+from cap4d_torch.runtime.hevc import HevcDecoder
 from cap4d_torch.runtime.loader import MjpegDecoder, decode_bytes, decode_image
 from cap4d_torch.runtime.mpeg4 import Mpeg4Decoder
-from cap4d_torch.runtime.nvdec import CHROMA_POSITIONS, yuv_to_rgb
+from cap4d_torch.runtime.nvdec import CHROMA_POSITIONS, to_host, yuv_to_rgb
 from cap4d_torch.runtime import vp8
 from cap4d_torch.runtime.vp9 import Vp9Decoder, scan
 
@@ -156,21 +160,27 @@ class VideoFrameReader:
     same name, ``len`` and indexing: ``len`` is cv2's CAP_PROP_FRAME_COUNT,
     frame k what cv2's seek to k reads).
 
-    Motion-JPEG, PNG, H.264, MPEG-4 Part 2, VP8 and VP9 samples decode on
-    the host through the runtime, whatever ``device`` is; the RGB conversion
-    of all but PNG runs on ``device`` (the CPU when None). Motion-JPEG
-    (``runtime/loader.py``'s :class:`MjpegDecoder`: the planes ffmpeg's
-    ``mjpeg`` decoder gives, through libavcodec's simple IDCT, full-range
-    BT.601), H.264 (``runtime/h264.py``: I, P and B slices, CAVLC and
-    CABAC, progressive 8-bit 4:2:0), MPEG-4 Part 2 (``runtime/mpeg4.py``:
+    Motion-JPEG, PNG, H.264, HEVC, MPEG-4 Part 2, VP8 and VP9 samples decode
+    on the host through the runtime, whatever ``device`` is; the RGB
+    conversion of all but PNG runs on ``device`` (the CPU when None).
+    Motion-JPEG (``runtime/loader.py``'s :class:`MjpegDecoder`: the planes
+    ffmpeg's ``mjpeg`` decoder gives, through libavcodec's simple IDCT,
+    full-range BT.601), H.264 (``runtime/h264.py``: I, P and B slices, CAVLC
+    and CABAC, progressive 8-bit 4:2:0), HEVC (``runtime/hevc.py``: the
+    intra pictures of Main and Main Still Picture streams, ``hvc1``/``hev1``,
+    ``V_MPEGH/ISO/HEVC``, ``HEVC``/``H265``; a RASL picture of the stream's
+    first CRA and a picture with pic_output_flag 0 show no frame, as in
+    ffmpeg; a later CRA's RASL picture decodes from the sync sample before
+    that CRA, where cv2's seek lands; a P or B slice raises naming it),
+    MPEG-4 Part 2 (``runtime/mpeg4.py``:
     Simple and Advanced Simple profile VOPs, ``mp4v`` with object type
     0x20), VP8 (``runtime/vp8.py``: ``vp08``, ``V_VP8``, ``VP80``) and VP9
     (``runtime/vp9.py``: profile 0, ``vp09``, ``V_VP9``, ``VP90``) share one
     path, :meth:`planes`, and are read as cv2 counts frames: frame k is the
     sample ``order[k]`` (``ctts`` order, the edit list applied, a
     fragmented mp4's runs read as ffmpeg reads them; Matroska's
-    block times; in an AVI, which carries no times, H.264's picture order
-    count from a header scan, for MPEG-4 ffmpeg's output order: each anchor
+    block times; in an AVI, which carries no times, H.264's and HEVC's picture
+    order count from a header scan, for MPEG-4 ffmpeg's output order: each anchor
     VOP after the B-VOPs that follow it in the file, and for VP8 and VP9
     decode order), decoded from the last sync sample at or before it, or
     onward from where the decoder stands when that lies between the two.
@@ -217,7 +227,13 @@ class VideoFrameReader:
     take (profiles 1-3, high bit depth) raises ``ValueError`` naming the
     tool on every device; nothing hands it to NVDEC. Other codecs raise
     ``ValueError`` naming the four-character code or CodecID. No file
-    handle stays open between reads."""
+    handle stays open between reads.
+
+    Frames come out as cv2 hands them: turned clockwise by the track's
+    rotation (``VideoTrack.rotation``: an mp4/mov display matrix, a
+    Matroska projection roll) on ``device``, after the RGB conversion, so a
+    portrait phone video reads upright, (W, H, 3); ``len`` does not
+    change."""
 
     # the longest prefix of a sample read to find its VOP header
     SCAN_BYTES = 4096
@@ -228,11 +244,11 @@ class VideoFrameReader:
         t = self.track
         # where the RGB conversion runs (the CPU when None)
         self._device = torch.device("cpu") if device is None else torch.device(device)
-        self._h264 = self._mpeg4 = self._vp9 = self._vp8 = self._mjpeg = None
+        self._h264 = self._mpeg4 = self._vp9 = self._vp8 = self._mjpeg = self._hevc = None
         self._order = t.order
         self._chroma_pos = None
         self._count = len(t) if t.frame_count is None else t.frame_count
-        if t.codec in ("h264", "mpeg4", "vp9", "vp8", "mjpeg"):
+        if t.codec in ("h264", "hevc", "mpeg4", "vp9", "vp8", "mjpeg"):
             if t.codec == "mjpeg":
                 self._mjpeg = MjpegDecoder(str(self.path))
                 self._hold_max = 0     # every sample is a picture of its own
@@ -245,6 +261,10 @@ class VideoFrameReader:
                 self._hold_max = self._h264.dpb_frames or 16
                 if not t.timed:
                     self._scan_pictures()
+            elif t.codec == "hevc":
+                self._hevc = HevcDecoder(t.hvc.params, t.hvc.length_size, str(self.path))
+                self._scan_hevc()
+                self._hold_max = self._hold_frames or 16
             elif t.codec == "mpeg4":
                 self._mpeg4 = Mpeg4Decoder(t.m4v.dsi, str(self.path))
                 self._hold_max = 4
@@ -339,6 +359,38 @@ class VideoFrameReader:
         scanner.close()
         self._order = np.array([j for _, _, j in sorted(keys)], np.int64)
 
+    def _scan_hevc(self) -> None:
+        """Each sample's NAL type, POC and whether it shows, from its first
+        slice header (a decoder of its own, which decodes none): frames are
+        the samples that show a picture (not a RASL picture of the CRA that
+        starts the stream, not pic_output_flag 0), in presentation order; in
+        an AVI by picture order count, which starts over at IDR and BLA
+        pictures."""
+        t = self.track
+        scanner = HevcDecoder(t.hvc.params, t.hvc.length_size, str(self.path))
+        self._nal_type = np.zeros(len(t), np.int64)
+        shows = np.zeros(len(t), bool)
+        keys, epoch = [], 0
+        for j in range(len(t)):
+            data = t.sample(j, self.SCAN_BYTES)
+            try:
+                pic = scanner.scan(data, f"sample {j}")
+            except ValueError:       # the header may run past the bytes read
+                full = t.sample(j)
+                if full == data:
+                    raise
+                pic = scanner.scan(full, f"sample {j}")
+            if j and pic.nal_type in (16, 17, 18, 19, 20):     # BLA, IDR: NoRaslOutputFlag
+                epoch += 1
+            self._nal_type[j], shows[j] = pic.nal_type, pic.shows
+            keys.append((epoch, pic.poc, j))
+        self._hold_frames = scanner.dpb_frames
+        scanner.close()
+        if t.timed:
+            self._order = t.order[shows[t.order]]
+        else:
+            self._order = np.array([j for _, _, j in sorted(keys) if shows[j]], np.int64)
+
     def __len__(self) -> int:
         if self._count < 0:
             raise ValueError(
@@ -349,21 +401,22 @@ class VideoFrameReader:
 
     @property
     def _decoder(self):
-        return next((d for d in (self._h264, self._mpeg4, self._vp9, self._vp8, self._mjpeg)
-                     if d is not None), None)
+        return next((d for d in (self._h264, self._hevc, self._mpeg4, self._vp9, self._vp8,
+                                 self._mjpeg) if d is not None), None)
 
     def __getitem__(self, index: int) -> np.ndarray:
         if self._decoder is None:
             if not 0 <= index < len(self._order):
                 raise IndexError(self._no_picture(index))
             sample = int(self._order[index])
-            return decode_bytes(self.track.sample(sample), f"{self.path} frame {index}",
-                                (self.track.height, self.track.width))
+            rgb = decode_bytes(self.track.sample(sample), f"{self.path} frame {index}",
+                               (self.track.height, self.track.width))
+            return to_host(torch.from_numpy(rgb), self.track.rotation)
         y, u, v = (None if p is None else torch.from_numpy(p).to(self._device)
                    for p in self.planes(index))
         dec = self._decoder
         return yuv_to_rgb(y, u, v, self.track.height, self.track.width, dec.matrix,
-                          dec.full_range, self._chroma_pos)
+                          dec.full_range, self._chroma_pos, self.track.rotation)
 
     def _no_picture(self, index: int) -> str:
         """Why cv2's read of frame ``index`` fails (its count may exceed the
@@ -375,7 +428,8 @@ class VideoFrameReader:
                        f"{len(t.order)} of its {n} samples")
         if shown < len(t.order):
             what = ("are not-coded VOPs (vop_coded 0)" if self._mpeg4 is not None else
-                    "hold only hidden frames (show_frame 0)")
+                    "are RASL pictures of the stream's first CRA or have pic_output_flag 0"
+                    if self._hevc is not None else "hold only hidden frames (show_frame 0)")
             why.append(f"{len(t.order) - shown} {what}, which give ffmpeg no picture")
         return (f"{self.path} frame {index}: cv2 reads {shown} frames of this file "
                 f"({'; '.join(why) or 'no frame past the last'}), though it counts {self._count}")
@@ -405,6 +459,10 @@ class VideoFrameReader:
             if planes is None:
                 syncs = np.flatnonzero(t.sync[:sample + 1])
                 sync = int(syncs[-1]) if len(syncs) else 0
+                if self._hevc is not None and self._nal_type[sample] in (8, 9) and len(syncs) > 1:
+                    # a RASL picture: ffmpeg discards it when decoding starts at its
+                    # CRA, so start at the sync sample before (cv2's seek lands there)
+                    sync = int(syncs[-2])
                 if self._next is None or not sync <= self._next <= sample:
                     self._restart()
                     self._next, self._origin = sync, int(self._pts[sync])
@@ -412,7 +470,7 @@ class VideoFrameReader:
                     while self._next <= sample:
                         j, self._next = self._next, self._next + 1
                         shown = self._frame_of[j]
-                        if j == sample and self._pts[j] < self._origin:
+                        if j == sample and self._pts[j] < self._origin and self._hevc is None:
                             # an open GOP's leading picture, decoded from the
                             # sync sample after it: its references lie before
                             raise ValueError(
@@ -423,6 +481,11 @@ class VideoFrameReader:
                         if j < sample and 0 <= shown < index and self._unreferenced(j):
                             continue          # shown before this frame; nothing refers to it
                         got = self._decode(j, f"frame {index} (sample {j})")
+                        if j == sample and got is None:
+                            raise ValueError(
+                                f"{self.path} frame {index} (sample {j}): the sample gives no "
+                                f"picture when decoding starts at sync sample {sync} (a RASL "
+                                "picture whose CRA is the file's first sync sample)")
                         if j == sample:
                             planes = got
                         elif shown > index:
@@ -439,6 +502,8 @@ class VideoFrameReader:
             return slice_ref_idc(self.track.sample(j), self.track.avc.length_size) == 0
         if self._mpeg4 is not None:
             return self._vop_type[j] == "B"
+        if self._hevc is not None:   # sub-layer non-reference: no POC state depends on it
+            return self._nal_type[j] < 16 and self._nal_type[j] % 2 == 0
         return False    # a VP8 or VP9 frame leaves probabilities and segments to the next
 
     def _restart(self) -> None:
@@ -464,6 +529,14 @@ class VideoFrameReader:
             if (pic.idr and self._run) or pic.mmco5:
                 self._epoch += 1
             key, clock = (self._epoch, pic.poc), "picture order count"
+        elif self._hevc is not None:
+            planes = self._hevc.decode(t.sample(j), what)
+            pic = self._hevc.picture
+            if pic.nal_type in (16, 17, 18, 19, 20) and self._run:
+                self._epoch += 1
+            key, clock = (self._epoch, pic.poc), "picture order count"
+            if planes is None:
+                return None
         elif self._mpeg4 is not None:
             planes = self._mpeg4.decode(t.sample(j), what, (t.width, t.height))
             key, clock = (0, self._mpeg4.vop.time), "VOP time"
@@ -503,9 +576,101 @@ def open_video(path, device=None) -> VideoFrameReader:
                        None if device is None else str(device))
 
 
+def _tiff_orientation(d: bytes) -> int:
+    """IFD0's Orientation (tag 0x0112) of a TIFF header and IFD, read as
+    OpenCV's ``ExifReader`` reads it: "II" twice is little-endian, anything
+    else big-endian; magic 42; the value is the 16 bits at the entry's
+    value field whatever its type and count; the first entry with the tag
+    wins; a read past the end stops the parse (0: none found)."""
+    fmt = "<H" if d[:2] == b"II" else ">H"
+
+    def u16(o):
+        if o + 1 >= len(d):
+            raise IndexError(o)
+        return struct.unpack_from(fmt, d, o)[0]
+
+    try:
+        if u16(2) != 42 or len(d) < 8:
+            return 0
+        off = struct.unpack_from(fmt[0] + "I", d, 4)[0]
+        n = u16(off)
+        for e in range(n):
+            if u16(off + 2 + 12 * e) == 0x0112:
+                return u16(off + 2 + 12 * e + 8)
+    except IndexError:
+        pass
+    return 0
+
+
+def exif_orientation(data: bytes) -> int:
+    """The EXIF Orientation cv2.imread applies to an image file's bytes
+    (0 for none): for a JPEG, the first Orientation found in its APP1
+    segments that begin with "Exif\\0\\0", before its first scan, each read
+    until it ends or breaks (libjpeg saves them, OpenCV parses each in
+    turn and keeps the first value); for a PNG, its first ``eXIf`` chunk
+    whose CRC holds and whose first two bytes are "II" or "MM" (libpng
+    drops the others, and a second eXIf)."""
+    if data[:2] == b"\xff\xd8":
+        pos = 2
+        while pos + 4 <= len(data):
+            if data[pos] != 0xFF:
+                return 0
+            marker = data[pos + 1]
+            if marker == 0xFF:              # fill byte
+                pos += 1
+                continue
+            if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+                pos += 2
+                continue
+            if marker in (0xDA, 0xD9):      # the first scan, or the end
+                return 0
+            size = struct.unpack_from(">H", data, pos + 2)[0]
+            seg = data[pos + 4:pos + 2 + size]
+            if marker == 0xE1 and seg[:6] == b"Exif\0\0":
+                found = _tiff_orientation(seg[6:])
+                if found:
+                    return found
+            pos += 2 + size
+        return 0
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        pos = 8
+        while pos + 12 <= len(data):
+            size, kind = struct.unpack_from(">I4s", data, pos)
+            body = data[pos + 8:pos + 8 + size]
+            if kind == b"eXIf":
+                crc = data[pos + 8 + size:pos + 12 + size]
+                if crc == struct.pack(">I", zlib.crc32(kind + body)):
+                    if len(body) >= 2 and body[0] == body[1] and body[:1] in (b"I", b"M"):
+                        return _tiff_orientation(body)
+                    return 0
+            if kind == b"IEND":
+                break
+            pos += 12 + size
+    return 0
+
+
+def apply_orientation(rgb: np.ndarray, orientation: int) -> np.ndarray:
+    """``rgb`` turned and mirrored for an EXIF Orientation 1-8 as OpenCV's
+    ``ExifTransform`` does (5-8 transpose first); other values leave it."""
+    if not 2 <= orientation <= 8:
+        return rgb
+    if orientation >= 5:
+        rgb = rgb.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 5: (), 6: (1,), 7: (0, 1), 8: (0,)}[orientation]
+    return np.ascontiguousarray(np.flip(rgb, flip) if flip else rgb)
+
+
+def _read_still(path: Path) -> np.ndarray:
+    """A PNG or JPEG file as ``cv2.imread`` reads it: decoded, then its EXIF
+    orientation applied."""
+    return apply_orientation(decode_image(path), exif_orientation(path.read_bytes()))
+
+
 def load_frame(frame_path: Path, frame_id: int, device=None) -> np.ndarray:
-    """Frame ``frame_id`` of a directory of PNG or JPEG frames (sorted order)
-    or of a video file (:class:`VideoFrameReader` on ``device``), RGB uint8.
+    """Frame ``frame_id`` of a directory of PNG or JPEG frames (sorted order;
+    each turned by its EXIF orientation, as ``cv2.imread`` in the JAX
+    package's ``FrameReader`` turns it) or of a video file
+    (:class:`VideoFrameReader` on ``device``), RGB uint8.
     An index past the end warns and reads the last frame, as the JAX
     package's ``load_frame`` does; a video whose count cv2 gives as 0 reads
     its first frame (cv2's seek to frame -1 leaves a fresh capture there),
@@ -514,7 +679,7 @@ def load_frame(frame_path: Path, frame_id: int, device=None) -> np.ndarray:
     frame_path = Path(frame_path)
     if frame_path.is_dir():
         frames = sorted(frame_path.glob("*.*"))
-        n, read = len(frames), lambda i: decode_image(frames[i])
+        n, read = len(frames), lambda i: _read_still(frames[i])
     else:
         reader = open_video(frame_path, device)
         n, read = len(reader), lambda i: reader[max(i, 0)]

@@ -1,12 +1,14 @@
 """ctypes bindings and build of the port's native runtime (``cap4d_runtime.cpp``,
 the H.264 decoder ``h264.cpp``, the MPEG-4 Part 2 decoder ``mpeg4.cpp``, the
-VP9 decoder ``vp9.cpp`` and the VP8 decoder ``vp8.cpp``).
+VP9 decoder ``vp9.cpp``, the VP8 decoder ``vp8.cpp`` and the HEVC decoder
+``hevc.cpp``).
 
 Counterpart of ``cap4d_tpu/runtime/loader.py``, with its own copy of the
 C++ source. The library carries its own PNG and JPEG codecs (the card's
 machine has neither libpng nor libjpeg), so it needs only g++ and pthreads.
 Its sources are compiled at first use, never at import, with
-``g++ -O3 -march=native -fPIC -shared`` into one library under
+``g++ -O3 -march=native -fPIC`` (one process a source, all at once) and
+linked into one library under
 ``cap4d_torch/_build/``, named by a hash of the sources, the flags and the
 host CPU's features. There is no fallback: if the build fails,
 the error carries g++'s output, and a frame that cannot be decoded raises
@@ -22,6 +24,7 @@ import os
 import platform
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -29,7 +32,7 @@ import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = [_HERE / "cap4d_runtime.cpp", _HERE / "h264.cpp", _HERE / "mpeg4.cpp", _HERE / "vp9.cpp",
-           _HERE / "vp8.cpp"]
+           _HERE / "vp8.cpp", _HERE / "hevc.cpp"]
 BUILD_DIR = _HERE.parent / "_build"
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
@@ -108,6 +111,17 @@ _SIGNATURES = {
     "c4d_vp8_tools": ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)], None),
     "c4d_vp8_reset": ([ctypes.c_void_p], None),
     "c4d_vp8_close": ([ctypes.c_void_p], None),
+    "c4d_hevc_open": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_char_p, ctypes.c_int],
+                      ctypes.c_void_p),
+    "c4d_hevc_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p,
+                         ctypes.c_int], ctypes.c_int),
+    "c4d_hevc_output": ([ctypes.c_void_p, _U8_P, _U8_P, _U8_P], ctypes.c_int),
+    "c4d_hevc_scan": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p,
+                       ctypes.c_int], ctypes.c_int),
+    "c4d_hevc_buffering": ([ctypes.c_void_p, _INT_P, _INT_P], None),
+    "c4d_hevc_tools": ([ctypes.c_void_p], ctypes.c_ulonglong),
+    "c4d_hevc_reset": ([ctypes.c_void_p], None),
+    "c4d_hevc_close": ([ctypes.c_void_p], None),
 }
 
 
@@ -131,20 +145,34 @@ def so_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless it exists; raise with g++'s output on failure."""
+    """Compile the library unless it exists: one g++ per source, all at once,
+    then one link; raise with g++'s output on failure."""
     so = so_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *FLAGS, *map(str, SOURCES), "-o", str(tmp), "-lpthread"]
+    compile_flags = [f for f in FLAGS if f != "-shared"]
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
+
+    def run(cmd, what):
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError("cannot build the runtime: g++ not found") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {what}:\n{proc.stderr}")
+
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError("cannot build the runtime: g++ not found") from e
-    if proc.returncode != 0:
-        names = ", ".join(src.name for src in SOURCES)
-        raise RuntimeError(f"g++ failed to build {names}:\n{proc.stderr}")
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            list(pool.map(lambda so_src: run(["g++", *compile_flags, "-c", str(so_src[1]), "-o",
+                                              str(so_src[0])], so_src[1].name),
+                          zip(objects, SOURCES)))
+        run(["g++", "-shared", *map(str, objects), "-o", str(tmp), "-lpthread"],
+            ", ".join(src.name for src in SOURCES))
+    finally:
+        for o in objects:
+            o.unlink(missing_ok=True)
     os.replace(tmp, so)
     return so
 

@@ -139,13 +139,22 @@ def nv12_to_rgb(y: torch.Tensor, uv: torch.Tensor, matrix: str = "bt601",
     h, w = y.shape
     if uv.shape[:2] != ((h + 1) // 2, (w + 1) // 2):
         raise ValueError(f"chroma plane {tuple(uv.shape)} does not fit luma {h}x{w}")
-    return _unscaled(y, uv, 2, matrix, full_range)
+    return to_host(_unscaled(y, uv, 2, matrix, full_range))
+
+
+def to_host(rgb: torch.Tensor, rotation: int = 0) -> np.ndarray:
+    """An RGB picture on any device → numpy, turned ``rotation`` degrees
+    clockwise (0, 90, 180 or 270: cv2's rotation of a frame whose container
+    carries a display matrix) on that device first."""
+    if rotation:
+        rgb = torch.rot90(rgb, -(rotation // 90), (0, 1)).contiguous()
+    return rgb.cpu().numpy()
 
 
 def _unscaled(y: torch.Tensor, uv: torch.Tensor, rows: int, matrix: str,
-              full_range: bool) -> np.ndarray:
+              full_range: bool) -> torch.Tensor:
     """swscale's unscaled converter: each chroma sample over 2 columns and
-    ``rows`` rows of luma."""
+    ``rows`` rows of luma; RGB on the planes' device."""
     h, w = y.shape
     cy, oy, vr, ub, ug, vg = _fixed_point(matrix, full_range)
     c = (uv.int() << 3) - (128 << 3)
@@ -155,8 +164,7 @@ def _unscaled(y: torch.Tensor, uv: torch.Tensor, rows: int, matrix: str,
     r = luma + ((v * vr) >> 16)
     g = luma + ((u * ug) >> 16) + ((v * vg) >> 16)
     b = luma + ((u * ub) >> 16)
-    rgb = torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
-    return rgb.cpu().numpy()
+    return torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
 
 
 # --------------------------------------------- swscale's generic scaler --
@@ -385,6 +393,13 @@ def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: i
     numpy, as swscale's generic scaler with SWS_BICUBIC to BGR24 gives it
     (see the notes above this function). ``chroma_pos`` is the source's
     (src_h_chr_pos, src_v_chr_pos), None for swscale's default."""
+    return to_host(_bicubic(y, u, v, height, width, matrix, full_range, chroma_pos))
+
+
+def _bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int,
+             matrix: str, full_range: bool,
+             chroma_pos: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """:func:`swscale_bicubic`'s RGB on the planes' device."""
     if matrix not in MATRICES:
         raise ValueError(f"matrix must be one of {sorted(MATRICES)}, got {matrix!r}")
     h, w = y.shape
@@ -415,7 +430,7 @@ def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: i
         yy = (yy - k[1]) * k[0] + (1 << 21)
         r, g, b = yy + vv * k[2], yy + vv * k[5] + uu * k[4], yy + uu * k[3]
         rgb = torch.stack([_wrap(x, 32).clamp_(0, (1 << 30) - 1) >> 22 for x in (r, g, b)], -1)
-        return rgb.to(torch.uint8).cpu().numpy()
+        return rgb.to(torch.uint8)
     rgb = torch.empty(height, width, 3, dtype=torch.uint8, device=y.device)
     split = max(height - 2, 0)
     if split:     # MMXEXT yuv2bgr24_X (yuv2bgr24_1 for one tap)
@@ -437,14 +452,15 @@ def swscale_bicubic(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: i
         yy = yy.long()
         rgb[split:] = torch.stack([table[r_v[vv] + yy], table[g_u[uu] + g_v[vv] + yy],
                                    table[b_u[uu] + yy]], -1).to(torch.uint8)
-    return rgb.cpu().numpy()
+    return rgb
 
 
 def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int,
                matrix: str = "bt601", full_range: bool = False,
-               chroma_pos: Optional[Tuple[int, int]] = None) -> np.ndarray:
+               chroma_pos: Optional[Tuple[int, int]] = None, rotation: int = 0) -> np.ndarray:
     """A decoded picture's planes (any device; ``u``/``v`` None for
-    greyscale) -> RGB uint8 (height, width, 3) numpy, as cv2 converts it:
+    greyscale) -> RGB uint8 (height, width, 3) numpy, turned ``rotation``
+    degrees clockwise on their device (:func:`to_host`), as cv2 converts it:
     swscale's unscaled converter (:func:`nv12_to_rgb`'s arithmetic, chroma
     repeated, which ignores the chroma siting) for 4:2:0 and 4:2:2 at the
     output size with an even height, grey repeated into the three channels,
@@ -455,9 +471,11 @@ def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, w
         if (h, w) != (height, width):
             raise ValueError(f"a {w}x{h} greyscale picture shown at {width}x{height}: "
                              "swscale's scaled grey path is not copied")
-        return y[..., None].expand(h, w, 3).cpu().numpy()
-    if (h, w) == (height, width) and not h & 1 and u.shape[1] == (w + 1) // 2 \
+        rgb = y[..., None].expand(h, w, 3)
+    elif (h, w) == (height, width) and not h & 1 and u.shape[1] == (w + 1) // 2 \
             and u.shape[0] in (h, h // 2):
-        return _unscaled(y, torch.stack([u, v], -1), 1 if u.shape[0] == h else 2, matrix,
-                         full_range)
-    return swscale_bicubic(y, u, v, height, width, matrix, full_range, chroma_pos)
+        rgb = _unscaled(y, torch.stack([u, v], -1), 1 if u.shape[0] == h else 2, matrix,
+                        full_range)
+    else:
+        rgb = _bicubic(y, u, v, height, width, matrix, full_range, chroma_pos)
+    return to_host(rgb, rotation)

@@ -37,14 +37,14 @@ from cap4d_torch.data import mp4
 
 # codec -> the four-character code cv2's ffmpeg writes into an AVI
 AVI_FOURCC = {"h264": b"H264", "mpeg4": b"FMP4", "mjpeg": b"MJPG", "png": b"MPNG", "vp9": b"VP90",
-              "vp8": b"VP80"}
+              "vp8": b"VP80", "hevc": b"HEVC"}
 AVIIF_KEYFRAME = 0x10
 
 
 @dataclass
 class Stream:
-    """Samples in decode order (H.264 with the mp4's NAL lengths), their
-    sync flags and presentation indices, and what the codec needs."""
+    """Samples in decode order (H.264 and HEVC with the mp4's NAL lengths),
+    their sync flags and presentation indices, and what the codec needs."""
 
     codec: str
     width: int
@@ -55,6 +55,7 @@ class Stream:
     avc: Optional[mp4.AvcConfig] = None
     dsi: bytes = b""
     vpc: Optional[mp4.VpcConfig] = None
+    hvc: Optional[mp4.HvcConfig] = None
 
 
 def stream_of_mp4(path) -> Stream:
@@ -64,11 +65,28 @@ def stream_of_mp4(path) -> Stream:
     for k, j in enumerate(t.order):
         rank[int(j)] = k
     return Stream(t.codec, t.width, t.height, [t.sample(i) for i in range(len(t))],
-                  [bool(s) for s in t.sync], rank, t.avc, t.m4v.dsi if t.m4v else b"", t.vpc)
+                  [bool(s) for s in t.sync], rank, t.avc, t.m4v.dsi if t.m4v else b"", t.vpc, t.hvc)
 
 
-def _annexb_params(avc: mp4.AvcConfig) -> bytes:
-    return b"".join(avc.sps) + b"".join(avc.pps)
+def _annexb_params(s: Stream) -> bytes:
+    if s.codec == "hevc":
+        return b"".join(s.hvc.params)
+    return b"".join(s.avc.sps) + b"".join(s.avc.pps)
+
+
+def hvcc(hvc: mp4.HvcConfig) -> bytes:
+    """An ``hvcC`` payload (HEVCDecoderConfigurationRecord, 4-byte NAL
+    lengths) holding ``hvc``'s parameter sets, one array per NAL type."""
+    arrays: dict = {}
+    for nal in hvc.params:
+        body = nal[4:] if nal[:4] == b"\0\0\0\1" else nal[3:]
+        arrays.setdefault((body[0] >> 1) & 0x3F, []).append(body)
+    head = (bytes([1, hvc.profile & 0x1F]) + struct.pack(">I", 1 << (31 - (hvc.profile & 31)))
+            + b"\x90" + b"\0" * 5 + bytes([120]) + struct.pack(">H", 0xF000)
+            + bytes([0xFC, 0xFD, 0xF8, 0xF8]) + struct.pack(">H", 0) + bytes([0x0F, len(arrays)]))
+    return head + b"".join(bytes([0x80 | kind]) + struct.pack(">H", len(nals))
+                           + b"".join(struct.pack(">H", len(n)) + n for n in nals)
+                           for kind, nals in sorted(arrays.items()))
 
 
 def avcc(avc: mp4.AvcConfig) -> bytes:
@@ -86,15 +104,15 @@ def _payloads(s: Stream, in_band: bool):
     extradata or before each key frame."""
     extra, out = b"", []
     for data, key in zip(s.samples, s.sync):
-        if s.codec == "h264":
-            data = mp4.annexb(data, s.avc.length_size)
+        if s.codec in ("h264", "hevc"):
+            data = mp4.annexb(data, (s.avc or s.hvc).length_size)
             if in_band and key:
-                data = _annexb_params(s.avc) + data
+                data = _annexb_params(s) + data
         elif s.codec == "mpeg4" and in_band and key:
             data = s.dsi + data
         out.append(data)
     if not in_band:
-        extra = _annexb_params(s.avc) if s.codec == "h264" else s.dsi
+        extra = _annexb_params(s) if s.codec in ("h264", "hevc") else s.dsi
     return extra, out
 
 
@@ -256,7 +274,8 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
               codec_id: Optional[str] = None, codec_private: Optional[bytes] = None,
               negative: bool = False, vfw: bool = False, decoy: Optional[bytes] = None,
               block_additions: Optional[List[bytes]] = None,
-              chroma_siting: Optional[Tuple[int, int]] = None) -> None:
+              chroma_siting: Optional[Tuple[int, int]] = None,
+              projection: Optional[Tuple[Optional[int], float, float, float]] = None) -> None:
     """Write ``s`` as Matroska (``doc_type`` "webm" for WebM). ``blocks``
     "simple" or "group", clusters of 8 frames or from a key frame on;
     ``lacing`` "xiph", "fixed" or "ebml" puts up to 3 frames a block (a key
@@ -273,7 +292,10 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
     ``blocks="group"``) gives each block a BlockAdditions element
     (BlockAddID 1), where browsers put a VP8 alpha plane; ``chroma_siting``
     (ChromaSitingHorz, ChromaSitingVert: 0 unspecified, 1 left or top
-    collocated, 2 half) adds a Colour element with the two."""
+    collocated, 2 half) adds a Colour element with the two; ``projection``
+    (ProjectionType, or None to leave it out, then ProjectionPoseYaw,
+    ProjectionPosePitch and ProjectionPoseRoll in degrees, 8-byte floats)
+    adds a Projection element."""
     ms = 1000 // fps
     track_no = 2 if audio else 1
     if codec_id is None:
@@ -283,8 +305,10 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
             private = bitmap_info_header(AVI_FOURCC[s.codec], s.width, s.height, extra)
         else:
             codec_id = {"h264": "V_MPEG4/ISO/AVC", "mpeg4": "V_MPEG4/ISO/ASP",
-                        "mjpeg": "V_MJPEG", "vp9": "V_VP9", "vp8": "V_VP8"}[s.codec]
-            private = avcc(s.avc) if s.codec == "h264" else s.dsi
+                        "mjpeg": "V_MJPEG", "vp9": "V_VP9", "vp8": "V_VP8",
+                        "hevc": "V_MPEGH/ISO/HEVC"}[s.codec]
+            private = (avcc(s.avc) if s.codec == "h264" else hvcc(s.hvc) if s.codec == "hevc"
+                       else s.dsi)
             samples = list(s.samples)
     else:
         samples, private = list(s.samples), b""
@@ -317,7 +341,12 @@ def write_mkv(path, s: Stream, *, doc_type: str = "matroska", blocks: str = "sim
                   if default_duration else b"")
                + el(0xE0, uint(0xB0, s.width) + uint(0xBA, s.height)
                     + (el(0x55B0, uint(0x55B7, chroma_siting[0]) + uint(0x55B8, chroma_siting[1]))
-                       if chroma_siting else b""))
+                       if chroma_siting else b"")
+                    + (el(0x7670, (uint(0x7671, projection[0]) if projection[0] is not None
+                                   else b"")
+                          + b"".join(el(i, struct.pack(">d", v)) for i, v in
+                                     zip((0x7673, 0x7674, 0x7675), projection[1:])))
+                       if projection else b""))
                + (el(0x6D80, encodings) if encodings else b""))
     tracks = el(0x1654AE6B, (el(0xAE, uint(0xD7, 1) + uint(0x73C5, 0x1235) + uint(0x83, 2)
                                    + el(0x86, b"A_PCM/INT/LIT")
@@ -471,14 +500,17 @@ def write_edited_mp4(path, s: Stream, edits) -> None:
                  edits=edits)
 
 
-def mp4_sample_entry(s: Stream) -> bytes:
-    """The mp4 sample entry of ``s``'s codec (``avc1``, ``mp4v``, ``vp09``,
-    ``vp08``, ``jpeg``, ``png ``)."""
+def mp4_sample_entry(s: Stream, fourcc: Optional[bytes] = None) -> bytes:
+    """The mp4 sample entry of ``s``'s codec (``avc1``, ``hvc1``, ``mp4v``,
+    ``vp09``, ``vp08``, ``jpeg``, ``png ``; ``fourcc`` overrides the code, as
+    ``hev1``)."""
     from cap4d_torch.utils import synthetic_assets as sa
     from cap4d_torch.utils.mpeg4_writer import esds_box
 
     if s.codec == "h264":
         kids = [sa._box(b"avcC", avcc(s.avc))]
+    elif s.codec == "hevc":
+        kids = [sa._box(b"hvcC", hvcc(s.hvc))]
     elif s.codec == "mpeg4":
         kids = [esds_box(s.dsi)]
     elif s.codec == "vp9":
@@ -488,8 +520,8 @@ def mp4_sample_entry(s: Stream) -> bytes:
             v.colour_primaries, v.transfer, v.matrix, 0, 0]))]
     else:
         kids = []
-    fourcc = {"h264": b"avc1", "mpeg4": b"mp4v", "vp9": b"vp09", "vp8": b"vp08", "mjpeg": b"jpeg",
-              "png": b"png "}[s.codec]
+    fourcc = fourcc or {"h264": b"avc1", "hevc": b"hvc1", "mpeg4": b"mp4v", "vp9": b"vp09",
+                        "vp8": b"vp08", "mjpeg": b"jpeg", "png": b"png "}[s.codec]
     return sa.visual_sample_entry(fourcc, s.width, s.height, *kids)
 
 
@@ -781,3 +813,33 @@ def rgb_sha256(frames) -> str:
     for f in frames:
         h.update(np.ascontiguousarray(f).tobytes())
     return h.hexdigest()
+
+
+# ------------------------------------------------------- display matrix --
+
+def rotation_matrix(degrees: float, mirror: str = "") -> Tuple[int, ...]:
+    """A display matrix (9 fields: 16.16, 16.16, 2.30 fixed point, row by
+    row) turning the picture ``degrees`` clockwise, as ffmpeg's
+    ``av_display_rotation_set`` writes it, then mirrored ("h": the first
+    column negated, "v": the second)."""
+    import math
+
+    r = -degrees * math.pi / 180.0
+    c, s = math.cos(r), math.sin(r)
+    m = [int(c * 65536), int(-s * 65536), 0, int(s * 65536), int(c * 65536), 0, 0, 0, 1 << 30]
+    for i in range(9):
+        m[i] *= -1 if (mirror == "h" and i % 3 == 0) or (mirror == "v" and i % 3 == 1) else 1
+    return tuple(m)
+
+
+def set_display_matrix(path, tkhd: Optional[Tuple[int, ...]] = None,
+                       mvhd: Optional[Tuple[int, ...]] = None) -> None:
+    """Overwrite, in place, the display matrix of the mp4/mov ``path``'s
+    first ``tkhd`` (the video track in the files the writers make) and of
+    its ``mvhd`` (each None: left as it is)."""
+    data = bytearray(Path(path).read_bytes())
+    for kind, fields, (v0, v1) in ((b"mvhd", mvhd, (36, 48)), (b"tkhd", tkhd, (40, 52))):
+        if fields is not None:
+            at = data.index(kind) + 4              # the box's version byte
+            struct.pack_into(">9i", data, at + (v1 if data[at] == 1 else v0), *fields)
+    Path(path).write_bytes(bytes(data))

@@ -71,7 +71,8 @@ Phases (each must pass; any failure raises and the exit code is non-zero):
      anchors, in order (one decode a frame) and shuffled; the random-syntax
      CAVLC and CABAC streams of tier-1, without and with B pictures,
      decoded to ffmpeg's pinned luma SHA-256; 1080x1920 CABAC random-syntax
-     streams of 60 frames, I/P and with B pictures in a pyramid, timed
+     streams of 60 frames (20 written, repeated three times), I/P and with B
+     pictures in a pyramid, timed
      (frames/s, random access, decodes a sequential read makes);
      VP9 (``runtime/vp9.cpp``): every committed stream under
      ``tests/data/vp9/`` (libvpx's and ``utils/vp9_writer.py``'s) decoded
@@ -1415,6 +1416,24 @@ def phase_loader(work: Path, card: str):
 VIDEO_SIZES = ((1920, 1080), (1080, 1920))   # 1080p, and portrait phone video
 
 
+def repeat_mp4(path: Path, times: int) -> None:
+    """Rewrite the flat mp4 ``path`` as its samples ``times`` over, for a
+    long load at the writer's cost of one: the stream must start at a key
+    frame that resets the decoder (an IDR picture) and show every picture
+    before its end, so that each copy decodes as the first does."""
+    from cap4d_torch.utils import container_writer as cw
+    from cap4d_torch.utils import synthetic_assets as sa
+
+    s = cw.stream_of_mp4(path)
+    n = len(s.samples)
+    assert s.sync[0] and sorted(s.rank) == list(range(n)), path
+    rank = [r + k * n for k in range(times) for r in s.rank]
+    delay = max(j - r for j, r in enumerate(rank))
+    ctts = [r - j + delay for j, r in enumerate(rank)] if delay else None
+    sa.write_mp4(path, s.samples * times, cw.mp4_sample_entry(s), s.width, s.height,
+                 sync=s.sync * times, ctts=ctts, edit_start=delay)
+
+
 def phase_video(work: Path, card: str):
     """Video input on the card's machine: the probe; the port's I_PCM +
     P_Skip H.264 streams at 1920x1080 and 1080x1920 (24 frames, an IDR every
@@ -1425,8 +1444,8 @@ def phase_video(work: Path, card: str):
     frame, and shuffled; the random-syntax CAVLC and CABAC streams of
     tests/test_torch_h264.py and tests/test_torch_h264_b.py decoded to the
     luma SHA-256 that the tests pin to ffmpeg's decode; 1080x1920 CABAC
-    random-syntax streams of 60 frames, I/P and with B pictures (a pyramid),
-    timed (sequential frames/s, a random-access read and the samples it
+    random-syntax streams of 60 frames (20 written, repeated three times),
+    I/P and with B pictures (a pyramid), timed (sequential frames/s, a random-access read and the samples it
     decodes, the decodes of a sequential read); VP9 (``phase_video_vp9``:
     the committed streams to ffmpeg's pinned plane hashes, RGB on the card
     against the CPU, swscale's scaler on the card against the CPU, a
@@ -1452,6 +1471,13 @@ def phase_video(work: Path, card: str):
     from cap4d_torch.utils import mpeg4_writer as mw
     from cap4d_torch.utils import synthetic_assets as sa
     from cap4d_torch.utils.png import read_png, write_png
+
+    t_sub = time.perf_counter()
+
+    def sub(name: str) -> None:
+        nonlocal t_sub
+        log(f"[timing] video: {name} {time.perf_counter() - t_sub:.1f} s")
+        t_sub = time.perf_counter()
 
     caps = video_probe()
     d = work / "video"
@@ -1533,6 +1559,7 @@ def phase_video(work: Path, card: str):
             f"Y, U, V equal to the anchors' rounded averages in order ({calls[0]} decodes for "
             f"24 frames, {seq_ms:.2f} ms a frame) and shuffled | on {card}")
 
+    sub("H.264 I_PCM streams")
     # random syntax: the luma SHA-256 that tier-1 pins to ffmpeg's decode
     pinned = [(key, want, False) for key, want in sorted(hw.PINNED_LUMA_SHA256.items())] + [
         (key, want, True) for key, want in sorted(hw.PINNED_B_LUMA_SHA256.items())]
@@ -1547,14 +1574,18 @@ def phase_video(work: Path, card: str):
             f"{' with B pictures' if b_frames else ''} ({path.stat().st_size} bytes, "
             f"{stats['mb']}): luma SHA-256 equals ffmpeg's ({want[:16]}...)")
 
+    sub("H.264 random syntax pins")
     # a synthetic load, timed on the host: random syntax with the tier-1
-    # streams' statistics (h264_writer.MIX), CABAC, at 1080x1920
-    w, h, n = 1080, 1920, 60
+    # streams' statistics (h264_writer.MIX), CABAC, at 1080x1920; 20 pictures
+    # written (the writer's ~1.3 s a picture) and their samples repeated
+    # three times (each copy starts at its IDR picture)
+    w, h, n_written, n = 1080, 1920, 20, 60
     path = d / "syntax_cabac_1080x1920.mp4"
     t0 = time.perf_counter()
-    stats = hw.write_h264_syntax_mp4(path, w, h, n, 5, "cabac",
+    stats = hw.write_h264_syntax_mp4(path, w, h, n_written, 5, "cabac",
                                      workers=min(8, os.cpu_count() or 1))
     write_s = time.perf_counter() - t0
+    repeat_mp4(path, n // n_written)
     mbps = path.stat().st_size * 8 / (n / 30) / 1e6
     reader = VideoFrameReader(path, device="cuda")
     t0 = time.perf_counter()
@@ -1566,6 +1597,7 @@ def phase_video(work: Path, card: str):
     frames = [reader[k] for k in range(n)]
     rgb_s = time.perf_counter() - t0
     assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    assert all(np.array_equal(f, frames[k % n_written]) for k, f in enumerate(frames))
     order = rng.permutation(n)[:12]
     decoded = count_decodes(open_video(path, "cuda"))   # the reader load_frame reads through
     t0 = time.perf_counter()
@@ -1574,8 +1606,9 @@ def phase_video(work: Path, card: str):
     rand_ms = 1e3 * (time.perf_counter() - t0) / len(order)
     gops = int(np.count_nonzero(reader.track.sync))
     log(f"[video] H.264 CABAC 1080x1920 of random syntax (tier-1's statistics, a synthetic "
-        f"load), {n} frames ({path.stat().st_size} bytes, {mbps:.1f} Mbit/s at 30 fps, "
-        f"{gops} IDRs, up to {stats['slices_max']} slices a picture; written in {write_s:.1f} s): "
+        f"load), {n} frames ({n_written} written, repeated; {path.stat().st_size} bytes, "
+        f"{mbps:.1f} Mbit/s at 30 fps, {gops} IDRs, up to {stats['slices_max']} slices a "
+        f"picture; written in {write_s:.1f} s): "
         f"decode {n / decode_s:.1f} frames/s ({1e3 * decode_s / n:.1f} ms a frame), with the RGB "
         f"conversion {n / rgb_s:.1f} frames/s, a random-access load_frame {rand_ms:.1f} ms "
         f"({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
@@ -1587,10 +1620,11 @@ def phase_video(work: Path, card: str):
     # implicit bi-prediction weights, spatial and temporal direct
     path = d / "syntax_cabac_b_1080x1920.mp4"
     t0 = time.perf_counter()
-    stats = hw.write_h264_syntax_mp4(path, w, h, n, 4, "cabac",
+    stats = hw.write_h264_syntax_mp4(path, w, h, n_written, 4, "cabac",
                                      workers=min(8, os.cpu_count() or 1), b_frames=True)
     write_s = time.perf_counter() - t0
     assert stats["reorder"] == 2 and "b" in stats["frames"], stats["frames"]
+    repeat_mp4(path, n // n_written)
     mbps = path.stat().st_size * 8 / (n / 30) / 1e6
     reader = VideoFrameReader(path, device="cuda")
     calls = count_decodes(reader)
@@ -1605,6 +1639,7 @@ def phase_video(work: Path, card: str):
     frames = [reader[k] for k in range(n)]
     rgb_s = time.perf_counter() - t0
     assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    assert all(np.array_equal(f, frames[k % n_written]) for k, f in enumerate(frames))
     order = rng.permutation(n)[:12]
     decoded = count_decodes(open_video(path, "cuda"))
     t0 = time.perf_counter()
@@ -1614,8 +1649,9 @@ def phase_video(work: Path, card: str):
     gops = int(np.count_nonzero(reader.track.sync))
     kinds = {k: stats["frames"].count(k) for k in sorted(set(stats["frames"]))}
     log(f"[video] H.264 CABAC 1080x1920 with B pictures, random syntax (tier-1's statistics, a "
-        f"synthetic load), {n} frames ({path.stat().st_size} bytes, {mbps:.1f} Mbit/s at 30 fps, "
-        f"{gops} IDRs, pictures {kinds}, {stats['b_slices']} B slices ({stats['temporal']} "
+        f"synthetic load), {n} frames ({n_written} written, repeated; {path.stat().st_size} "
+        f"bytes, {mbps:.1f} Mbit/s at 30 fps, {gops} IDRs, pictures {kinds} in each copy, "
+        f"{stats['b_slices']} B slices ({stats['temporal']} "
         f"temporal direct), up to {stats['slices_max']} slices a picture; written in "
         f"{write_s:.1f} s): decode {n / decode_s:.1f} frames/s ({1e3 * decode_s / n:.1f} ms a "
         f"frame on one host thread), a sequential read decoded {seq_decodes} samples for {n} "
@@ -1627,8 +1663,13 @@ def phase_video(work: Path, card: str):
     usable = all(c.get("status") == 0 and c.get("supported") for c in caps.values())
     log(f"[video] NVDEC {'answers its caps' if usable else 'is not usable here'} (a probe: no "
         f"codec goes to it)")
+    sub("H.264 CABAC loads")
     phase_video_vp9(card, rng, count_decodes)
+    sub("VP9")
     phase_video_vp8(card, rng, count_decodes)
+    sub("VP8")
+    phase_video_hevc(d, card, rng, count_decodes)
+    sub("HEVC")
 
     # Motion-JPEG at 1080p through the runtime, in both sample entries: the
     # planes of ffmpeg's mjpeg decoder (pinned), the RGB on the card
@@ -1665,9 +1706,13 @@ def phase_video(work: Path, card: str):
             f"order, equal; mean |frame - source| {err:.3f} | on {card}")
     assert all(np.array_equal(a, b) for a, b in zip(*reads.values())), ".mp4 and .mov differ"
 
+    sub("Motion-JPEG")
     phase_video_mpeg4(d, card, rng, count_decodes)
+    sub("MPEG-4")
     phase_video_containers(d, card, rng, count_decodes, d / "syntax_cabac_b_1080x1920.mp4")
+    sub("containers")
     phase_video_fragmented(d, card, rng, count_decodes)
+    sub("fragmented")
 
     # stage 1's reference loader: images/cam0.mp4 (Motion-JPEG, then MPEG-4
     # Part 2 of random syntax at the frames' size) against a PNG directory
@@ -1875,6 +1920,86 @@ def phase_video_vp8(card: str, rng, count_decodes):
         f"conversion on the card {1e3 * rgb_s / n:.1f} ms a frame; a random-access load_frame "
         f"{rand_ms:.1f} ms ({decoded[0] / len(order):.2f} samples decoded a read); host seconds "
         f"{decode_s:.2f} | on {card}")
+
+
+def phase_video_hevc(d: Path, card: str, rng, count_decodes):
+    """HEVC intra input (``runtime/hevc.cpp``): the writer's seeded streams
+    (``hevc_writer.STREAMS``: CTB 16, 32 and 64, tiles, wavefronts, slices,
+    PCM, bypass, scaling lists, SAO, open GOPs with RASL/RADL pictures)
+    written on the card's machine as ``hvc1`` mp4 and decoded to the SHA-256
+    of ffmpeg's planes (``PINNED_SHA256``), in order and shuffled, the RGB on
+    the card equal to the CPU's; a portrait phone recording (the "phone"
+    stream turned 90 degrees by its ``tkhd``) to the pinned hash of cv2's
+    upright RGB frames; then a 1080x1920 intra load (phone parameter sets:
+    CTB 64, minimum CB 16, coded 1088 wide with a conformance window, SAO
+    and deblocking, BT.709 limited range; random syntax: an IDR and an I
+    picture written, their samples repeated to 24 frames) timed on one host
+    thread: ms a frame decoding alone and with the RGB conversion on the
+    card, and the decodes of a sequential read."""
+    import numpy as np
+
+    from cap4d_torch.data.utils import VideoFrameReader
+    from cap4d_torch.utils import container_writer as cw
+    from cap4d_torch.utils import hevc_writer as hw
+
+    for name, kw in hw.STREAMS.items():
+        path = d / f"hevc_{name}.mp4"
+        st = hw.stream(name)
+        hw.write_hevc_mp4(path, st, kw["width"], kw["height"])
+        reader = VideoFrameReader(path, device="cuda")
+        pictures = [reader.planes(k) for k in range(len(reader._order))]
+        got = hw.planes_sha256(pictures)
+        assert got == hw.PINNED_SHA256[name], f"{name}: SHA-256 {got}, ffmpeg's {hw.PINNED_SHA256[name]}"
+        shuffled = VideoFrameReader(path, device="cuda")
+        for k in rng.permutation(len(pictures)):
+            for a, b in zip(shuffled.planes(int(k)), pictures[k]):
+                assert np.array_equal(a, b), f"HEVC {name} picture {k} (shuffled)"
+        cpu = VideoFrameReader(path, device="cpu")
+        for k in range(len(pictures)):
+            assert np.array_equal(reader[k], cpu[k]), f"HEVC {name} frame {k}: card vs CPU RGB"
+        log(f"[video] HEVC {name} {kw['width']}x{kw['height']}, {len(reader.track)} samples, "
+            f"{len(pictures)} pictures ({len(reader._hevc.tools)} decoder tools): planes' SHA-256 "
+            f"equals ffmpeg's ({got[:16]}...), RGB on the card equals the CPU's")
+    path = d / "hevc_portrait.mp4"
+    hw.write_rotated_mp4(path)
+    reader = VideoFrameReader(path, device="cuda")
+    frames = [reader[k] for k in range(len(reader))]
+    got = cw.rgb_sha256(frames)
+    assert frames[0].shape == (256, 136, 3) and got == hw.PINNED_ROTATED_RGB_SHA256, \
+        (frames[0].shape, got)
+    log(f"[video] HEVC portrait recording (tkhd turned 90 degrees): {len(frames)} frames "
+        f"{frames[0].shape[1]}x{frames[0].shape[0]} upright, RGB SHA-256 equals cv2's "
+        f"({got[:16]}...)")
+
+    # the timed load: the writer takes ~3 s a picture, so two are written
+    # and their samples repeated (each copy starts at its IDR picture)
+    w, h, n_written, n = 1080, 1920, 2, 24
+    path = d / "hevc_load_1080x1920.mp4"
+    t0 = time.perf_counter()
+    st = hw.write_hevc_stream(w, h, n_written, seed=21, log2_ctb=6, log2_min_cb=4, vui=hw.BT709,
+                              max_slices=1, tools=hw.PHONE_TOOLS)
+    write_s = time.perf_counter() - t0
+    hw.write_hevc_mp4(path, st, w, h)
+    repeat_mp4(path, n // n_written)
+    reader = VideoFrameReader(path, device="cuda")
+    calls = count_decodes(reader)
+    t0 = time.perf_counter()
+    for k in range(n):
+        reader.planes(k)
+    decode_s = time.perf_counter() - t0
+    assert calls[0] == n, f"a sequential read decoded {calls[0]} samples for {n} frames"
+    reader = VideoFrameReader(path, device="cuda")
+    t0 = time.perf_counter()
+    frames = [reader[k] for k in range(n)]
+    rgb_s = time.perf_counter() - t0
+    assert all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames)
+    assert all(np.array_equal(f, frames[k % n_written]) for k, f in enumerate(frames))
+    size = path.stat().st_size
+    log(f"[video] HEVC 1080x1920 intra load (random syntax, phone parameter sets, {n} pictures, "
+        f"{n_written} written, repeated; {size} bytes, {size * 8 / (n / 30) / 1e6:.1f} Mbit/s at "
+        f"30 fps; written in {write_s:.1f} s): decode {1e3 * decode_s / n:.1f} ms a frame on one host thread, a "
+        f"sequential read decoded {calls[0]} samples for {n} frames; with the RGB conversion on "
+        f"the card {1e3 * rgb_s / n:.1f} ms a frame; host seconds {decode_s:.2f} | on {card}")
 
 
 def phase_video_mpeg4(d: Path, card: str, rng, count_decodes):
@@ -4088,11 +4213,17 @@ def main() -> int:
 
     from cap4d_torch.ops import flash_attention, gsplat_tiles, norms, op_mix, rasterize
 
+    t_start = time.perf_counter()
+
+    def mark(name: str) -> None:
+        log(f"[timing] {name} done {time.perf_counter() - t_start:.1f} s after the start")
+
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
         f"nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     kernels = port_kernels()
     phase_build(kernels)
+    mark("build")
     if "attention" in phases or "attention_bwd" in phases:
         phase_attention_sass()
 
@@ -4118,43 +4249,60 @@ def main() -> int:
     main_paths = []   # launch counts of each main path run
     if "attention" in phases:
         phase_attention(entries[0])
+        mark("attention")
     if "attention_bwd" in phases:
         phase_attention_backward(entries[5])
+        mark("attention_bwd")
     if "group_norm" in phases:
         phase_group_norm(entries[1])
+        mark("group_norm")
     if "rasterize" in phases:
         phase_rasterize(entries[2], work / "raster")
+        mark("rasterize")
     if "unet" in phases:
         phase_unet()
+        mark("unet")
     if "unet_grad" in phases:
         phase_unet_grad()
+        mark("unet_grad")
     stage1_out = None
     if "generate" in phases:
         gen_launches, stage1_out = phase_main_path(work, kernels, card)
         main_paths.extend(gen_launches)
+        mark("generate")
     if "loader" in phases:
         phase_loader(work, card)
+        mark("loader")
     if "video" in phases:
         phase_video(work, card)
+        mark("video")
     if "gsplat" in phases:
         flame_dir, stage1_out = phase_gsplat(entries[3], entries[4], work, stage1_out)
+        mark("gsplat")
     if "fit" in phases:
         model_path, fit_launches = phase_fit(work, stage1_out, flame_dir, kernels, card)
         main_paths.extend(fit_launches)
+        mark("fit")
     if "animate" in phases:
         if "fit" not in phases:
             model_path, flame_dir = fresh_avatar(work)
         main_paths.append(phase_animate(work, model_path, flame_dir, kernels, card))
+        mark("animate")
     if "quality" in phases:
         main_paths.append(phase_quality(work, kernels, card))
+        mark("quality")
     if "train" in phases:
         main_paths.append(phase_train(work, kernels, card))
+        mark("train")
     if "op_mix" in phases:
         main_paths.append(phase_op_mix(entries[6], kernels, card))
+        mark("op_mix")
     if "smpl" in phases:
         main_paths.extend(phase_smpl(work, kernels, card))
+        mark("smpl")
     if "parallel" in phases:
         main_paths.extend(phase_parallel(work, model_path, flame_dir, kernels, card))
+        mark("parallel")
     shutil.rmtree(work, ignore_errors=True)
     if phases != list(PHASES):
         log(f"[done] phases {phases} passed; no result lines for a partial run")

@@ -37,6 +37,7 @@ from cap4d_torch.data import avi, container, mkv, mp4
 from cap4d_torch.data.utils import VideoFrameReader, load_frame
 from cap4d_torch.utils import container_writer as cw
 from cap4d_torch.utils import h264_writer as hw
+from cap4d_torch.utils import hevc_writer
 from cap4d_torch.utils import mpeg4_writer as mw
 from cap4d_tpu.data import utils as ju
 from tests.test_torch_mpeg4 import _content, _libs
@@ -481,9 +482,9 @@ def _mjpeg_stream():
 
 
 @pytest.mark.parametrize("case,phrase", [
-    ("avi_av1", "'AV01' \\(AV1\\)"), ("avi_hevc", "'HEVC' \\(HEVC\\)"),
+    ("avi_av1", "'AV01' \\(AV1\\)"), ("avi_hevc", "Main 10"),
     ("avi_msmpeg4", "'DIV3' \\(MS-MPEG-4 v3\\)"), ("mkv_theora", "'V_THEORA' \\(Theora\\)"),
-    ("mkv_hevc", "'V_MPEGH/ISO/HEVC' \\(HEVC\\)"), ("mkv_av1", "'V_AV1' \\(AV1\\)"),
+    ("mkv_hevc", "chroma_format_idc 2 \\(4:2:2\\)"), ("mkv_av1", "'V_AV1' \\(AV1\\)"),
     ("mkv_vfw_msmpeg4", "V_MS/VFW/FOURCC 'MP43' \\(MS-MPEG-4 v3\\)"),
     ("mkv_encrypted", "encrypted \\(ContentEncryption\\)"),
     ("mkv_two_encodings", "2 ContentEncodings"), ("avi_zero_size", "zero-size chunk"),
@@ -492,15 +493,20 @@ def _mjpeg_stream():
 ])
 def test_refusals_name_what_they_refuse(tmp_path, case, phrase):
     """Each raises ValueError naming the file and the fourcc, CodecID or
-    element, at open (the packed DivX bitstream at its packed frame)."""
+    element, at open (the packed DivX bitstream at its packed frame). HEVC
+    decodes in both containers: its refusals name the tool (a Main 10 SPS in
+    an AVI's extradata, a 4:2:2 SPS in a Matroska hvcC)."""
     path = tmp_path / f"{case}.bin"
     s = _mjpeg_stream()
-    if case.startswith("avi_") and case not in ("avi_zero_size", "avi_divx_packed"):
-        cw.write_avi(path, s, fourcc={"avi_av1": b"AV01", "avi_hevc": b"HEVC",
-                                      "avi_msmpeg4": b"DIV3"}[case])
-    elif case in ("mkv_theora", "mkv_hevc", "mkv_av1"):
-        cw.write_mkv(path, s, codec_id={"mkv_theora": "V_THEORA", "mkv_hevc": "V_MPEGH/ISO/HEVC",
-                                        "mkv_av1": "V_AV1"}[case])
+    if case in ("avi_hevc", "mkv_hevc"):
+        hevc_writer.write_hevc_refusal_mp4(tmp_path / "src.mp4",
+                                           "main10" if case == "avi_hevc" else "422")
+        hevc = cw.stream_of_mp4(tmp_path / "src.mp4")
+        (cw.write_avi if case == "avi_hevc" else cw.write_mkv)(path, hevc)
+    elif case.startswith("avi_") and case not in ("avi_zero_size", "avi_divx_packed"):
+        cw.write_avi(path, s, fourcc={"avi_av1": b"AV01", "avi_msmpeg4": b"DIV3"}[case])
+    elif case in ("mkv_theora", "mkv_av1"):
+        cw.write_mkv(path, s, codec_id={"mkv_theora": "V_THEORA", "mkv_av1": "V_AV1"}[case])
     elif case == "mkv_vfw_msmpeg4":
         cw.write_mkv(path, s, codec_id="V_MS/VFW/FOURCC",
                      codec_private=cw.bitmap_info_header(b"MP43", 96, 72))

@@ -260,17 +260,22 @@ def test_h264_vp9_need_the_card(videos, label, name):
 
 def test_demuxer_refusals(tmp_path, videos):
     """Codecs the port does not read name their four-character code (or,
-    for an mp4v entry, its esds object type); a fragmented file whose only
+    for an mp4v entry, its esds object type; an HEVC entry without hvcC
+    names the missing box); a fragmented file whose only
     run lies past the end of the file (cv2 reads no frame of it either) and
     files without a video track raise."""
     mpeg2 = sa.visual_sample_entry(b"mp4v", 16, 16, mw.esds_box(b"", 0x61))
     sa.write_mp4(tmp_path / "p2.mp4", [b"\0" * 8], mpeg2, 16, 16)
     with pytest.raises(ValueError, match="esds object type 0x61 \\(MPEG-2 Main Profile video\\)"):
         mp4.read_track(tmp_path / "p2.mp4")
-    hevc = sa.visual_sample_entry(b"hvc1", 16, 16)
+    hevc = sa.visual_sample_entry(b"hvc1", 16, 16)      # HEVC decodes: its hvcC is required
     sa.write_mp4(tmp_path / "h.mp4", [b"\0" * 8], hevc, 16, 16)
-    with pytest.raises(ValueError, match="codec 'hvc1' is not supported"):
+    with pytest.raises(ValueError, match="'hvc1' sample entry without hvcC"):
         VideoFrameReader(tmp_path / "h.mp4", device="cpu")
+    av1 = sa.visual_sample_entry(b"av01", 16, 16)
+    sa.write_mp4(tmp_path / "a.mp4", [b"\0" * 8], av1, 16, 16)
+    with pytest.raises(ValueError, match="codec 'av01' is not supported"):
+        VideoFrameReader(tmp_path / "a.mp4", device="cpu")
     data = videos["mjpeg_mp4"][0].read_bytes()
     s = cw.stream_of_mp4(videos["mjpeg_mp4"][0])
     cw.write_fragmented_mp4(tmp_path / "frag.mp4", s, fragment=len(s.samples))
