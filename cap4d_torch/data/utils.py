@@ -7,9 +7,8 @@ and ``INTER_LINEAR`` (half-pixel centres, clamped borders), and
 frames (PNG or JPEG) are decoded by the port's native runtime
 (``cap4d_torch/runtime``). Video files are read by :class:`VideoFrameReader`
 (the port's own demuxers, chosen by content in ``data/container.py``:
-mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264, HEVC intra
-pictures, MPEG-4 Part 2, VP8 and VP9 decode on the host through the
-runtime).
+mp4/mov, AVI and Matroska/WebM; Motion-JPEG, PNG, H.264, HEVC Main,
+MPEG-4 Part 2, VP8 and VP9 decode on the host through the runtime).
 """
 
 from __future__ import annotations
@@ -166,12 +165,13 @@ class VideoFrameReader:
     Motion-JPEG (``runtime/loader.py``'s :class:`MjpegDecoder`: the planes
     ffmpeg's ``mjpeg`` decoder gives, through libavcodec's simple IDCT,
     full-range BT.601), H.264 (``runtime/h264.py``: I, P and B slices, CAVLC
-    and CABAC, progressive 8-bit 4:2:0), HEVC (``runtime/hevc.py``: the
-    intra pictures of Main and Main Still Picture streams, ``hvc1``/``hev1``,
+    and CABAC, progressive 8-bit 4:2:0), HEVC (``runtime/hevc.py``: Main
+    and Main Still Picture streams, I, P and B slices, ``hvc1``/``hev1``,
     ``V_MPEGH/ISO/HEVC``, ``HEVC``/``H265``; a RASL picture of the stream's
-    first CRA and a picture with pic_output_flag 0 show no frame, as in
+    first CRA, a picture with pic_output_flag 0 and one a later IRAP
+    picture's no_output_of_prior_pics_flag discards show no frame, as in
     ffmpeg; a later CRA's RASL picture decodes from the sync sample before
-    that CRA, where cv2's seek lands; a P or B slice raises naming it),
+    that CRA, where cv2's seek lands),
     MPEG-4 Part 2 (``runtime/mpeg4.py``:
     Simple and Advanced Simple profile VOPs, ``mp4v`` with object type
     0x20), VP8 (``runtime/vp8.py``: ``vp08``, ``V_VP8``, ``VP80``) and VP9
@@ -188,7 +188,8 @@ class VideoFrameReader:
     at most the SPS's max_dec_frame_buffering, 16 without one, for H.264;
     4 for MPEG-4), so a sequential read decodes each sample once; a random
     read skips the samples nothing refers to (non-reference H.264 pictures,
-    B-VOPs) that show before its frame. Within a run of decoding, the order
+    B-VOPs, HEVC sub-layer non-reference pictures at the stream's highest
+    TemporalId) that show before its frame. Within a run of decoding, the order
     of the stream's own clock (H.264's picture order count, the VOP times)
     must be the order by the container's presentation times, where it has
     them, else ``ValueError`` names both frames and both orders. A
@@ -360,15 +361,17 @@ class VideoFrameReader:
         self._order = np.array([j for _, _, j in sorted(keys)], np.int64)
 
     def _scan_hevc(self) -> None:
-        """Each sample's NAL type, POC and whether it shows, from its first
-        slice header (a decoder of its own, which decodes none): frames are
-        the samples that show a picture (not a RASL picture of the CRA that
-        starts the stream, not pic_output_flag 0), in presentation order; in
-        an AVI by picture order count, which starts over at IDR and BLA
-        pictures."""
+        """Each sample's NAL type, TemporalId, POC and whether it shows, from
+        its first slice header (a decoder of its own, which decodes none):
+        frames are the samples that show a picture (not a RASL picture of
+        the CRA that starts the stream, not pic_output_flag 0, not one an
+        IRAP picture's no_output_of_prior_pics_flag discards before ffmpeg
+        outputs it), in presentation order; in an AVI by picture order
+        count, which starts over at IDR and BLA pictures."""
         t = self.track
         scanner = HevcDecoder(t.hvc.params, t.hvc.length_size, str(self.path))
         self._nal_type = np.zeros(len(t), np.int64)
+        self._tid = np.zeros(len(t), np.int64)
         shows = np.zeros(len(t), bool)
         keys, epoch = [], 0
         for j in range(len(t)):
@@ -382,8 +385,10 @@ class VideoFrameReader:
                 pic = scanner.scan(full, f"sample {j}")
             if j and pic.nal_type in (16, 17, 18, 19, 20):     # BLA, IDR: NoRaslOutputFlag
                 epoch += 1
-            self._nal_type[j], shows[j] = pic.nal_type, pic.shows
+            self._nal_type[j], shows[j], self._tid[j] = pic.nal_type, pic.shows, pic.temporal_id
+            shows[list(scanner.discarded)] = False
             keys.append((epoch, pic.poc, j))
+        self._top_tid = int(self._tid.max()) if len(t) else 0
         self._hold_frames = scanner.dpb_frames
         scanner.close()
         if t.timed:
@@ -428,7 +433,8 @@ class VideoFrameReader:
                        f"{len(t.order)} of its {n} samples")
         if shown < len(t.order):
             what = ("are not-coded VOPs (vop_coded 0)" if self._mpeg4 is not None else
-                    "are RASL pictures of the stream's first CRA or have pic_output_flag 0"
+                    "are RASL pictures of the stream's first CRA, have pic_output_flag 0 or "
+                    "are discarded by a later IRAP picture's no_output_of_prior_pics_flag"
                     if self._hevc is not None else "hold only hidden frames (show_frame 0)")
             why.append(f"{len(t.order) - shown} {what}, which give ffmpeg no picture")
         return (f"{self.path} frame {index}: cv2 reads {shown} frames of this file "
@@ -442,9 +448,9 @@ class VideoFrameReader:
         return self.planes(index)
 
     def planes(self, index: int):
-        """Frame ``index`` of a Motion-JPEG, H.264, MPEG-4, VP8 or VP9 track
-        as its decoded (Y, U, V) uint8 planes (U and V None for a greyscale
-        JPEG)."""
+        """Frame ``index`` of a Motion-JPEG, H.264, HEVC, MPEG-4, VP8 or VP9
+        track as its decoded (Y, U, V) uint8 planes (U and V None for a
+        greyscale JPEG)."""
         if self._decoder is None:
             raise ValueError(f"{self.path} is a {self.track.codec} track, which decodes to RGB "
                              "only")
@@ -502,8 +508,12 @@ class VideoFrameReader:
             return slice_ref_idc(self.track.sample(j), self.track.avc.length_size) == 0
         if self._mpeg4 is not None:
             return self._vop_type[j] == "B"
-        if self._hevc is not None:   # sub-layer non-reference: no POC state depends on it
-            return self._nal_type[j] < 16 and self._nal_type[j] % 2 == 0
+        if self._hevc is not None:
+            # a sub-layer non-reference picture at the stream's highest TemporalId:
+            # pictures of its own sub-layer do not refer to it, and none lies above
+            # (one below the highest may be a reference of a higher sub-layer)
+            return (self._nal_type[j] < 16 and self._nal_type[j] % 2 == 0
+                    and self._tid[j] == self._top_tid)
         return False    # a VP8 or VP9 frame leaves probabilities and segments to the next
 
     def _restart(self) -> None:

@@ -1,30 +1,49 @@
-// HEVC decoder for intra pictures (ITU-T H.265 (v4+), clauses 7-9, Main and
-// Main Still Picture profiles): the port's counterpart of the host decode
-// that the JAX package gets from cv2 (ffmpeg's hevc decoder). Built into
-// the runtime's library with cap4d_runtime.cpp.
+// HEVC decoder (ITU-T H.265 (v4+), clauses 7-9, Main and Main Still Picture
+// profiles): the port's counterpart of the host decode that the JAX package
+// gets from cv2 (ffmpeg's hevc decoder). Built into the runtime's library
+// with cap4d_runtime.cpp.
 //
-// Scope: 8-bit 4:2:0 pictures made of I slices: VPS/SPS/PPS (VUI with HRD,
-// scaling lists default/signalled/predicted, short- and long-term
-// reference picture set syntax parsed so the header reads right), SEI
-// skipped, slice segment headers with dependent segments and entry points,
-// CABAC, the coding quadtree (CTB 16/32/64), PCM, cu_transquant_bypass,
-// transform_skip, residual coding with sign data hiding, cu_qp_delta,
-// chroma QP offsets, dequantisation with scaling lists, inverse DCT 4-32
-// and DST 4, the 35 intra modes with reference substitution, filtering and
-// strong intra smoothing, constrained_intra_pred (a no-op in intra
-// pictures), tiles (uniform and explicit), wavefront parallel processing,
-// several slices a picture, deblocking and SAO. POC with IDR/CRA/BLA and
-// NoRaslOutputFlag; a RASL picture of the CRA or BLA picture that began
-// decoding gives no picture, as ffmpeg discards it.
+// Scope: 8-bit 4:2:0 pictures of I, P and B slices: VPS/SPS/PPS (VUI with
+// HRD, scaling lists default/signalled/predicted, sub-layers), SEI skipped,
+// slice segment headers with dependent segments and entry points, CABAC
+// (initType 0-2, cabac_init_flag), the coding quadtree (CTB 16/32/64), PCM,
+// cu_transquant_bypass, transform_skip, residual coding with sign data
+// hiding, cu_qp_delta, chroma QP offsets, dequantisation with scaling lists
+// (matrixId 3-5 for inter blocks), inverse DCT 4-32 and DST 4 (intra luma),
+// the 35 intra modes with reference substitution, filtering and strong
+// intra smoothing, constrained_intra_pred (inter-coded neighbours
+// unavailable), tiles (uniform and explicit), wavefront parallel
+// processing, several slices a picture, deblocking and SAO. Inter
+// prediction: cu_skip_flag, the eight part modes (AMP), merge (spatial,
+// temporal, combined bi-predictive and zero candidates, Log2ParMrgLevel
+// with the shared list of 8x8 CUs, the 8x4/4x8 bi-to-uni rule), AMVP
+// (spatial with scaling, temporal, zero fill, the 16-bit wrap of mvp +
+// mvd), TMVP (the collocated picture's motion at 16x16 granularity, its
+// slices' lists, long-term checks, POC-distance scaling), luma 8-tap and
+// chroma 4-tap interpolation with edge replication, default and explicit
+// weighted (bi-)prediction, rqt_root_cbf, interSplitFlag and the inferred
+// cbf_luma, boundary strength 1 from coefficients and motion. The DPB:
+// short- and long-term RPS (inter RPS prediction, delta_poc_msb_cycle_lt),
+// reference marking, list construction with ref_pic_lists_modification.
+// POC with IDR/CRA/BLA and NoRaslOutputFlag; a RASL picture of the CRA or
+// BLA picture that began decoding gives no picture, as ffmpeg discards it.
+// decode() returns each picture in decode order; the reader owns output
+// order, which the header scan (scan_picture) gives as ffmpeg's output
+// process does, its discards included.
 //
-// Refused by name (a ValueError on the Python side): P and B slices,
-// profiles other than Main / Main Still Picture, chroma formats other than
-// 4:2:0, bit depths other than 8, the range, multilayer, 3D and screen
-// content extensions, field coding (field_seq_flag), tiles and wavefronts
-// together (Main profile forbids them), separate colour planes, and a
-// slice segment under another PPS than its picture's first slice found (a
-// PPS sent anew, or a new SPS under the active id, which drops its PPSs,
-// between two slices of a picture: ffmpeg's "PPS changed between slices").
+// Refused by name (a ValueError on the Python side): profiles other than
+// Main / Main Still Picture, chroma formats other than 4:2:0, bit depths
+// other than 8 (Main 10), the range, multilayer, 3D and screen content
+// extensions, field coding (field_seq_flag), tiles and wavefronts together
+// (Main profile forbids them), a slice segment under another PPS than its
+// picture's first slice found (ffmpeg's "PPS changed between slices"), P
+// and B slices in an IRAP picture (ffmpeg's "Inter slices in an IRAP
+// frame"), a P or B slice whose RPS holds no picture it may use, a slice
+// whose RPS names another count of such pictures than its picture's first
+// slice (ffmpeg builds every slice's lists from the first slice's), a
+// list_entry past the initial list (ffmpeg's "Invalid reference index"), a
+// reference picture of another size than the current picture, and a
+// non-IRAP picture that would predict from a picture the DPB does not hold.
 // A repeated parameter set keeps the one held, as in ffmpeg; a picture
 // decodes under copies of the sets its first slice found.
 //
@@ -49,12 +68,45 @@
 //   block on an 8-sample column takes its left and bottom-left samples as
 //   unavailable (ffmpeg's prediction-unit scan of the left column);
 // - the POC's previous MSB and LSB come from a C remainder (negative for a
-//   negative prevTid0Pic order count).
+//   negative prevTid0Pic order count);
+// - a picture the RPS names and the DPB does not hold is generated (every
+//   sample 1 << (bit depth - 1), never output) for an IRAP picture, and a
+//   non-IRAP picture that would predict from one is refused (ffmpeg 8:
+//   "Could not find ref with POC", "Error constructing the frame RPS");
+//   ffmpeg refuses a non-IRAP picture whose Foll sets name one too, which
+//   the port generates instead, since it changes no sample and the reader
+//   skips pictures nothing refers to;
+// - an RPS predicted from another derives its deltas as ffmpeg does (sorted,
+//   the negative ones turned round), and counts a delta of 0 as a positive
+//   picture (the standard drops it; the writer never codes one);
+// - the boundary strength of a prediction edge compares the reference
+//   pictures' POCs, each side's through its own slice's lists, and motion
+//   is kept per minimum prediction block (ffmpeg's tab_mvf);
+// - a generated picture's motion is whatever ffmpeg's buffer pool held: the
+//   port reads it as intra (no temporal candidate), and the writer never
+//   makes one the collocated picture;
+// - output (the header scan): at an IRAP picture with NoRaslOutputFlag the
+//   pictures waiting for output are output, or discarded with
+//   no_output_of_prior_pics_flag or at a CRA (ffmpeg infers the flag after
+//   an end of sequence), then pictures are bumped while more than
+//   sps_max_num_reorder_pics wait or the DPB holds more than
+//   sps_max_dec_pic_buffering (ffmpeg's ff_hevc_output_frames);
+//   sps_max_latency_increase_plus1 plays no part, as in ffmpeg;
+// - a picture that activates another SPS than the last picture's (a set sent
+//   anew with other bytes, or another id) drops every reference picture and
+//   starts a sequence, though a CRA's RASL pictures still decode (from
+//   generated pictures), and at an IRAP picture other than a CRA a new size
+//   or DPB size outputs the
+//   pictures still waiting whatever its no_output_of_prior_pics_flag
+//   (ffmpeg's hls_slice_header; the standard changes the SPS only at an IRAP
+//   picture that starts a coded video sequence).
 //
 // Layout: bit reader, parameter sets, slice header, CABAC, coding tree,
-// residuals and transforms, intra prediction, in-loop filters, decoder, C API.
+// residuals and transforms, intra prediction, the DPB, motion data and
+// sample prediction, in-loop filters, decoder, C API.
 
 #include <algorithm>
+#include <array>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -87,8 +139,16 @@ enum Tool : int {
   T_NO_FILTER_ACROSS_TILES, T_CONSTRAINED_INTRA, T_STRONG_SMOOTHING, T_INTRA_NXN, T_TU4, T_TU8,
   T_TU16, T_TU32, T_CONFORMANCE_WINDOW, T_VUI, T_FULL_RANGE, T_RPS_SYNTAX, T_LONG_TERM_SYNTAX,
   T_ENTRY_POINTS, T_HEADER_EXTENSION, T_POC_REORDER, T_MIN_CB16, T_HRD, T_OUTPUT_FLAG,
-  T_PLANAR, T_DC, T_ANGULAR, T_CHROMA_DM, T_COUNT
+  T_PLANAR, T_DC, T_ANGULAR, T_CHROMA_DM,
+  // inter pictures
+  T_P_SLICE, T_B_SLICE, T_SKIP, T_MERGE, T_AMVP, T_TMVP, T_AMP, T_INTER_NXN, T_BI_PRED,
+  T_BI_TO_UNI, T_PARALLEL_MERGE, T_NO_RESIDUAL, T_WEIGHTED_PRED, T_WEIGHTED_BIPRED, T_LONG_TERM_REF,
+  T_LIST_MODIFICATION, T_MISSING_REF, T_TEMPORAL_LAYERS, T_CABAC_INIT_FLAG, T_MVD_L1_ZERO,
+  T_MV_OUTSIDE, T_CIP_INTER, T_DISCARD_PRIOR, T_COUNT
 };
+using Tools = unsigned __int128;
+inline Tools bit(int t) { return Tools(1) << t; }
+static_assert(T_COUNT <= 128, "the tool bits fit 128");
 
 enum Nal : int {
   TRAIL_N = 0, TRAIL_R = 1, TSA_N = 2, TSA_R = 3, STSA_N = 4, STSA_R = 5, RADL_N = 6, RADL_R = 7,
@@ -153,31 +213,72 @@ const uint8_t kTransLps[64] = {0,  0,  1,  2,  2,  4,  4,  5,  6,  7,  8,  9,  9
                                24, 25, 26, 26, 27, 27, 28, 29, 29, 30, 30, 30, 31, 32, 32, 33,
                                33, 33, 34, 34, 35, 35, 35, 36, 36, 36, 37, 37, 37, 38, 38, 63};
 
-// Context layout (I slices: initType 0 only) and the init values of
-// Tables 9-5 to 9-37 for initType 0.
+// Context layout and the init values of Tables 9-5 to 9-37 for initType 0
+// (I slices), 1 and 2 (P and B slices; cabac_init_flag swaps them). The
+// inter contexts follow the I-slice ones; 154 (CNU) where a type has none.
 enum Ctx : int {
   C_SAO_MERGE = 0, C_SAO_TYPE = 1, C_SPLIT_CU = 2, C_BYPASS = 5, C_PART = 6, C_PREV_INTRA = 7,
   C_CHROMA_MODE = 8, C_SPLIT_TU = 9, C_CBF_LUMA = 12, C_CBF_CHROMA = 14, C_QP_DELTA = 18,
   C_TS = 20, C_LAST_X = 22, C_LAST_Y = 40, C_CSBF = 58, C_SIG = 62, C_GT1 = 104, C_GT2 = 128,
-  C_COUNT = 134
+  C_SKIP = 134, C_PRED_MODE = 137, C_PART_INTER = 138, C_MERGE_FLAG = 141, C_MERGE_IDX = 142,
+  C_INTER_PRED = 143, C_REF_IDX = 148, C_MVD_GT0 = 150, C_MVD_GT1 = 151, C_MVP = 152,
+  C_RQT_ROOT = 153, C_COUNT = 154
 };
-const uint8_t kInit[C_COUNT] = {
-    153, 200, 139, 141, 157, 154, 184, 184, 63, 153, 138, 138, 111, 141, 94, 138, 182, 154, 154, 154,
-    139, 139,
-    // last_sig_coeff_x_prefix, y_prefix
-    110, 110, 124, 125, 140, 153, 125, 127, 140, 109, 111, 143, 127, 111, 79, 108, 123, 63,
-    110, 110, 124, 125, 140, 153, 125, 127, 140, 109, 111, 143, 127, 111, 79, 108, 123, 63,
-    // coded_sub_block_flag
-    91, 171, 134, 141,
-    // sig_coeff_flag
-    111, 111, 125, 110, 110, 94, 124, 108, 124, 107, 125, 141, 179, 153, 125, 107, 125, 141, 179,
-    153, 125, 107, 125, 141, 179, 153, 125, 140, 139, 182, 182, 152, 136, 152, 136, 153, 136, 139,
-    111, 136, 139, 111,
-    // coeff_abs_level_greater1_flag
-    140, 92, 137, 138, 140, 152, 138, 139, 153, 74, 149, 92, 139, 107, 122, 152, 140, 179, 166, 182,
-    140, 227, 122, 197,
-    // coeff_abs_level_greater2_flag
-    138, 153, 136, 167, 152, 152};
+const uint8_t kInit[3][C_COUNT] = {
+    {153, 200, 139, 141, 157, 154, 184, 184, 63, 153, 138, 138, 111, 141, 94, 138, 182, 154, 154,
+     154, 139, 139,
+     // last_sig_coeff_x_prefix, y_prefix
+     110, 110, 124, 125, 140, 153, 125, 127, 140, 109, 111, 143, 127, 111, 79, 108, 123, 63,
+     110, 110, 124, 125, 140, 153, 125, 127, 140, 109, 111, 143, 127, 111, 79, 108, 123, 63,
+     // coded_sub_block_flag
+     91, 171, 134, 141,
+     // sig_coeff_flag
+     111, 111, 125, 110, 110, 94, 124, 108, 124, 107, 125, 141, 179, 153, 125, 107, 125, 141, 179,
+     153, 125, 107, 125, 141, 179, 153, 125, 140, 139, 182, 182, 152, 136, 152, 136, 153, 136, 139,
+     111, 136, 139, 111,
+     // coeff_abs_level_greater1_flag
+     140, 92, 137, 138, 140, 152, 138, 139, 153, 74, 149, 92, 139, 107, 122, 152, 140, 179, 166,
+     182, 140, 227, 122, 197,
+     // coeff_abs_level_greater2_flag
+     138, 153, 136, 167, 152, 152,
+     // cu_skip_flag .. rqt_root_cbf
+     154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154, 154,
+     154},
+    {153, 185, 107, 139, 126, 154, 154, 154, 152, 124, 138, 94, 153, 111, 149, 107, 167, 154, 154,
+     154, 139, 139,
+     125, 110, 94, 110, 95, 79, 125, 111, 110, 78, 110, 111, 111, 95, 94, 108, 123, 108,
+     125, 110, 94, 110, 95, 79, 125, 111, 110, 78, 110, 111, 111, 95, 94, 108, 123, 108,
+     121, 140, 61, 154,
+     155, 154, 139, 153, 139, 123, 123, 63, 153, 166, 183, 140, 136, 153, 154, 166, 183, 140, 136,
+     153, 154, 166, 183, 140, 136, 153, 154, 170, 153, 123, 123, 107, 121, 107, 121, 167, 151, 183,
+     140, 151, 183, 140,
+     154, 196, 196, 167, 154, 152, 167, 182, 182, 134, 149, 136, 153, 121, 136, 137, 169, 194, 166,
+     167, 154, 167, 137, 182,
+     107, 167, 91, 122, 107, 167,
+     // cu_skip_flag (3), pred_mode_flag, part_mode bins 1-3, merge_flag, merge_idx,
+     // inter_pred_idc (5), ref_idx (2), abs_mvd_greater0/1, mvp_flag, rqt_root_cbf
+     197, 185, 201, 149, 139, 154, 154, 110, 122, 95, 79, 63, 31, 31, 153, 153, 140, 198, 168, 79},
+    {153, 160, 107, 139, 126, 154, 154, 183, 152, 224, 167, 122, 153, 111, 149, 92, 167, 154, 154,
+     154, 139, 139,
+     125, 110, 124, 110, 95, 94, 125, 111, 111, 79, 125, 126, 111, 111, 79, 108, 123, 93,
+     125, 110, 124, 110, 95, 94, 125, 111, 111, 79, 125, 126, 111, 111, 79, 108, 123, 93,
+     121, 140, 61, 154,
+     170, 154, 139, 153, 139, 123, 123, 63, 124, 166, 183, 140, 136, 153, 154, 166, 183, 140, 136,
+     153, 154, 166, 183, 140, 136, 153, 154, 170, 153, 138, 138, 122, 121, 122, 121, 167, 151, 183,
+     140, 151, 183, 140,
+     154, 196, 167, 167, 154, 152, 167, 182, 182, 134, 149, 136, 153, 121, 136, 122, 169, 208, 166,
+     167, 154, 152, 167, 182,
+     107, 167, 91, 107, 107, 167,
+     197, 185, 201, 134, 139, 154, 154, 154, 137, 95, 79, 63, 31, 31, 153, 153, 169, 198, 168, 79}};
+
+// 8.5.3.3.3: luma 8-tap (quarter sample) and chroma 4-tap (eighth sample) filters
+const int kLumaFilter[4][8] = {{0, 0, 0, 64, 0, 0, 0, 0},
+                               {-1, 4, -10, 58, 17, -5, 1, 0},
+                               {-1, 4, -11, 40, 40, -11, 4, -1},
+                               {0, 1, -5, 17, 58, -10, 4, -1}};
+const int kChromaFilter[8][4] = {{0, 64, 0, 0},     {-2, 58, 10, -2}, {-4, 54, 16, -2},
+                                 {-6, 46, 28, -4},  {-4, 36, 36, -4}, {-4, 28, 46, -6},
+                                 {-2, 16, 54, -4},  {-2, 10, 58, -2}};
 
 // ScanOrder[log2 block size][scanIdx][sPos] = (x, y), for sizes 1x1..8x8
 struct Scans {
@@ -315,14 +416,14 @@ struct ScalingList {
   }
 };
 
-void parse_scaling_list(Bits& b, ScalingList& sl, uint64_t& tools) {
+void parse_scaling_list(Bits& b, ScalingList& sl, Tools& tools) {
   sl.set_default();
   for (int size = 0; size < 4; ++size)
     for (int m = 0; m < 6; m += (size == 3) ? 3 : 1) {
       if (!b.flag("scaling_list_pred_mode_flag")) {
         int delta = int(b.ue("scaling_list_pred_matrix_id_delta"));
         if (delta) {
-          tools |= 1ull << T_SCALING_PRED;
+          tools |= bit(T_SCALING_PRED);
           delta *= (size == 3) ? 3 : 1;
           if (m < delta) fail("scaling_list_pred_matrix_id_delta points before the first matrix");
           std::memcpy(sl.sl[size][m], sl.sl[size][m - delta], size ? 64 : 16);
@@ -350,6 +451,14 @@ void parse_scaling_list(Bits& b, ScalingList& sl, uint64_t& tools) {
     }
 }
 
+// A short-term reference picture set: DeltaPoc and UsedByCurrPic, the
+// negative pictures first (closest first), then the positive ones.
+struct StRps {
+  int num_negative = 0, num_delta = 0;
+  int delta[32] = {0};
+  bool used[32] = {false};
+};
+
 struct Vps {
   bool present = false;
 };
@@ -362,16 +471,19 @@ struct Sps {
   int log2_max_poc_lsb = 4;
   int max_dec_pic_buffering = 1, num_reorder = 0;
   int log2_min_cb = 3, log2_ctb = 4, log2_min_tb = 2, log2_max_tb = 5;
-  int max_th_depth_intra = 0;
+  int max_th_depth_intra = 0, max_th_depth_inter = 0;
+  bool amp = false;
   bool scaling_list_enabled = false, scaling_data = false;
   ScalingList scaling;
   bool sao = false, pcm = false;
   int pcm_bits_luma = 8, pcm_bits_chroma = 8, log2_min_pcm = 3, log2_max_pcm = 3;
   bool pcm_loop_filter_disabled = false;
   int num_st_rps = 0;
-  std::vector<int> st_rps_pics;    // NumDeltaPocs of each set (inter RPS prediction needs it)
+  std::vector<StRps> st_rps;
   bool long_term_present = false;
   int num_lt_sps = 0;
+  int lt_poc_lsb[32] = {0};
+  bool lt_used[32] = {false};
   bool temporal_mvp = false, strong_intra_smoothing = false;
   // VUI
   bool vui = false, full_range = false;
@@ -398,6 +510,10 @@ struct Pps {
   bool scaling_present = false;
   ScalingList scaling;
   bool header_extension = false;
+  int num_ref_idx_default[2] = {1, 1};
+  bool cabac_init_present = false, weighted_pred = false, weighted_bipred = false;
+  bool lists_modification = false;
+  int log2_par_mrg = 2;
   std::vector<uint8_t> raw;
 };
 
@@ -476,33 +592,66 @@ void parse_hrd(Bits& b, bool common, int max_sub_layers_minus1) {
   }
 }
 
-// st_ref_pic_set(idx): parsed for its length only (intra pictures use no reference)
-int parse_st_rps(Bits& b, int idx, int num_sets, const std::vector<int>& sizes) {
-  bool pred = false;
-  if (idx != 0) pred = b.flag("inter_ref_pic_set_prediction_flag");
-  if (pred) {
+// st_ref_pic_set(idx) (7.3.7, 7.4.8): ``sets`` are the SPS's sets parsed
+// so far (all of them in a slice header, where idx is their count). A set
+// predicted from another is derived as ffmpeg derives it (the deltas
+// sorted, the negative ones closest first; a delta of 0 counts as
+// positive).
+void parse_st_rps(Bits& b, int idx, int num_sps_sets, const std::vector<StRps>& sets, StRps& rps,
+                  bool& predicted) {
+  rps = StRps();
+  predicted = idx != 0 && b.flag("inter_ref_pic_set_prediction_flag");
+  if (predicted) {
     int delta_idx = 1;
-    if (idx == num_sets) delta_idx = b.ue_in("delta_idx_minus1", 0, idx - 1) + 1;
-    b.u(1, "delta_rps_sign");
-    b.ue_in("abs_delta_rps_minus1", 0, 32767);
-    const int ref = idx - delta_idx;
-    int n = 0;
-    for (int j = 0; j <= sizes[size_t(ref)]; ++j) {
+    if (idx == num_sps_sets) delta_idx = b.ue_in("delta_idx_minus1", 0, idx - 1) + 1;
+    const int sign = int(b.u(1, "delta_rps_sign"));
+    const int delta_rps = (1 - 2 * sign) * (b.ue_in("abs_delta_rps_minus1", 0, 32767) + 1);
+    const StRps& ref = sets[size_t(idx - delta_idx)];
+    int k = 0, k0 = 0;
+    for (int j = 0; j <= ref.num_delta; ++j) {
       const bool used = b.flag("used_by_curr_pic_flag");
-      bool use_delta = true;
-      if (!used) use_delta = b.flag("use_delta_flag");
-      if (used || use_delta) ++n;
+      const bool use_delta = used || b.flag("use_delta_flag");
+      if (!use_delta) continue;
+      if (k >= 32) fail("an inter-predicted reference picture set of more than 32 pictures");
+      const int d = j < ref.num_delta ? delta_rps + ref.delta[j] : delta_rps;
+      rps.delta[k] = d;
+      rps.used[k] = used;
+      k0 += d < 0;
+      ++k;
     }
-    return n;
+    rps.num_delta = k;
+    rps.num_negative = k0;
+    // ascending, the flags with their deltas (ffmpeg's insertion sort), then
+    // the negative ones turned round: closest first
+    std::pair<int, bool> v[32];
+    for (int i = 0; i < k; ++i) v[i] = {rps.delta[i], rps.used[i]};
+    std::stable_sort(v, v + k, [](const std::pair<int, bool>& x, const std::pair<int, bool>& y) {
+      return x.first < y.first;
+    });
+    std::reverse(v, v + k0);
+    for (int i = 0; i < k; ++i) {
+      rps.delta[i] = v[i].first;
+      rps.used[i] = v[i].second;
+    }
+    return;
   }
   const int neg = b.ue_in("num_negative_pics", 0, 16);
   const int pos = b.ue_in("num_positive_pics", 0, 16);
   if (neg + pos > 16) fail("num_negative_pics + num_positive_pics exceeds 16");
-  for (int i = 0; i < neg + pos; ++i) {
-    b.ue_in("delta_poc_minus1", 0, 32767);
-    b.u(1, "used_by_curr_pic_flag");
+  int prev = 0;
+  for (int i = 0; i < neg; ++i) {
+    prev -= b.ue_in("delta_poc_s0_minus1", 0, 32767) + 1;
+    rps.delta[i] = prev;
+    rps.used[i] = b.flag("used_by_curr_pic_s0_flag");
   }
-  return neg + pos;
+  prev = 0;
+  for (int i = 0; i < pos; ++i) {
+    prev += b.ue_in("delta_poc_s1_minus1", 0, 32767) + 1;
+    rps.delta[neg + i] = prev;
+    rps.used[neg + i] = b.flag("used_by_curr_pic_s1_flag");
+  }
+  rps.num_negative = neg;
+  rps.num_delta = neg + pos;
 }
 
 void parse_vps(Bits& b, std::vector<Vps>& vpss) {
@@ -511,7 +660,7 @@ void parse_vps(Bits& b, std::vector<Vps>& vpss) {
 }
 
 // Parses an SPS into `s`; returns its id.
-int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
+int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, Tools& tools) {
   s.vps_id = int(b.u(4, "sps_video_parameter_set_id"));
   s.max_sub_layers = int(b.u(3, "sps_max_sub_layers_minus1")) + 1;
   if (s.max_sub_layers > 7) fail("sps_max_sub_layers_minus1 is 7 (reserved)");
@@ -529,7 +678,7 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
   s.width = b.ue_in("pic_width_in_luma_samples", 1, 16888);
   s.height = b.ue_in("pic_height_in_luma_samples", 1, 16888);
   if (b.flag("conformance_window_flag")) {
-    tools |= 1ull << T_CONFORMANCE_WINDOW;
+    tools |= bit(T_CONFORMANCE_WINDOW);
     s.conf_left = 2 * b.ue_in("conf_win_left_offset", 0, 8192);
     s.conf_right = 2 * b.ue_in("conf_win_right_offset", 0, 8192);
     s.conf_top = 2 * b.ue_in("conf_win_top_offset", 0, 8192);
@@ -565,7 +714,7 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
                                               " samples (the standard allows 16, 32 and 64)");
   if (s.log2_min_tb >= s.log2_min_cb || s.log2_max_tb > std::min(s.log2_ctb, 5))
     fail("transform block sizes that do not fit the coding block sizes");
-  b.ue_in("max_transform_hierarchy_depth_inter", 0, s.log2_ctb - s.log2_min_tb);
+  s.max_th_depth_inter = b.ue_in("max_transform_hierarchy_depth_inter", 0, s.log2_ctb - s.log2_min_tb);
   s.max_th_depth_intra = b.ue_in("max_transform_hierarchy_depth_intra", 0, s.log2_ctb - s.log2_min_tb);
   if (s.width % (1 << s.log2_min_cb) || s.height % (1 << s.log2_min_cb))
     fail("a picture size that is not a multiple of the minimum coding block");
@@ -574,11 +723,11 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
     s.scaling.set_default();
     s.scaling_data = b.flag("sps_scaling_list_data_present_flag");
     if (s.scaling_data) {
-      tools |= 1ull << T_SCALING_SPS;
+      tools |= bit(T_SCALING_SPS);
       parse_scaling_list(b, s.scaling, tools);
     }
   }
-  b.u(1, "amp_enabled_flag");
+  s.amp = b.flag("amp_enabled_flag");
   s.sao = b.flag("sample_adaptive_offset_enabled_flag");
   s.pcm = b.flag("pcm_enabled_flag");
   if (s.pcm) {
@@ -591,23 +740,26 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
     s.pcm_loop_filter_disabled = b.flag("pcm_loop_filter_disabled_flag");
   }
   s.num_st_rps = b.ue_in("num_short_term_ref_pic_sets", 0, 64);
-  if (s.num_st_rps) tools |= 1ull << T_RPS_SYNTAX;
-  for (int i = 0; i < s.num_st_rps; ++i)
-    s.st_rps_pics.push_back(parse_st_rps(b, i, s.num_st_rps, s.st_rps_pics));
+  if (s.num_st_rps) tools |= bit(T_RPS_SYNTAX);
+  s.st_rps.resize(size_t(s.num_st_rps));
+  for (int i = 0; i < s.num_st_rps; ++i) {
+    bool predicted;
+    parse_st_rps(b, i, s.num_st_rps, s.st_rps, s.st_rps[size_t(i)], predicted);
+  }
   s.long_term_present = b.flag("long_term_ref_pics_present_flag");
   if (s.long_term_present) {
-    tools |= 1ull << T_LONG_TERM_SYNTAX;
+    tools |= bit(T_LONG_TERM_SYNTAX);
     s.num_lt_sps = b.ue_in("num_long_term_ref_pics_sps", 0, 32);
     for (int i = 0; i < s.num_lt_sps; ++i) {
-      b.u(s.log2_max_poc_lsb, "lt_ref_pic_poc_lsb_sps");
-      b.u(1, "used_by_curr_pic_lt_sps_flag");
+      s.lt_poc_lsb[i] = int(b.u(s.log2_max_poc_lsb, "lt_ref_pic_poc_lsb_sps"));
+      s.lt_used[i] = b.flag("used_by_curr_pic_lt_sps_flag");
     }
   }
   s.temporal_mvp = b.flag("sps_temporal_mvp_enabled_flag");
   s.strong_intra_smoothing = b.flag("strong_intra_smoothing_enabled_flag");
   if (b.flag("vui_parameters_present_flag")) {
     s.vui = true;
-    tools |= 1ull << T_VUI;
+    tools |= bit(T_VUI);
     if (b.flag("aspect_ratio_info_present_flag")) {
       if (b.u(8, "aspect_ratio_idc") == 255) {
         b.u(16, "sar_width");
@@ -618,7 +770,7 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
     if (b.flag("video_signal_type_present_flag")) {
       b.u(3, "video_format");
       s.full_range = b.flag("video_full_range_flag");
-      if (s.full_range) tools |= 1ull << T_FULL_RANGE;
+      if (s.full_range) tools |= bit(T_FULL_RANGE);
       if (b.flag("colour_description_present_flag")) {
         b.u(8, "colour_primaries");
         b.u(8, "transfer_characteristics");
@@ -640,7 +792,7 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
       b.u(32, "vui_time_scale");
       if (b.flag("vui_poc_proportional_to_timing_flag")) b.ue("vui_num_ticks_poc_diff_one_minus1");
       if (b.flag("vui_hrd_parameters_present_flag")) {
-        tools |= 1ull << T_HRD;
+        tools |= bit(T_HRD);
         parse_hrd(b, true, s.max_sub_layers - 1);
       }
     }
@@ -683,7 +835,7 @@ int parse_sps(Bits& b, Sps& s, const std::vector<Vps>& vpss, uint64_t& tools) {
 }
 
 // Parses a PPS into `p`; returns its id.
-int parse_pps(Bits& b, Pps& p, const std::vector<Sps>& spss, uint64_t& tools) {
+int parse_pps(Bits& b, Pps& p, const std::vector<Sps>& spss, Tools& tools) {
   const int id = b.ue_in("pps_pic_parameter_set_id", 0, 63);
   p.sps_id = b.ue_in("pps_seq_parameter_set_id", 0, 15);
   if (!spss[size_t(p.sps_id)].present)
@@ -694,9 +846,9 @@ int parse_pps(Bits& b, Pps& p, const std::vector<Sps>& spss, uint64_t& tools) {
   p.output_flag_present = b.flag("output_flag_present_flag");
   p.extra_slice_header_bits = int(b.u(3, "num_extra_slice_header_bits"));
   p.sign_hiding = b.flag("sign_data_hiding_enabled_flag");
-  b.u(1, "cabac_init_present_flag");
-  b.ue_in("num_ref_idx_l0_default_active_minus1", 0, 14);
-  b.ue_in("num_ref_idx_l1_default_active_minus1", 0, 14);
+  p.cabac_init_present = b.flag("cabac_init_present_flag");
+  p.num_ref_idx_default[0] = b.ue_in("num_ref_idx_l0_default_active_minus1", 0, 14) + 1;
+  p.num_ref_idx_default[1] = b.ue_in("num_ref_idx_l1_default_active_minus1", 0, 14) + 1;
   p.init_qp = 26 + b.se_in("init_qp_minus26", -26, 25);
   p.constrained_intra = b.flag("constrained_intra_pred_flag");
   p.transform_skip = b.flag("transform_skip_enabled_flag");
@@ -706,8 +858,8 @@ int parse_pps(Bits& b, Pps& p, const std::vector<Sps>& spss, uint64_t& tools) {
   p.cb_qp_offset = b.se_in("pps_cb_qp_offset", -12, 12);
   p.cr_qp_offset = b.se_in("pps_cr_qp_offset", -12, 12);
   p.slice_chroma_qp_offsets = b.flag("pps_slice_chroma_qp_offsets_present_flag");
-  b.u(1, "weighted_pred_flag");
-  b.u(1, "weighted_bipred_flag");
+  p.weighted_pred = b.flag("weighted_pred_flag");
+  p.weighted_bipred = b.flag("weighted_bipred_flag");
   p.transquant_bypass = b.flag("transquant_bypass_enabled_flag");
   p.tiles = b.flag("tiles_enabled_flag");
   p.wpp = b.flag("entropy_coding_sync_enabled_flag");
@@ -736,11 +888,11 @@ int parse_pps(Bits& b, Pps& p, const std::vector<Sps>& spss, uint64_t& tools) {
   }
   p.scaling_present = b.flag("pps_scaling_list_data_present_flag");
   if (p.scaling_present) {
-    tools |= 1ull << T_SCALING_PPS;
+    tools |= bit(T_SCALING_PPS);
     parse_scaling_list(b, p.scaling, tools);
   }
-  b.u(1, "lists_modification_present_flag");
-  b.ue_in("log2_parallel_merge_level_minus2", 0, s.log2_ctb - 2);
+  p.lists_modification = b.flag("lists_modification_present_flag");
+  p.log2_par_mrg = b.ue_in("log2_parallel_merge_level_minus2", 0, s.log2_ctb - 2) + 2;
   p.header_extension = b.flag("slice_segment_header_extension_present_flag");
   if (b.flag("pps_extension_present_flag")) {
     const bool range = b.flag("pps_range_extension_flag");
@@ -853,10 +1005,11 @@ class Cabac {
   int overrun_ = 0;
 };
 
-void init_contexts(uint8_t* st, int qp) {
+void init_contexts(uint8_t* st, int qp, int init_type) {
   const int q = clip3(0, 51, qp);
+  const uint8_t* init = kInit[init_type];
   for (int i = 0; i < C_COUNT; ++i) {
-    const int m = (kInit[i] >> 4) * 5 - 45, n = ((kInit[i] & 15) << 3) - 16;
+    const int m = (init[i] >> 4) * 5 - 45, n = ((init[i] & 15) << 3) - 16;
     const int pre = clip3(1, 126, ((m * q) >> 4) + n);
     st[i] = pre <= 63 ? uint8_t((63 - pre) << 1) : uint8_t(((pre - 64) << 1) | 1);
   }
@@ -884,6 +1037,61 @@ struct Slice {
   int beta_offset = 0, tc_offset = 0;
   bool lf_across_slices = false;
   size_t data_byte = 0;   // where the slice data start in the unescaped NAL payload
+  // inter slices
+  int init_type = 0;
+  bool no_output_prior = false;
+  StRps st;                                   // the picture's short-term set
+  int num_lt = 0;                             // long-term entries: POC (or LSB), used, MSB given
+  int lt_poc[32] = {0};
+  bool lt_used[32] = {false}, lt_msb[32] = {false};
+  bool tmvp = false, mvd_l1_zero = false, col_from_l0 = true;
+  int num_ref[2] = {0, 0}, col_ref_idx = 0, max_merge = 5;
+  int total = 0;                              // NumPicTotalCurr of the slice's own RPS
+  bool modified[2] = {false, false};
+  int list_entry[2][16] = {{0}};
+  bool weighted = false;                      // explicit weighted prediction
+  int luma_denom = 0, chroma_denom = 0;
+  int lw[2][16] = {{0}}, lo[2][16] = {{0}}, cw[2][16][2] = {{{0}}}, co[2][16][2] = {{{0}}};
+};
+
+// Motion of a prediction block (8.5.3), as ffmpeg's MvField
+struct Mv {
+  int16_t x = 0, y = 0;
+  bool operator==(const Mv& o) const { return x == o.x && y == o.y; }
+  bool operator!=(const Mv& o) const { return !(*this == o); }
+};
+enum Pred : uint8_t { PF_L0 = 1, PF_L1 = 2, PF_BI = 3, PF_INTRA = 4 };
+struct MvField {
+  Mv mv[2];
+  int8_t ref_idx[2] = {-1, -1};
+  uint8_t pred = 0;
+};
+
+// A slice's reference picture list as later pictures read it: POCs and
+// whether each was long-term then
+struct RefList {
+  int n = 0;
+  int poc[16] = {0};
+  bool lt[16] = {false};
+};
+
+// A decoded picture in the DPB: its planes (coded size), POC, marking and
+// motion field at the minimum prediction block's granularity, with each
+// CTB's slice lists (TMVP reads them)
+struct Frame {
+  Plane px[3];
+  int poc = 0, ref = 0;        // ref: 1 short-term, 2 long-term, 0 unused
+  bool generated = false;      // made for a missing reference (8.3.3)
+  int sequence = 0;
+  int lpu = 2, pu_w = 0, pu_h = 0, log2_ctb = 4, ctb_w = 0;
+  std::vector<MvField> mvf;
+  std::vector<int> ctb_slice;                    // by raster CTB address
+  std::vector<std::array<RefList, 2>> lists;     // by slice index
+  const MvField& at(int x, int y) const { return mvf[size_t(y >> lpu) * size_t(pu_w) + size_t(x >> lpu)]; }
+  const RefList* lists_at(int x, int y) const {
+    const int k = ctb_slice[size_t((y >> log2_ctb) * ctb_w + (x >> log2_ctb))];
+    return k < 0 ? nullptr : lists[size_t(k)].data();
+  }
 };
 
 struct SaoParams {
@@ -904,9 +1112,9 @@ class Decoder {
  public:
   Decoder() : vps_(16), sps_(16), pps_(64) {}
 
-  uint64_t tools = 0;
+  Tools tools = 0;
   bool shown = false;        // the last sample gave a picture
-  int poc = 0, nal_type = -1, out_w = 0, out_h = 0;
+  int poc = 0, nal_type = -1, temporal_id = 0, out_w = 0, out_h = 0;
   Plane out[3];
   const Sps* active = nullptr;
 
@@ -916,6 +1124,9 @@ class Decoder {
     eos_ = true;
     pic_started_ = false;
     shown = false;
+    dpb_.clear();
+    cur_.reset();
+    ++seq_;
   }
 
   void set_length_size(int n) { length_size_ = n; }
@@ -977,6 +1188,10 @@ class Decoder {
   bool skip_picture_ = false, output_ = true;
   Slice sh_;      // the current independent slice segment's header
   std::vector<uint32_t> pps_gen_ = std::vector<uint32_t>(64);   // each PPS id's count of new sets
+  std::vector<uint32_t> sps_gen_ = std::vector<uint32_t>(16);   // each SPS id's count of new sets
+  int act_sps_id_ = -1;            // the SPS the last picture activated (id, count of new sets)
+  uint32_t act_sps_gen_ = 0;
+  int act_w_ = 0, act_h_ = 0, act_dpb_ = 0;
   Pps pic_pps_;   // the picture's parameter sets, as its first slice segment found them
   Sps pic_sps_;
   int pic_pps_id_ = 0;
@@ -1012,6 +1227,19 @@ class Decoder {
   bool bypass_ = false;
   int16_t coeffs_[32 * 32];
   int res_[32 * 32];
+  // inter prediction: the DPB (reference pictures only: the reader owns the
+  // output order), the picture being decoded, the slice's lists
+  std::vector<std::shared_ptr<Frame>> dpb_;
+  std::shared_ptr<Frame> cur_, col_;
+  std::shared_ptr<Frame> refs_[2][16];
+  RefList rpl_[2];
+  int seq_ = 0;                        // ffmpeg's seq_decode: IDR, BLA and EOS start a sequence
+  int slice_idx_ = -1;
+  bool no_rasl_ = true;                // NoRaslOutputFlag of the last IRAP picture
+  std::vector<uint8_t> skip_, cbf_;    // cu_skip_flag and cbf_luma at 4x4 units
+  bool cu_intra_ = true;
+  int cu_part_ = 0;
+  int pred_[2][64 * 64];               // a prediction block's samples of each list (14 bits)
 
   // ------------------------------------------------------------- NAL units --
   void nal(const uint8_t* p, size_t n, bool in_sample) {
@@ -1042,6 +1270,7 @@ class Decoder {
         for (Pps& p : pps_)
           if (p.sps_id == id) p.present = false;
         held = std::move(s);
+        ++sps_gen_[size_t(id)];
         break;
       }
       case PPS_NUT: {
@@ -1060,6 +1289,7 @@ class Decoder {
         pic_started_ = false;
         eos_ = true;
         max_ra_ = kMaxRa;
+        ++seq_;
         break;
       default:
         if (type <= 21) slice_segment(type, tid, rbsp, b);
@@ -1073,7 +1303,7 @@ class Decoder {
     s.nal_type = type;
     s.temporal_id = tid;
     s.first = b.flag("first_slice_segment_in_pic_flag");
-    if (type >= BLA_W_LP && type <= 23) b.u(1, "no_output_of_prior_pics_flag");
+    if (type >= BLA_W_LP && type <= 23) s.no_output_prior = b.flag("no_output_of_prior_pics_flag");
     s.pps_id = b.ue_in("slice_pic_parameter_set_id", 0, 63);
     if (!pps_[size_t(s.pps_id)].present)
       fail("a slice refers to PPS " + std::to_string(s.pps_id) +
@@ -1102,68 +1332,124 @@ class Decoder {
       s.first = first;
       s.dependent = true;
       s.address = address;
-      tools |= 1ull << T_DEPENDENT_SLICES;
+      tools |= bit(T_DEPENDENT_SLICES);
     } else {
       s.slice_addr = s.address;
       b.skip(size_t(p.extra_slice_header_bits), "slice_reserved_flag");
       s.type = b.ue_in("slice_type", 0, 2);
+      if (s.type != 2 && is_irap(type))
+        fail(std::string(s.type == 1 ? "P slices" : "B slices") + " in an IRAP picture (NAL type " +
+             std::to_string(type) + "), which holds I slices only (ffmpeg: \"Inter slices in an "
+             "IRAP frame\")");
       if (p.output_flag_present) {
         s.output = b.flag("pic_output_flag");
-        tools |= 1ull << T_OUTPUT_FLAG;
+        tools |= bit(T_OUTPUT_FLAG);
       }
       if (!is_idr(type)) s.poc_lsb = int(b.u(q.log2_max_poc_lsb, "slice_pic_order_cnt_lsb"));
-      if (s.type != 2) {
-        if (s.first) header_poc(s, q);
-        if (scan_only_ || skip_picture_) {    // a RASL picture ffmpeg discards decodes to nothing
-          sh_ = s;
-          got_slice_ = true;
-          if (s.first && !scan_only_) start_picture(s, p, q);
-          return;
-        }
-        fail(std::string(s.type == 1 ? "P slices" : "B slices") +
-             " (inter prediction) are not supported yet; the port decodes HEVC intra pictures "
-             "(IDR, CRA, BLA and I slices of other pictures)");
+      if (s.first) {
+        activate_sps(s, p.sps_id, q);
+        header_poc(s, q);
       }
       if (!is_idr(type)) {
+        bool predicted = false;
         if (!b.flag("short_term_ref_pic_set_sps_flag")) {
-          tools |= 1ull << T_RPS_SYNTAX;
-          parse_st_rps(b, q.num_st_rps, q.num_st_rps, q.st_rps_pics);
+          tools |= bit(T_RPS_SYNTAX);
+          parse_st_rps(b, q.num_st_rps, q.num_st_rps, q.st_rps, s.st, predicted);
         } else {
           if (q.num_st_rps == 0) fail("short_term_ref_pic_set_sps_flag 1 with no set in the SPS");
           int bits = 0;
           while ((1 << bits) < q.num_st_rps) ++bits;
           const int idx = int(b.u(bits, "short_term_ref_pic_set_idx"));
           if (idx >= q.num_st_rps) fail("short_term_ref_pic_set_idx past the SPS's sets");
+          s.st = q.st_rps[size_t(idx)];
         }
         if (q.long_term_present) {
-          tools |= 1ull << T_LONG_TERM_SYNTAX;
+          tools |= bit(T_LONG_TERM_SYNTAX);
           int num_sps = 0;
           if (q.num_lt_sps > 0) num_sps = b.ue_in("num_long_term_sps", 0, q.num_lt_sps);
-          const int num_pics = b.ue_in("num_long_term_pics", 0, 32);
-          for (int i = 0; i < num_sps + num_pics; ++i) {
+          const int num_pics = b.ue_in("num_long_term_pics", 0, 32 - num_sps);
+          s.num_lt = num_sps + num_pics;
+          const int max_lsb = 1 << q.log2_max_poc_lsb;
+          int64_t prev_msb = 0;
+          for (int i = 0; i < s.num_lt; ++i) {
             if (i < num_sps) {
               int bits = 0;
               while ((1 << bits) < q.num_lt_sps) ++bits;
-              if (q.num_lt_sps > 1) b.u(bits, "lt_idx_sps");
+              const int k = q.num_lt_sps > 1 ? int(b.u(bits, "lt_idx_sps")) : 0;
+              if (k >= q.num_lt_sps) fail("lt_idx_sps past the SPS's long-term pictures");
+              s.lt_poc[i] = q.lt_poc_lsb[k];
+              s.lt_used[i] = q.lt_used[k];
             } else {
-              b.u(q.log2_max_poc_lsb, "poc_lsb_lt");
-              b.u(1, "used_by_curr_pic_lt_flag");
+              s.lt_poc[i] = int(b.u(q.log2_max_poc_lsb, "poc_lsb_lt"));
+              s.lt_used[i] = b.flag("used_by_curr_pic_lt_flag");
             }
-            if (b.flag("delta_poc_msb_present_flag")) b.ue("delta_poc_msb_cycle_lt");
+            s.lt_msb[i] = b.flag("delta_poc_msb_present_flag");
+            if (s.lt_msb[i]) {
+              int64_t delta = b.ue_in("delta_poc_msb_cycle_lt", 0, 1 << 24);
+              if (i && i != num_sps) delta += prev_msb;   // DeltaPocMsbCycleLt accumulates
+              const int64_t v = int64_t(s.lt_poc[i]) + poc - delta * max_lsb - s.poc_lsb;
+              if (v != int64_t(int32_t(v))) fail("a long-term picture's order count overflows");
+              s.lt_poc[i] = int(v);
+              prev_msb = delta;
+            }
           }
         }
-        if (q.temporal_mvp) b.u(1, "slice_temporal_mvp_enabled_flag");
+        if (q.temporal_mvp) s.tmvp = b.flag("slice_temporal_mvp_enabled_flag");
       }
       if (q.sao) {
         s.sao_luma = b.flag("slice_sao_luma_flag");
         s.sao_chroma = b.flag("slice_sao_chroma_flag");
+      }
+      if (s.type != 2) {
+        int total = 0;   // NumPicTotalCurr
+        for (int i = 0; i < s.st.num_delta; ++i) total += s.st.used[i];
+        for (int i = 0; i < s.num_lt; ++i) total += s.lt_used[i];
+        if (!total) fail("a P or B slice whose reference picture set holds no picture it may use");
+        s.total = total;
+        const int lists = s.type == 0 ? 2 : 1;
+        s.num_ref[0] = p.num_ref_idx_default[0];
+        s.num_ref[1] = s.type == 0 ? p.num_ref_idx_default[1] : 0;
+        if (b.flag("num_ref_idx_active_override_flag"))
+          for (int l = 0; l < lists; ++l)
+            s.num_ref[l] = b.ue_in(l ? "num_ref_idx_l1_active_minus1" : "num_ref_idx_l0_active_minus1",
+                                   0, 14) + 1;
+        if (p.lists_modification && total > 1) {
+          int bits = 0;
+          while ((1 << bits) < total) ++bits;
+          for (int l = 0; l < lists; ++l) {
+            s.modified[l] = b.flag("ref_pic_list_modification_flag");
+            if (!s.modified[l]) continue;
+            tools |= bit(T_LIST_MODIFICATION);
+            for (int i = 0; i < s.num_ref[l]; ++i) {
+              s.list_entry[l][i] = int(b.u(bits, "list_entry"));
+              if (s.list_entry[l][i] >= total) fail("list_entry past NumPicTotalCurr");
+            }
+          }
+        }
+        if (s.type == 0) {
+          s.mvd_l1_zero = b.flag("mvd_l1_zero_flag");
+          if (s.mvd_l1_zero) tools |= bit(T_MVD_L1_ZERO);
+        }
+        bool cabac_init = false;
+        if (p.cabac_init_present) cabac_init = b.flag("cabac_init_flag");
+        if (cabac_init) tools |= bit(T_CABAC_INIT_FLAG);
+        s.init_type = s.type == 1 ? (cabac_init ? 2 : 1) : (cabac_init ? 1 : 2);
+        if (s.tmvp) {
+          if (s.type == 0) s.col_from_l0 = b.flag("collocated_from_l0_flag");
+          const int l = s.col_from_l0 ? 0 : 1;
+          if (s.num_ref[l] > 1)
+            s.col_ref_idx = b.ue_in("collocated_ref_idx", 0, s.num_ref[l] - 1);
+        }
+        if ((p.weighted_pred && s.type == 1) || (p.weighted_bipred && s.type == 0))
+          pred_weight_table(b, s);
+        s.max_merge = 5 - b.ue_in("five_minus_max_num_merge_cand", 0, 4);
       }
       s.qp = p.init_qp + b.se_in("slice_qp_delta", -87, 77);
       if (s.qp < 0 || s.qp > 51) fail("SliceQpY " + std::to_string(s.qp) + " is outside 0..51");
       if (p.slice_chroma_qp_offsets) {
         s.cb_offset = b.se_in("slice_cb_qp_offset", -12, 12);
         s.cr_offset = b.se_in("slice_cr_qp_offset", -12, 12);
-        if (s.cb_offset || s.cr_offset) tools |= 1ull << T_SLICE_CHROMA_QP_OFFSET;
+        if (s.cb_offset || s.cr_offset) tools |= bit(T_SLICE_CHROMA_QP_OFFSET);
         if (p.cb_qp_offset + s.cb_offset < -12 || p.cb_qp_offset + s.cb_offset > 12 ||
             p.cr_qp_offset + s.cr_offset < -12 || p.cr_qp_offset + s.cr_offset > 12)
           fail("a chroma QP offset outside -12..12");
@@ -1171,7 +1457,7 @@ class Decoder {
       bool override = false;
       if (p.deblock_override) override = b.flag("deblocking_filter_override_flag");
       if (override) {
-        tools |= 1ull << T_DEBLOCK_OVERRIDE;
+        tools |= bit(T_DEBLOCK_OVERRIDE);
         s.deblock_disabled = b.flag("slice_deblocking_filter_disabled_flag");
         if (!s.deblock_disabled) {
           last_beta_ = 2 * b.se_in("slice_beta_offset_div2", -6, 6);
@@ -1191,13 +1477,13 @@ class Decoder {
     if (p.tiles || p.wpp) {
       const int entry_points = b.ue_in("num_entry_point_offsets", 0, q.ctb_w * q.ctb_h);
       if (entry_points > 0) {
-        tools |= 1ull << T_ENTRY_POINTS;
+        tools |= bit(T_ENTRY_POINTS);
         const int bits = b.ue_in("offset_len_minus1", 0, 31) + 1;
         for (int i = 0; i < entry_points; ++i) b.u(bits, "entry_point_offset_minus1");
       }
     }
     if (p.header_extension) {
-      tools |= 1ull << T_HEADER_EXTENSION;
+      tools |= bit(T_HEADER_EXTENSION);
       const int len = b.ue_in("slice_segment_header_extension_length", 0, 256);
       b.skip(size_t(8 * len), "slice_segment_header_extension_data_byte");
     }
@@ -1208,17 +1494,100 @@ class Decoder {
     s.data_byte = b.pos() >> 3;
     if (!s.dependent) sh_ = s;
     if (s.first) {
-      if (s.type == 2) header_poc(s, q);
       if (scan_only_) {
         got_slice_ = true;
+        if (!skip_picture_) scan_picture(s, q);
         return;
       }
       start_picture(s, p, q);
     }
     if (scan_only_ || skip_picture_) return;
-    if (!s.first) tools |= 1ull << T_SLICES;
+    if (!s.first) tools |= bit(T_SLICES);
+    if (s.type != 2) tools |= bit(s.type == 1 ? T_P_SLICE : T_B_SLICE);
     got_slice_ = true;
+    if (!s.dependent) slice_lists(s);
     slice_data(s, rbsp);
+  }
+
+  // ffmpeg's output process, on order counts alone (the header scan): at an
+  // IRAP picture with NoRaslOutputFlag the pictures waiting for output are
+  // output, or discarded with no_output_of_prior_pics_flag (a CRA's is 1);
+  // then the RPS marks the DPB, the picture joins it, and pictures are
+  // output (bumped) while more than sps_max_num_reorder_pics wait or the DPB
+  // holds more than sps_max_dec_pic_buffering
+  struct ScanPic {
+    int poc, id, ref, seq;
+    bool out;
+  };
+  std::vector<ScanPic> scan_dpb_;
+
+  void scan_picture(const Slice& s, const Sps& q) {
+    const int type = s.nal_type;
+    if (is_irap(type) && no_rasl_) {
+      const bool discard = s.no_output_prior || type == CRA_NUT;
+      for (auto& f : scan_dpb_)
+        if (f.out) {
+          if (discard) {
+            discarded.push_back(f.id);
+            tools |= bit(T_DISCARD_PRIOR);
+          }
+          f.out = false;
+        }
+    }
+    if (is_idr(type) || is_bla(type)) ++seq_;
+    int generated = 0;
+    for (auto& f : scan_dpb_) f.ref = 0;
+    if (!is_idr(type))
+      rps_entries(s, q, [&](int want, int mask, bool, int subset) {
+        for (auto& f : scan_dpb_)
+          if (rps_names(f.poc, f.seq, want, mask)) {
+            f.ref = subset == 2 ? 2 : 1;
+            return;
+          }
+        ++generated;
+      });
+    scan_dpb_.erase(std::remove_if(scan_dpb_.begin(), scan_dpb_.end(),
+                                   [](const ScanPic& f) { return !f.ref && !f.out; }),
+                    scan_dpb_.end());
+    scan_dpb_.push_back({poc, scan_id_, 1, seq_, s.output});
+    for (;;) {
+      int waiting = 0;
+      for (const auto& f : scan_dpb_) waiting += f.out;
+      const int held = int(scan_dpb_.size()) + generated;
+      if (!(waiting > q.num_reorder || (waiting && held > q.max_dec_pic_buffering))) break;
+      size_t first = 0;
+      bool found = false;
+      for (size_t i = 0; i < scan_dpb_.size(); ++i)
+        if (scan_dpb_[i].out && (!found || scan_dpb_[i].poc < scan_dpb_[first].poc)) {
+          first = i;
+          found = true;
+        }
+      scan_dpb_[first].out = false;
+      if (!scan_dpb_[first].ref) scan_dpb_.erase(scan_dpb_.begin() + long(first));
+    }
+  }
+
+  // As ffmpeg (hls_slice_header): a picture under another SPS than the last
+  // picture's (a new set, or another id) drops every reference picture and
+  // starts a sequence (ffmpeg 8 keeps max_ra: a CRA's RASL pictures decode);
+  // at an IRAP picture other than a CRA, a new size or DPB size outputs the
+  // pictures still waiting instead of discarding them
+  void activate_sps(Slice& s, int id, const Sps& q) {
+    if (id == act_sps_id_ && sps_gen_[size_t(id)] == act_sps_gen_) return;
+    if (act_sps_id_ >= 0 && is_irap(s.nal_type) && s.nal_type != CRA_NUT &&
+        (q.width != act_w_ || q.height != act_h_ || q.max_dec_pic_buffering != act_dpb_))
+      s.no_output_prior = false;
+    act_sps_id_ = id;
+    act_sps_gen_ = sps_gen_[size_t(id)];
+    act_w_ = q.width;
+    act_h_ = q.height;
+    act_dpb_ = q.max_dec_pic_buffering;
+    dpb_.clear();
+    for (auto& f : scan_dpb_) f.ref = 0;
+    scan_dpb_.erase(std::remove_if(scan_dpb_.begin(), scan_dpb_.end(),
+                                   [](const ScanPic& f) { return !f.out; }),
+                    scan_dpb_.end());
+    ++seq_;
   }
 
   // POC (8.3.1, as ffmpeg computes it) and whether the picture shows
@@ -1226,8 +1595,8 @@ class Decoder {
     const int type = s.nal_type;
     active = &q;
     if (is_irap(type)) {
-      const bool no_rasl = is_idr(type) || is_bla(type) || eos_;
-      if (no_rasl) max_ra_ = kMaxRa;
+      no_rasl_ = is_idr(type) || is_bla(type) || eos_;
+      if (no_rasl_) max_ra_ = kMaxRa;
     }
     int value = 0;
     if (!is_idr(type)) {
@@ -1244,9 +1613,10 @@ class Decoder {
       if (is_bla(type)) msb = 0;
       value = msb + s.poc_lsb;
     }
-    if (!is_irap(type) && !is_idr(type) && value < poc) tools |= 1ull << T_POC_REORDER;
+    if (!is_irap(type) && !is_idr(type) && value < poc) tools |= bit(T_POC_REORDER);
     poc = value;
     nal_type = type;
+    temporal_id = s.temporal_id;
     if (s.temporal_id == 0 && type != TRAIL_N && type != TSA_N && type != STSA_N && type != RADL_N &&
         type != RADL_R && type != RASL_N && type != RASL_R)
       poc_tid0_ = value;
@@ -1260,7 +1630,7 @@ class Decoder {
     skip_picture_ = false;
     if ((type == RASL_N || type == RASL_R) && value <= max_ra_) {
       skip_picture_ = true;
-      tools |= 1ull << T_RASL_SKIPPED;
+      tools |= bit(T_RASL_SKIPPED);
     } else if (type == RASL_R && value > max_ra_) {
       max_ra_ = INT32_MIN;
     }
@@ -1282,23 +1652,23 @@ class Decoder {
     pic_started_ = true;
     if (skip_picture_) return;
     const int type = s.nal_type;
-    if (is_idr(type)) tools |= 1ull << T_IDR;
-    else if (type == CRA_NUT) tools |= 1ull << T_CRA;
-    else if (is_bla(type)) tools |= 1ull << T_BLA;
-    else if (type == RADL_N || type == RADL_R) tools |= 1ull << T_RADL;
-    else tools |= 1ull << T_TRAIL;
-    tools |= 1ull << (q.log2_ctb == 4 ? T_CTB16 : q.log2_ctb == 5 ? T_CTB32 : T_CTB64);
-    if (q.log2_min_cb >= 4) tools |= 1ull << T_MIN_CB16;
+    if (is_idr(type)) tools |= bit(T_IDR);
+    else if (type == CRA_NUT) tools |= bit(T_CRA);
+    else if (is_bla(type)) tools |= bit(T_BLA);
+    else if (type == RADL_N || type == RADL_R) tools |= bit(T_RADL);
+    else tools |= bit(T_TRAIL);
+    tools |= bit(q.log2_ctb == 4 ? T_CTB16 : q.log2_ctb == 5 ? T_CTB32 : T_CTB64);
+    if (q.log2_min_cb >= 4) tools |= bit(T_MIN_CB16);
     if (q.scaling_list_enabled && !q.scaling_data && !p.scaling_present)
-      tools |= 1ull << T_SCALING_DEFAULT;
-    if (q.pcm && q.pcm_loop_filter_disabled) tools |= 1ull << T_PCM_NO_FILTER;
-    if (q.strong_intra_smoothing) tools |= 1ull << T_STRONG_SMOOTHING;
-    if (p.constrained_intra) tools |= 1ull << T_CONSTRAINED_INTRA;
-    if (p.sign_hiding) tools |= 1ull << T_SIGN_HIDING;
-    if (p.cb_qp_offset || p.cr_qp_offset) tools |= 1ull << T_CHROMA_QP_OFFSET;
-    if (p.tiles) tools |= 1ull << (p.uniform ? T_TILES_UNIFORM : T_TILES_EXPLICIT);
-    if (p.wpp) tools |= 1ull << T_WPP;
-    if (p.tiles && !p.lf_across_tiles) tools |= 1ull << T_NO_FILTER_ACROSS_TILES;
+      tools |= bit(T_SCALING_DEFAULT);
+    if (q.pcm && q.pcm_loop_filter_disabled) tools |= bit(T_PCM_NO_FILTER);
+    if (q.strong_intra_smoothing) tools |= bit(T_STRONG_SMOOTHING);
+    if (p.constrained_intra) tools |= bit(T_CONSTRAINED_INTRA);
+    if (p.sign_hiding) tools |= bit(T_SIGN_HIDING);
+    if (p.cb_qp_offset || p.cr_qp_offset) tools |= bit(T_CHROMA_QP_OFFSET);
+    if (p.tiles) tools |= bit(p.uniform ? T_TILES_UNIFORM : T_TILES_EXPLICIT);
+    if (p.wpp) tools |= bit(T_WPP);
+    if (p.tiles && !p.lf_across_tiles) tools |= bit(T_NO_FILTER_ACROSS_TILES);
     pic_[0].w = q.width;
     pic_[0].h = q.height;
     pic_[1].w = pic_[2].w = q.width / 2;
@@ -1316,6 +1686,197 @@ class Decoder {
     bs_h_.assign(n4, 0);
     ctb_.assign(size_t(q.ctb_w) * size_t(q.ctb_h), CtbInfo());
     decoded_ctbs_ = 0;
+    skip_.assign(n4, 0);
+    cbf_.assign(n4, 0);
+    if (s.temporal_id > 0) tools |= bit(T_TEMPORAL_LAYERS);
+    if (is_irap(type) && no_rasl_ && s.no_output_prior) tools |= bit(T_DISCARD_PRIOR);
+    if (is_idr(type) || is_bla(type)) ++seq_;
+    cur_ = std::make_shared<Frame>();
+    Frame& f = *cur_;
+    f.poc = poc;
+    f.sequence = seq_;
+    f.lpu = q.log2_min_cb - 1;
+    f.pu_w = q.width >> f.lpu;
+    f.pu_h = q.height >> f.lpu;
+    f.mvf.assign(size_t(f.pu_w) * size_t(f.pu_h), MvField());
+    f.log2_ctb = q.log2_ctb;
+    f.ctb_w = q.ctb_w;
+    f.ctb_slice.assign(size_t(q.ctb_w) * size_t(q.ctb_h), -1);
+    slice_idx_ = -1;
+    frame_rps(s, q);
+  }
+
+  // ------------------------------------------------------------- the DPB --
+  // 8.3.2 as ffmpeg's ff_hevc_frame_rps: every picture unmarked, then those
+  // the RPS names marked again, a missing one generated (grey, never output:
+  // ffmpeg's generate_missing_ref, for the Foll sets too); IDR pictures name
+  // none. Pictures nothing names leave the DPB.
+  std::vector<std::shared_ptr<Frame>> st_curr_[2], lt_curr_;   // PocStCurrBefore/After, PocLtCurr
+
+  // The RPS's entries in ffmpeg's order, for the decode's DPB (frame_rps)
+  // and the header scan's (scan_picture): fn(order count, -1 for a full
+  // count or the mask of its LSBs, used by the current picture, subset: 0
+  // short-term before, 1 short-term after, 2 long-term)
+  template <class F>
+  void rps_entries(const Slice& s, const Sps& q, F&& fn) const {
+    for (int i = 0; i < s.st.num_delta; ++i)
+      fn(poc + s.st.delta[i], -1, s.st.used[i], i < s.st.num_negative ? 0 : 1);
+    for (int i = 0; i < s.num_lt; ++i)
+      fn(s.lt_poc[i], s.lt_msb[i] ? -1 : (1 << q.log2_max_poc_lsb) - 1, s.lt_used[i], 2);
+  }
+
+  // whether the DPB picture (order count, sequence) is the one an RPS entry
+  // names: the sequence being decoded (never a generated picture), the full
+  // count, or its LSBs in a picture other than the current one
+  bool rps_names(int f_poc, int f_seq, int want, int mask) const {
+    return f_seq == seq_ && (f_poc & mask) == want && (mask == -1 || f_poc != poc);
+  }
+
+  std::shared_ptr<Frame> generate(int poc_value) {
+    const Sps& q = *sps;
+    auto f = std::make_shared<Frame>();
+    f->poc = poc_value;
+    f->generated = true;
+    f->sequence = -1;
+    f->px[0].w = q.width;
+    f->px[0].h = q.height;
+    f->px[1].w = f->px[2].w = q.width / 2;
+    f->px[1].h = f->px[2].h = q.height / 2;
+    for (auto& pl : f->px) pl.px.assign(size_t(pl.w) * size_t(pl.h), 128);
+    f->lpu = q.log2_min_cb - 1;
+    f->pu_w = q.width >> f->lpu;
+    f->pu_h = q.height >> f->lpu;
+    MvField intra;
+    intra.pred = PF_INTRA;   // ffmpeg's motion here is whatever its pool held: no TMVP reads it
+    f->mvf.assign(size_t(f->pu_w) * size_t(f->pu_h), intra);
+    f->log2_ctb = q.log2_ctb;
+    f->ctb_w = q.ctb_w;
+    f->ctb_slice.assign(size_t(q.ctb_w) * size_t(q.ctb_h), -1);
+    tools |= bit(T_MISSING_REF);
+    dpb_.push_back(f);
+    return f;
+  }
+
+  // a picture the RPS names and the DPB does not hold: generated for an IRAP
+  // picture (its leading pictures' references) and for a Foll entry; a
+  // non-IRAP picture that would predict from one is refused, as ffmpeg
+  // refuses it ("Could not find ref with POC", "Error constructing the frame
+  // RPS") and drops the picture
+  std::shared_ptr<Frame> missing(const Slice& s, int want, bool used) {
+    if (used && !is_irap(s.nal_type))
+      fail("the picture's reference picture set names POC " + std::to_string(want) +
+           " for prediction, which the DPB does not hold (ffmpeg refuses such a picture: \"Error "
+           "constructing the frame RPS\")");
+    return generate(want);
+  }
+
+  void frame_rps(const Slice& s, const Sps& q) {
+    for (auto& l : st_curr_) l.clear();
+    lt_curr_.clear();
+    dpb_.erase(std::remove_if(dpb_.begin(), dpb_.end(),
+                              [](const std::shared_ptr<Frame>& f) { return f->generated; }),
+               dpb_.end());
+    for (auto& f : dpb_) f->ref = 0;
+    if (is_idr(s.nal_type)) {
+      dpb_.clear();
+      return;
+    }
+    rps_entries(s, q, [&](int want, int mask, bool used, int subset) {
+      if (subset == 2 && mask == -1 && want == poc)
+        fail("a long-term reference picture with the current picture's order count");
+      std::shared_ptr<Frame> f;
+      for (auto& g : dpb_)
+        if (rps_names(g->poc, g->sequence, want, mask)) {
+          f = g;
+          break;
+        }
+      if (!f) f = missing(s, want, used);
+      f->ref = subset == 2 ? 2 : 1;
+      if (subset == 2) tools |= bit(T_LONG_TERM_REF);
+      if (used) {
+        auto& l = subset == 2 ? lt_curr_ : st_curr_[subset];
+        if (l.size() >= 16) fail("more than 16 pictures in one reference picture subset");
+        l.push_back(f);
+      }
+    });
+    dpb_.erase(std::remove_if(dpb_.begin(), dpb_.end(),
+                              [](const std::shared_ptr<Frame>& f) { return f->ref == 0; }),
+               dpb_.end());
+    if (dpb_.size() > 32) fail("more than 32 pictures in the DPB");
+  }
+
+  // 8.3.4 as ffmpeg's ff_hevc_slice_rpl: the slice's lists, the collocated
+  // picture, and the lists kept with the picture for TMVP and deblocking
+  void slice_lists(const Slice& s) {
+    slice_idx_ = int(cur_->lists.size());
+    cur_->lists.push_back({});
+    rpl_[0] = rpl_[1] = RefList();
+    col_.reset();
+    if (s.type == 2) return;
+    // the lists come from the picture's RPS, which its first slice gave
+    // (ffmpeg's frame RPS); a slice whose own RPS counts other pictures
+    // would index past them
+    const size_t total = st_curr_[0].size() + st_curr_[1].size() + lt_curr_.size();
+    if (!total)
+      fail("a P or B slice in a picture whose reference picture set holds no picture it may use "
+           "(ffmpeg: \"Zero refs in the frame RPS\")");
+    if (int(total) != s.total)
+      fail("a slice whose reference picture set names " + std::to_string(s.total) +
+           " pictures for prediction where its picture's first slice names " + std::to_string(total));
+    for (int l = 0; l < (s.type == 0 ? 2 : 1); ++l) {
+      const std::vector<std::shared_ptr<Frame>>* order[3] = {&st_curr_[l], &st_curr_[1 - l], &lt_curr_};
+      std::vector<std::pair<std::shared_ptr<Frame>, bool>> tmp;
+      while (int(tmp.size()) < s.num_ref[l])
+        for (int k = 0; k < 3; ++k)
+          for (auto& f : *order[k])
+            if (tmp.size() < 16) tmp.push_back({f, k == 2});
+      for (int i = 0; i < s.num_ref[l]; ++i) {
+        const size_t at = size_t(s.modified[l] ? s.list_entry[l][i] : i);
+        if (at >= tmp.size())
+          fail("list_entry " + std::to_string(at) + " past the " + std::to_string(tmp.size()) +
+               " pictures of the initial list (ffmpeg: \"Invalid reference index\")");
+        const auto& e = tmp[at];
+        const Frame& g = *e.first;
+        if (g.px[0].w != pic_[0].w || g.px[0].h != pic_[0].h || g.lpu != cur_->lpu ||
+            g.log2_ctb != cur_->log2_ctb)
+          fail("a reference picture of another size than the current picture's");
+        refs_[l][i] = e.first;
+        rpl_[l].poc[i] = e.first->poc;
+        rpl_[l].lt[i] = e.second;
+      }
+      rpl_[l].n = s.num_ref[l];
+      cur_->lists.back()[size_t(l)] = rpl_[l];
+    }
+    if (s.tmvp) col_ = refs_[s.col_from_l0 ? 0 : 1][s.col_ref_idx];
+  }
+
+  void pred_weight_table(Bits& b, Slice& s) {
+    s.weighted = true;
+    tools |= bit(s.type == 1 ? T_WEIGHTED_PRED : T_WEIGHTED_BIPRED);
+    s.luma_denom = b.ue_in("luma_log2_weight_denom", 0, 7);
+    s.chroma_denom = s.luma_denom + b.se("delta_chroma_log2_weight_denom");
+    if (s.chroma_denom < 0 || s.chroma_denom > 7) fail("ChromaLog2WeightDenom outside 0..7");
+    for (int l = 0; l < (s.type == 0 ? 2 : 1); ++l) {
+      bool luma[16], chroma[16];
+      for (int i = 0; i < s.num_ref[l]; ++i) luma[i] = b.flag("luma_weight_flag");
+      for (int i = 0; i < s.num_ref[l]; ++i) chroma[i] = b.flag("chroma_weight_flag");
+      for (int i = 0; i < s.num_ref[l]; ++i) {
+        s.lw[l][i] = 1 << s.luma_denom;
+        s.lo[l][i] = 0;
+        if (luma[i]) {
+          s.lw[l][i] += b.se_in("delta_luma_weight", -128, 127);
+          s.lo[l][i] = b.se_in("luma_offset", -128, 127);
+        }
+        for (int j = 0; j < 2; ++j) {
+          s.cw[l][i][j] = 1 << s.chroma_denom;
+          s.co[l][i][j] = 0;
+          if (!chroma[i]) continue;
+          s.cw[l][i][j] += b.se_in("delta_chroma_weight", -128, 127);
+          const int d = b.se_in("delta_chroma_offset", -512, 511);
+          s.co[l][i][j] = clip3(-128, 127, d - ((128 * s.cw[l][i][j]) >> s.chroma_denom) + 128);
+        }
+      }
+    }
   }
 
   void tile_layout(const Pps& p, const Sps& q) {
@@ -1408,10 +1969,10 @@ class Decoder {
     const int W = q.ctb_w;
     // contexts at the segment's first CTB (9.3.1, as ffmpeg orders the cases)
     const bool tile_start = p.tiles && ts > 0 && tile_id_[size_t(ts)] != tile_id_[size_t(ts - 1)];
-    if (!s.dependent || tile_start) init_contexts(ctx_, s.qp);
+    if (!s.dependent || tile_start) init_contexts(ctx_, s.qp, s.init_type);
     if (p.wpp && s.address % W == 0) {
       if (W == 1)
-        init_contexts(ctx_, s.qp);
+        init_contexts(ctx_, s.qp, s.init_type);
       else if (s.dependent)
         std::memcpy(ctx_, ctx_wpp_, C_COUNT);
     }
@@ -1438,6 +1999,7 @@ class Decoder {
       c.deblock = !s.deblock_disabled;
       c.beta_offset = s.beta_offset;
       c.tc_offset = s.tc_offset;
+      cur_->ctb_slice[size_t(rs)] = slice_idx_;
       cur_ctb_rs_ = rs;
       coding_tree_unit(s, rs);
       ++decoded_ctbs_;
@@ -1455,13 +2017,13 @@ class Decoder {
         if (!cabac_.zero_alignment()) fail("a byte_alignment() bit after a substream is not 0");
         cabac_.start(rbsp.data(), rbsp.size(), cabac_.next_byte());
         if (new_tile) {
-          init_contexts(ctx_, s.qp);
+          init_contexts(ctx_, s.qp, s.init_type);
           first_qg_ = true;
           qp_prev_ = s.qp;
         }
         if (new_row) {
           if (W == 1)
-            init_contexts(ctx_, s.qp);
+            init_contexts(ctx_, s.qp, s.init_type);
           else
             std::memcpy(ctx_, ctx_wpp_, C_COUNT);
           first_qg_ = true;
@@ -1495,7 +2057,7 @@ class Decoder {
       if (in_slice && in_tile) merge_up = cabac_.decision(ctx_[C_SAO_MERGE]);
     }
     if (merge_left || merge_up) {
-      tools |= 1ull << T_SAO_MERGE;
+      tools |= bit(T_SAO_MERGE);
       sp = ctb_[size_t(merge_left ? rs - 1 : rs - W)].sao;
       // a component the slice does not filter stays unfiltered
       if (!s.sao_luma) sp.type[0] = 0;
@@ -1523,12 +2085,12 @@ class Decoder {
         abs[i] = v;
       }
       if (sp.type[c] == 1) {
-        tools |= 1ull << T_SAO_BAND;
+        tools |= bit(T_SAO_BAND);
         for (int i = 0; i < 4; ++i)
           sp.offset[c][i + 1] = (abs[i] && cabac_.bypass()) ? -abs[i] : abs[i];
         sp.band[c] = int(cabac_.bypass_bits(5));
       } else {
-        tools |= 1ull << T_SAO_EDGE;
+        tools |= bit(T_SAO_EDGE);
         sp.offset[c][1] = abs[0];
         sp.offset[c][2] = abs[1];
         sp.offset[c][3] = -abs[2];
@@ -1587,6 +2149,8 @@ class Decoder {
       for (int x = x0; x < x0 + size && x < sps->width; x += 4) m[u4(x, y)] = int8_t(v);
   }
 
+  enum Part { P_2Nx2N, P_2NxN, P_Nx2N, P_NxN, P_2NxnU, P_2NxnD, P_nLx2N, P_nRx2N };
+
   void coding_unit(int x0, int y0, int log2, int depth) {
     const Sps& q = *sps;
     const Pps& p = *pps;
@@ -1594,7 +2158,10 @@ class Decoder {
     bypass_ = false;
     if (p.transquant_bypass) {
       bypass_ = cabac_.decision(ctx_[C_BYPASS]);
-      if (bypass_) tools |= 1ull << T_BYPASS;
+      if (bypass_) {
+        tools |= bit(T_BYPASS);
+        fill4_u8(nofilter_, x0, y0, size, 1);
+      }
     }
     if (!p.cu_qp_delta) {
       // without cu_qp_delta, every CU takes the slice QP
@@ -1603,19 +2170,96 @@ class Decoder {
       qp_y_ = qg_pred_;
     }
     fill4(depth_, x0, y0, size, depth);
+    bool skip = false;
+    if (sh_.type != 2) {
+      int inc = 0;
+      if (avail(x0, y0, x0 - 1, y0) && skip_[u4(x0 - 1, y0)]) ++inc;
+      if (avail(x0, y0, x0, y0 - 1) && skip_[u4(x0, y0 - 1)]) ++inc;
+      skip = cabac_.decision(ctx_[C_SKIP + inc]);
+    }
+    fill4_u8(skip_, x0, y0, size, skip);
+    cu_intra_ = sh_.type == 2;
+    cu_part_ = P_2Nx2N;
+    if (skip) {
+      tools |= bit(T_SKIP);
+      cu_intra_ = false;
+      fill4(ipm_, x0, y0, size, 1);
+      prediction_unit(x0, y0, size, x0, y0, size, size, 0, depth, true);
+      boundary_strengths(x0, y0, size);
+      fill4(qp_, x0, y0, size, qp_y_);
+      qp_prev_ = qp_y_;
+      return;
+    }
+    if (sh_.type != 2) cu_intra_ = cabac_.decision(ctx_[C_PRED_MODE]);
     bool nxn = false;
-    if (log2 == q.log2_min_cb) nxn = !cabac_.decision(ctx_[C_PART]);
-    if (nxn && log2 <= q.log2_min_tb) fail("an NxN intra CU whose blocks are below the minimum TB");
+    if (cu_intra_) {
+      mark_intra(x0, y0, size);
+      if (log2 == q.log2_min_cb) nxn = !cabac_.decision(ctx_[C_PART]);
+      if (nxn && log2 <= q.log2_min_tb) fail("an NxN intra CU whose blocks are below the minimum TB");
+      cu_part_ = nxn ? P_NxN : P_2Nx2N;
+    } else {
+      cu_part_ = part_mode(log2);
+      fill4(ipm_, x0, y0, size, 1);
+      const int h = size / 2, qs = size / 4;
+      switch (cu_part_) {
+        case P_2Nx2N:
+          prediction_unit(x0, y0, size, x0, y0, size, size, 0, depth, false);
+          break;
+        case P_2NxN:
+          prediction_unit(x0, y0, size, x0, y0, size, h, 0, depth, false);
+          prediction_unit(x0, y0, size, x0, y0 + h, size, h, 1, depth, false);
+          break;
+        case P_Nx2N:
+          prediction_unit(x0, y0, size, x0, y0, h, size, 0, depth, false);
+          prediction_unit(x0, y0, size, x0 + h, y0, h, size, 1, depth, false);
+          break;
+        case P_2NxnU:
+          prediction_unit(x0, y0, size, x0, y0, size, qs, 0, depth, false);
+          prediction_unit(x0, y0, size, x0, y0 + qs, size, size - qs, 1, depth, false);
+          break;
+        case P_2NxnD:
+          prediction_unit(x0, y0, size, x0, y0, size, size - qs, 0, depth, false);
+          prediction_unit(x0, y0, size, x0, y0 + size - qs, size, qs, 1, depth, false);
+          break;
+        case P_nLx2N:
+          prediction_unit(x0, y0, size, x0, y0, qs, size, 0, depth, false);
+          prediction_unit(x0, y0, size, x0 + qs, y0, size - qs, size, 1, depth, false);
+          break;
+        case P_nRx2N:
+          prediction_unit(x0, y0, size, x0, y0, size - qs, size, 0, depth, false);
+          prediction_unit(x0, y0, size, x0 + size - qs, y0, qs, size, 1, depth, false);
+          break;
+        default:
+          prediction_unit(x0, y0, size, x0, y0, h, h, 0, depth, false);
+          prediction_unit(x0, y0, size, x0 + h, y0, h, h, 1, depth, false);
+          prediction_unit(x0, y0, size, x0, y0 + h, h, h, 2, depth, false);
+          prediction_unit(x0, y0, size, x0 + h, y0 + h, h, h, 3, depth, false);
+          break;
+      }
+      bool root = true;
+      if (!(cu_part_ == P_2Nx2N && merge_flag_)) root = cabac_.decision(ctx_[C_RQT_ROOT]);
+      if (!root) {
+        tools |= bit(T_NO_RESIDUAL);
+        boundary_strengths(x0, y0, size);
+        fill4(qp_, x0, y0, size, qp_y_);
+        qp_prev_ = qp_y_;
+        return;
+      }
+      transform_tree(x0, y0, x0, y0, log2, 0, 0, q.max_th_depth_inter, false, x0, y0, log2, true,
+                     true);
+      fill4(qp_, x0, y0, size, qp_y_);
+      qp_prev_ = qp_y_;
+      return;
+    }
     bool pcm = false;
     if (!nxn && q.pcm && log2 >= q.log2_min_pcm && log2 <= q.log2_max_pcm) pcm = cabac_.terminate();
     if (pcm) {
-      tools |= 1ull << T_PCM;
+      tools |= bit(T_PCM);
       fill4(ipm_, x0, y0, size, 1);
       pcm_sample(x0, y0, log2);
       if (q.pcm_loop_filter_disabled) fill4_u8(nofilter_, x0, y0, size, 1);
-      if (bypass_) fill4_u8(nofilter_, x0, y0, size, 1);
       fill4(qp_, x0, y0, size, qp_y_);
-      mark_edges(x0, y0, size);
+      boundary_strengths(x0, y0, size);
       qp_prev_ = qp_y_;
       return;
     }
@@ -1640,25 +2284,554 @@ class Decoder {
           if (mode >= cand[k]) ++mode;
       }
       fill4(ipm_, xp, yp, pb, mode);
-      tools |= 1ull << (mode == 0 ? T_PLANAR : mode == 1 ? T_DC : T_ANGULAR);
+      tools |= bit(mode == 0 ? T_PLANAR : mode == 1 ? T_DC : T_ANGULAR);
     }
-    if (nxn) tools |= 1ull << T_INTRA_NXN;
+    if (nxn) tools |= bit(T_INTRA_NXN);
     int chroma_mode;
     const int luma0 = ipm_[u4(x0, y0)];
     if (!cabac_.decision(ctx_[C_CHROMA_MODE])) {
       chroma_mode = luma0;
-      tools |= 1ull << T_CHROMA_DM;
+      tools |= bit(T_CHROMA_DM);
     } else {
       const int v = int(cabac_.bypass_bits(2));
       const int modes[4] = {0, 26, 10, 1};
       chroma_mode = modes[v] == luma0 ? 34 : modes[v];
     }
     chroma_mode_ = chroma_mode;
-    if (bypass_) fill4_u8(nofilter_, x0, y0, size, 1);
     const int max_depth = q.max_th_depth_intra + (nxn ? 1 : 0);
     transform_tree(x0, y0, x0, y0, log2, 0, 0, max_depth, nxn, x0, y0, log2, true, true);
     fill4(qp_, x0, y0, size, qp_y_);
     qp_prev_ = qp_y_;
+  }
+
+  // the CU's minimum prediction blocks read as intra (ffmpeg: at least one)
+  void mark_intra(int x0, int y0, int size) {
+    Frame& f = *cur_;
+    const int n = std::max(1, size >> f.lpu), xp = x0 >> f.lpu, yp = y0 >> f.lpu;
+    for (int j = 0; j < n && yp + j < f.pu_h; ++j)
+      for (int i = 0; i < n && xp + i < f.pu_w; ++i) f.mvf[size_t(yp + j) * size_t(f.pu_w) + size_t(xp + i)].pred = PF_INTRA;
+  }
+
+  // part_mode of an inter CU (Table 9-43, with ffmpeg's context for the AMP bin)
+  int part_mode(int log2) {
+    const Sps& q = *sps;
+    if (cabac_.decision(ctx_[C_PART])) return P_2Nx2N;
+    if (log2 == q.log2_min_cb) {
+      if (cabac_.decision(ctx_[C_PART_INTER])) return P_2NxN;
+      if (log2 == 3) return P_Nx2N;
+      if (cabac_.decision(ctx_[C_PART_INTER + 1])) return P_Nx2N;
+      tools |= bit(T_INTER_NXN);
+      return P_NxN;
+    }
+    if (!q.amp) return cabac_.decision(ctx_[C_PART_INTER]) ? P_2NxN : P_Nx2N;
+    if (cabac_.decision(ctx_[C_PART_INTER])) {
+      if (cabac_.decision(ctx_[C_PART_INTER + 2])) return P_2NxN;
+      tools |= bit(T_AMP);
+      return cabac_.bypass() ? P_2NxnD : P_2NxnU;
+    }
+    if (cabac_.decision(ctx_[C_PART_INTER + 2])) return P_Nx2N;
+    tools |= bit(T_AMP);
+    return cabac_.bypass() ? P_nRx2N : P_nLx2N;
+  }
+
+  // ----------------------------------------------------- prediction unit --
+  bool merge_flag_ = false;
+
+  const MvField& mvf_at(int x, int y) const { return cur_->at(x, y); }
+
+  // 6.4.2: the prediction block at (xn, yn) is available to the one at
+  // (xp, yp) of the CB at (xc, yc), and not intra
+  bool avail_pb(int xc, int yc, int ncs, int xp, int yp, int w, int h, int part, int xn, int yn) const {
+    bool ok;
+    const bool same_cb = xc <= xn && xn < xc + ncs && yc <= yn && yn < yc + ncs;
+    if (!same_cb)
+      ok = avail(xp, yp, xn, yn);
+    else
+      ok = !((w << 1) == ncs && (h << 1) == ncs && part == 1 && yc + h <= yn && xc + w > xn);
+    return ok && mvf_at(xn, yn).pred != PF_INTRA;
+  }
+
+  static bool same_motion(const MvField& a, const MvField& b) {
+    if (a.pred != b.pred) return false;
+    if (a.pred == PF_BI)
+      return a.mv[0] == b.mv[0] && a.mv[1] == b.mv[1] && a.ref_idx[0] == b.ref_idx[0] &&
+             a.ref_idx[1] == b.ref_idx[1];
+    if (a.pred == PF_L0) return a.mv[0] == b.mv[0] && a.ref_idx[0] == b.ref_idx[0];
+    if (a.pred == PF_L1) return a.mv[1] == b.mv[1] && a.ref_idx[1] == b.ref_idx[1];
+    return false;
+  }
+
+  static Mv scale_mv(Mv mv, int td, int tb) {
+    td = clip3(-128, 127, td);
+    tb = clip3(-128, 127, tb);
+    const int tx = (16384 + std::abs(td / 2)) / td;
+    const int f = clip3(-4096, 4095, (tb * tx + 32) >> 6);
+    auto one = [&](int v) {
+      const int p = f * v;
+      return int16_t(clip3(-32768, 32767, (p + 127 + (p < 0)) >> 8));
+    };
+    return Mv{one(mv.x), one(mv.y)};
+  }
+
+  // 8.5.3.2.8 as ffmpeg's temporal_luma_motion_vector
+  bool temporal_mv(int x0, int y0, int w, int h, int ref_idx, int X, Mv& out) {
+    out = Mv();
+    if (!col_) return false;
+    const Frame& col = *col_;
+    const Sps& q = *sps;
+    int x = x0 + w, y = y0 + h;
+    bool ok = false;
+    if ((y0 >> q.log2_ctb) == (y >> q.log2_ctb) && y < q.height && x < q.width)
+      ok = collocated(col, x & ~15, y & ~15, ref_idx, X, out);
+    if (!ok) ok = collocated(col, (x0 + (w >> 1)) & ~15, (y0 + (h >> 1)) & ~15, ref_idx, X, out);
+    if (ok) tools |= bit(T_TMVP);
+    return ok;
+  }
+
+  bool collocated(const Frame& col, int x, int y, int ref_idx, int X, Mv& out) {
+    const MvField& t = col.at(x, y);
+    if (t.pred == PF_INTRA || !t.pred) return false;
+    const RefList* lc = col.lists_at(x, y);
+    if (!lc) return false;
+    int l;
+    if (!(t.pred & PF_L0)) {
+      l = 1;
+    } else if (t.pred == PF_L0) {
+      l = 0;
+    } else {
+      bool later = false;   // a picture of either list after the current one (NoBackwardPredFlag 0)
+      for (int j = 0; j < 2; ++j)
+        for (int i = 0; i < rpl_[j].n; ++i) later |= rpl_[j].poc[i] > poc;
+      l = !later ? X : (sh_.col_from_l0 ? 1 : 0);
+    }
+    const int ri = t.ref_idx[l];
+    if (ri < 0 || ri >= lc[l].n) return false;
+    const bool cur_lt = rpl_[X].lt[ref_idx], col_lt = lc[l].lt[ri];
+    if (cur_lt != col_lt) {
+      out = Mv();
+      return false;
+    }
+    const int col_diff = col.poc - lc[l].poc[ri], cur_diff = poc - rpl_[X].poc[ref_idx];
+    if (cur_lt || col_diff == cur_diff || !col_diff)
+      out = t.mv[l];
+    else
+      out = scale_mv(t.mv[l], col_diff, cur_diff);
+    return true;
+  }
+
+  // 8.5.3.2.2-5: the merge candidate merge_idx, as ffmpeg builds the list
+  MvField merge(int xc, int yc, int ncs, int x0, int y0, int w, int h, int part, int idx) {
+    const int ow = w, oh = h;
+    const int pm = pps->log2_par_mrg;
+    const bool single = pm > 2 && ncs == 8;
+    if (single) {
+      x0 = xc;
+      y0 = yc;
+      w = h = ncs;
+      part = 0;
+      tools |= bit(T_PARALLEL_MERGE);
+    }
+    auto diff_mer = [&](int xn, int yn) { return (x0 >> pm) == (xn >> pm) && (y0 >> pm) == (yn >> pm); };
+    auto av = [&](int xn, int yn) { return avail_pb(xc, yc, ncs, x0, y0, w, h, part, xn, yn); };
+    MvField cand[5];
+    int n = 0;
+    const int max = sh_.max_merge;
+    const int xa1 = x0 - 1, ya1 = y0 + h - 1, xb1 = x0 + w - 1, yb1 = y0 - 1;
+    const bool vertical = cu_part_ == P_Nx2N || cu_part_ == P_nLx2N || cu_part_ == P_nRx2N;
+    const bool horizontal = cu_part_ == P_2NxN || cu_part_ == P_2NxnU || cu_part_ == P_2NxnD;
+    const bool a1 = !((!single && part == 1 && vertical) || diff_mer(xa1, ya1)) && av(xa1, ya1);
+    if (a1) cand[n++] = mvf_at(xa1, ya1);
+    const bool b1 = !((!single && part == 1 && horizontal) || diff_mer(xb1, yb1)) && av(xb1, yb1);
+    if (b1 && !(a1 && same_motion(mvf_at(xb1, yb1), mvf_at(xa1, ya1)))) cand[n++] = mvf_at(xb1, yb1);
+    const int xb0 = x0 + w, yb0 = y0 - 1;
+    const bool b0 = av(xb0, yb0) && !diff_mer(xb0, yb0);
+    if (b0 && !(b1 && same_motion(mvf_at(xb0, yb0), mvf_at(xb1, yb1)))) cand[n++] = mvf_at(xb0, yb0);
+    const int xa0 = x0 - 1, ya0 = y0 + h;
+    const bool a0 = av(xa0, ya0) && !diff_mer(xa0, ya0);
+    if (a0 && !(a1 && same_motion(mvf_at(xa0, ya0), mvf_at(xa1, ya1)))) cand[n++] = mvf_at(xa0, ya0);
+    const int xb2 = x0 - 1, yb2 = y0 - 1;
+    const bool b2 = av(xb2, yb2) && !diff_mer(xb2, yb2);
+    if (b2 && !(a1 && same_motion(mvf_at(xb2, yb2), mvf_at(xa1, ya1))) &&
+        !(b1 && same_motion(mvf_at(xb2, yb2), mvf_at(xb1, yb1))) && n != 4)
+      cand[n++] = mvf_at(xb2, yb2);
+    n = std::min(n, max);
+    if (sh_.tmvp && n < max && n <= idx) {
+      MvField t;
+      const bool l0 = temporal_mv(x0, y0, w, h, 0, 0, t.mv[0]);
+      const bool l1 = sh_.type == 0 && temporal_mv(x0, y0, w, h, 0, 1, t.mv[1]);
+      if (l0 || l1) {
+        t.pred = uint8_t(l0 + (l1 << 1));
+        t.ref_idx[0] = t.ref_idx[1] = 0;
+        cand[n++] = t;
+      }
+    }
+    const int orig = n;
+    if (sh_.type == 0 && orig > 1 && orig < max && n <= idx) {
+      static const int kComb[12][2] = {{0, 1}, {1, 0}, {0, 2}, {2, 0}, {1, 2}, {2, 1},
+                                       {0, 3}, {3, 0}, {1, 3}, {3, 1}, {2, 3}, {3, 2}};
+      for (int c = 0; n < max && c < orig * (orig - 1); ++c) {
+        const MvField& p0 = cand[kComb[c][0]];
+        const MvField& p1 = cand[kComb[c][1]];
+        if ((p0.pred & PF_L0) && (p1.pred & PF_L1) &&
+            (rpl_[0].poc[p0.ref_idx[0]] != rpl_[1].poc[p1.ref_idx[1]] || p0.mv[0] != p1.mv[1])) {
+          MvField m;
+          m.pred = PF_BI;
+          m.ref_idx[0] = p0.ref_idx[0];
+          m.ref_idx[1] = p1.ref_idx[1];
+          m.mv[0] = p0.mv[0];
+          m.mv[1] = p1.mv[1];
+          cand[n++] = m;
+        }
+      }
+    }
+    const int refs = sh_.type == 1 ? sh_.num_ref[0] : std::min(sh_.num_ref[0], sh_.num_ref[1]);
+    for (int zero = 0; n < max; ++zero) {
+      MvField m;
+      m.pred = sh_.type == 0 ? PF_BI : PF_L0;
+      m.ref_idx[0] = int8_t(zero < refs ? zero : 0);
+      m.ref_idx[1] = sh_.type == 0 ? m.ref_idx[0] : int8_t(-1);
+      cand[n++] = m;
+    }
+    MvField out = cand[idx];
+    if (out.pred == PF_BI && ow + oh == 12) {
+      out.pred = PF_L0;
+      tools |= bit(T_BI_TO_UNI);
+    }
+    return out;
+  }
+
+  // 8.5.3.2.6-7: the motion vector predictor mvp_flag of list X, as ffmpeg
+  // derives it (spatial A and B with scaling, then the temporal one)
+  Mv amvp(int xc, int yc, int ncs, int x0, int y0, int w, int h, int part, int X, int ref_idx,
+          int mvp_flag) {
+    auto av = [&](int xn, int yn) { return avail_pb(xc, yc, ncs, x0, y0, w, h, part, xn, yn); };
+    const int target = rpl_[X].poc[ref_idx];
+    const bool target_lt = rpl_[X].lt[ref_idx];
+    auto mx = [&](const MvField& f, int l, Mv& out) {
+      if ((f.pred & (1 << l)) && rpl_[l].poc[f.ref_idx[l]] == target) {
+        out = f.mv[l];
+        return true;
+      }
+      return false;
+    };
+    auto mx_lt = [&](const MvField& f, int l, Mv& out) {
+      if (!(f.pred & (1 << l))) return false;
+      if (rpl_[l].lt[f.ref_idx[l]] != target_lt) return false;
+      out = f.mv[l];
+      const int rp = rpl_[l].poc[f.ref_idx[l]];
+      if (!target_lt && rp != target) {
+        int td = poc - rp;
+        if (!td) td = 1;
+        out = scale_mv(out, td, poc - target);
+      }
+      return true;
+    };
+    const int xa0 = x0 - 1, ya0 = y0 + h, xa1 = x0 - 1, ya1 = y0 + h - 1;
+    const bool a0 = av(xa0, ya0), a1 = av(xa1, ya1);
+    const bool scaled = a0 || a1;
+    Mv ma, mb;
+    bool fa = false, fb = false;
+    const MvField* A[2] = {a0 ? &mvf_at(xa0, ya0) : nullptr, a1 ? &mvf_at(xa1, ya1) : nullptr};
+    for (int k = 0; k < 2 && !fa; ++k)
+      if (A[k]) fa = mx(*A[k], X, ma) || mx(*A[k], 1 - X, ma);
+    for (int k = 0; k < 2 && !fa; ++k)
+      if (A[k]) fa = mx_lt(*A[k], X, ma) || mx_lt(*A[k], 1 - X, ma);
+    const int xb0 = x0 + w, yb0 = y0 - 1, xb1 = x0 + w - 1, yb1 = y0 - 1, xb2 = x0 - 1, yb2 = y0 - 1;
+    const MvField* B[3] = {av(xb0, yb0) ? &mvf_at(xb0, yb0) : nullptr,
+                           av(xb1, yb1) ? &mvf_at(xb1, yb1) : nullptr,
+                           av(xb2, yb2) ? &mvf_at(xb2, yb2) : nullptr};
+    for (int k = 0; k < 3 && !fb; ++k)
+      if (B[k]) fb = mx(*B[k], X, mb) || mx(*B[k], 1 - X, mb);
+    if (!scaled) {
+      if (fb) {
+        fa = true;
+        ma = mb;
+      }
+      fb = false;
+      for (int k = 0; k < 3 && !fb; ++k)
+        if (B[k]) fb = mx_lt(*B[k], X, mb) || mx_lt(*B[k], 1 - X, mb);
+    }
+    Mv list[2];
+    int n = 0;
+    if (fa) list[n++] = ma;
+    if (fb && (!fa || ma != mb)) list[n++] = mb;
+    if (n < 2 && sh_.tmvp && mvp_flag == n) {
+      Mv t;
+      if (temporal_mv(x0, y0, w, h, ref_idx, X, t)) list[n++] = t;
+    }
+    return mvp_flag < n ? list[mvp_flag] : Mv();
+  }
+
+  void mvd(int& dx, int& dy) {
+    int v[2];
+    v[0] = cabac_.decision(ctx_[C_MVD_GT0]);
+    v[1] = cabac_.decision(ctx_[C_MVD_GT0]);
+    for (int k = 0; k < 2; ++k)
+      if (v[k]) v[k] += cabac_.decision(ctx_[C_MVD_GT1]);
+    int out[2];
+    for (int k = 0; k < 2; ++k) {
+      if (!v[k]) {
+        out[k] = 0;
+        continue;
+      }
+      int a = 1;
+      if (v[k] == 2) {   // abs_mvd_minus2: EG1
+        a = 2;
+        int e = 1;
+        while (cabac_.bypass()) {
+          a += 1 << e;
+          if (++e > 30) fail("a malformed abs_mvd_minus2");
+        }
+        a += int(cabac_.bypass_bits(e));
+      }
+      out[k] = cabac_.bypass() ? -a : a;
+    }
+    dx = out[0];
+    dy = out[1];
+  }
+
+  int ref_idx(int num) {
+    int i = 0;
+    const int max = num - 1, max_ctx = std::min(max, 2);
+    while (i < max_ctx && cabac_.decision(ctx_[C_REF_IDX + i])) ++i;
+    if (i == 2)
+      while (i < max && cabac_.bypass()) ++i;
+    return i;
+  }
+
+  // prediction_unit (7.3.8.6): its motion, stored as ffmpeg stores it (whole
+  // minimum prediction blocks), then its samples
+  void prediction_unit(int xc, int yc, int ncs, int x0, int y0, int w, int h, int part, int depth,
+                       bool skip) {
+    MvField mv;
+    merge_flag_ = skip || cabac_.decision(ctx_[C_MERGE_FLAG]);
+    if (merge_flag_) {
+      int idx = 0;
+      if (sh_.max_merge > 1 && cabac_.decision(ctx_[C_MERGE_IDX])) {
+        idx = 1;
+        while (idx < sh_.max_merge - 1 && cabac_.bypass()) ++idx;
+      }
+      tools |= bit(T_MERGE);
+      mv = merge(xc, yc, ncs, x0, y0, w, h, part, idx);
+    } else {
+      tools |= bit(T_AMVP);
+      int idc = 0;   // PRED_L0, PRED_L1, PRED_BI
+      if (sh_.type == 0) {
+        if (w + h == 12)
+          idc = cabac_.decision(ctx_[C_INTER_PRED + 4]);
+        else if (cabac_.decision(ctx_[C_INTER_PRED + depth]))
+          idc = 2;
+        else
+          idc = cabac_.decision(ctx_[C_INTER_PRED + 4]);
+      }
+      for (int X = 0; X < 2; ++X) {
+        if (idc == 1 - X) continue;   // PRED_L1 skips list 0, PRED_L0 list 1
+        mv.ref_idx[X] = int8_t(sh_.num_ref[X] > 1 ? ref_idx(sh_.num_ref[X]) : 0);
+        int dx = 0, dy = 0;
+        if (X == 1 && sh_.mvd_l1_zero && idc == 2)
+          ;   // MvdL1 is zero
+        else
+          mvd(dx, dy);
+        const int flag = cabac_.decision(ctx_[C_MVP]);
+        mv.pred |= uint8_t(1 << X);
+        const Mv p = amvp(xc, yc, ncs, x0, y0, w, h, part, X, mv.ref_idx[X], flag);
+        mv.mv[X].x = int16_t(uint16_t(p.x + dx));   // the 16-bit wrap of mvpLX + mvdLX
+        mv.mv[X].y = int16_t(uint16_t(p.y + dy));
+      }
+    }
+    if (mv.pred == PF_BI) tools |= bit(T_BI_PRED);
+    for (int X = 0; X < 2; ++X)
+      if ((mv.pred & (1 << X)) && (mv.ref_idx[X] >= sh_.num_ref[X] || !refs_[X][mv.ref_idx[X]]))
+        fail("a prediction block refers to a reference index past its list");
+    Frame& f = *cur_;
+    const int xp = x0 >> f.lpu, yp = y0 >> f.lpu;
+    for (int j = 0; j < (h >> f.lpu); ++j)
+      for (int i = 0; i < (w >> f.lpu); ++i) f.mvf[size_t(yp + j) * size_t(f.pu_w) + size_t(xp + i)] = mv;
+    motion_compensate(mv, x0, y0, w, h);
+  }
+
+  // ----------------------------------------------- sample prediction ----
+  // 8.5.3.3.3: the luma and chroma samples of one list at 14 bits, the
+  // reference read with its edges replicated (xInt, yInt clipped)
+  void predict(const Frame& ref, int c, int x0, int y0, int w, int h, Mv mv, int* dst) {
+    const Plane& pl = ref.px[c];
+    const int W = pl.w, H = pl.h;
+    int fx, fy, xi, yi, taps;
+    const int* fh;
+    const int* fv;
+    if (c == 0) {
+      fx = mv.x & 3;
+      fy = mv.y & 3;
+      xi = x0 + (mv.x >> 2);
+      yi = y0 + (mv.y >> 2);
+      taps = 8;
+      fh = kLumaFilter[fx];
+      fv = kLumaFilter[fy];
+    } else {
+      fx = mv.x & 7;
+      fy = mv.y & 7;
+      xi = x0 + (mv.x >> 3);
+      yi = y0 + (mv.y >> 3);
+      taps = 4;
+      fh = kChromaFilter[fx];
+      fv = kChromaFilter[fy];
+    }
+    const int before = taps / 2 - 1;   // 3 (luma) or 1 (chroma)
+    const int xs = xi - before, ys = yi - before;
+    const int bw = w + taps - 1, bh = h + taps - 1;
+    if (xs < 0 || ys < 0 || xs + bw > W || ys + bh > H) tools |= bit(T_MV_OUTSIDE);
+    // the block and its filter margin, edges replicated
+    static thread_local std::vector<int> src;
+    src.resize(size_t(bw) * size_t(bh));
+    for (int y = 0; y < bh; ++y) {
+      const int sy = clip3(0, H - 1, ys + y);
+      const uint8_t* row = &pl.px[size_t(sy) * size_t(W)];
+      int* out = &src[size_t(y) * size_t(bw)];
+      if (xs >= 0 && xs + bw <= W) {
+        for (int x = 0; x < bw; ++x) out[x] = row[xs + x];
+      } else {
+        for (int x = 0; x < bw; ++x) out[x] = row[clip3(0, W - 1, xs + x)];
+      }
+    }
+    auto S = [&](int x, int y) { return src[size_t(y) * size_t(bw) + size_t(x)]; };
+    if (!fx && !fy) {
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) dst[y * w + x] = S(x + before, y + before) << 6;
+    } else if (!fy) {
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) {
+          int v = 0;
+          for (int k = 0; k < taps; ++k) v += fh[k] * S(x + k, y + before);
+          dst[y * w + x] = v;
+        }
+    } else if (!fx) {
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) {
+          int v = 0;
+          for (int k = 0; k < taps; ++k) v += fv[k] * S(x + before, y + k);
+          dst[y * w + x] = v;
+        }
+    } else {
+      static thread_local std::vector<int> tmp;
+      tmp.resize(size_t(w) * size_t(bh));
+      for (int y = 0; y < bh; ++y)
+        for (int x = 0; x < w; ++x) {
+          int v = 0;
+          for (int k = 0; k < taps; ++k) v += fh[k] * S(x + k, y);
+          tmp[size_t(y) * size_t(w) + size_t(x)] = v;
+        }
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) {
+          int v = 0;
+          for (int k = 0; k < taps; ++k) v += fv[k] * tmp[size_t(y + k) * size_t(w) + size_t(x)];
+          dst[y * w + x] = v >> 6;
+        }
+    }
+  }
+
+  // 8.5.3.3.4: default or explicit weighting of the lists' samples into the picture
+  void motion_compensate(const MvField& mv, int x0, int y0, int w, int h) {
+    const Slice& s = sh_;
+    for (int c = 0; c < 3; ++c) {
+      const int sh = c ? 1 : 0;
+      const int xc = x0 >> sh, yc = y0 >> sh, wc = w >> sh, hc = h >> sh;
+      for (int X = 0; X < 2; ++X)
+        if (mv.pred & (1 << X)) predict(*refs_[X][mv.ref_idx[X]], c, xc, yc, wc, hc, mv.mv[X], pred_[X]);
+      Plane& pl = pic_[c];
+      const bool bi = mv.pred == PF_BI;
+      const int X = mv.pred == PF_L1 ? 1 : 0;
+      if (!s.weighted) {
+        for (int y = 0; y < hc; ++y)
+          for (int x = 0; x < wc; ++x) {
+            const int k = y * wc + x;
+            pl.at(xc + x, yc + y) = bi ? clip1((pred_[0][k] + pred_[1][k] + 64) >> 7)
+                                       : clip1((pred_[X][k] + 32) >> 6);
+          }
+        continue;
+      }
+      const int denom = (c ? s.chroma_denom : s.luma_denom) + 6;   // log2WD
+      auto weight = [&](int l) { return c ? s.cw[l][mv.ref_idx[l]][c - 1] : s.lw[l][mv.ref_idx[l]]; };
+      auto offset = [&](int l) { return c ? s.co[l][mv.ref_idx[l]][c - 1] : s.lo[l][mv.ref_idx[l]]; };
+      if (bi) {
+        const int w0 = weight(0), w1 = weight(1), o = (offset(0) + offset(1) + 1) * (1 << denom);
+        for (int y = 0; y < hc; ++y)
+          for (int x = 0; x < wc; ++x) {
+            const int k = y * wc + x;
+            pl.at(xc + x, yc + y) = clip1((pred_[0][k] * w0 + pred_[1][k] * w1 + o) >> (denom + 1));
+          }
+      } else {
+        const int w0 = weight(X), o = offset(X), round = 1 << (denom - 1);
+        for (int y = 0; y < hc; ++y)
+          for (int x = 0; x < wc; ++x)
+            pl.at(xc + x, yc + y) = clip1(((pred_[X][y * wc + x] * w0 + round) >> denom) + o);
+      }
+    }
+  }
+
+  // --------------------------------------------------------- deblocking --
+  // ffmpeg's ff_hevc_deblocking_boundary_strengths for the block (a
+  // transform block, or a CU without residual) at (x0, y0): its top and left
+  // edges on the 8x8 grid (2 by an intra side, 1 by a coded luma block on
+  // either side, else by the motion), and inside an inter block the edges
+  // of the 8x8 grid by the motion
+  static int motion_bs(const MvField& cur, const RefList* cl, const MvField& nb, const RefList* nl) {
+    auto far = [](Mv a, Mv b) { return std::abs(a.x - b.x) >= 4 || std::abs(a.y - b.y) >= 4; };
+    if (!cl || !nl) return 1;
+    if (cur.pred == PF_BI && nb.pred == PF_BI) {
+      const int c0 = cl[0].poc[cur.ref_idx[0]], c1 = cl[1].poc[cur.ref_idx[1]];
+      const int n0 = nl[0].poc[nb.ref_idx[0]], n1 = nl[1].poc[nb.ref_idx[1]];
+      if (c0 == n0 && c0 == c1 && n0 == n1)
+        return (far(nb.mv[0], cur.mv[0]) || far(nb.mv[1], cur.mv[1])) &&
+               (far(nb.mv[1], cur.mv[0]) || far(nb.mv[0], cur.mv[1]));
+      if (n0 == c0 && n1 == c1) return far(nb.mv[0], cur.mv[0]) || far(nb.mv[1], cur.mv[1]);
+      if (n1 == c0 && n0 == c1) return far(nb.mv[1], cur.mv[0]) || far(nb.mv[0], cur.mv[1]);
+      return 1;
+    }
+    if (cur.pred != PF_BI && nb.pred != PF_BI) {
+      const int lc = cur.pred & PF_L0 ? 0 : 1, ln = nb.pred & PF_L0 ? 0 : 1;
+      if (cl[lc].poc[cur.ref_idx[lc]] != nl[ln].poc[nb.ref_idx[ln]]) return 1;
+      return far(cur.mv[lc], nb.mv[ln]);
+    }
+    return 1;
+  }
+
+  void boundary_strengths(int x0, int y0, int n) {
+    if (!ctb_[size_t(cur_ctb_rs_)].deblock) return;
+    const Pps& p = *pps;
+    const int ctb_mask = (1 << sps->log2_ctb) - 1;
+    bool left = x0 > 0 && !(x0 & 7), top = y0 > 0 && !(y0 & 7);
+    if (left && !(x0 & ctb_mask)) {
+      const int nb = ctb_rs_of(x0 - 1, y0);
+      if (!sh_cur_lf_across() && ctb_[size_t(nb)].slice_addr != cur_slice_addr_) left = false;
+      if (!p.lf_across_tiles && tile_of_rs(nb) != tile_of_rs(cur_ctb_rs_)) left = false;
+    }
+    if (top && !(y0 & ctb_mask)) {
+      const int nb = ctb_rs_of(x0, y0 - 1);
+      if (!sh_cur_lf_across() && ctb_[size_t(nb)].slice_addr != cur_slice_addr_) top = false;
+      if (!p.lf_across_tiles && tile_of_rs(nb) != tile_of_rs(cur_ctb_rs_)) top = false;
+    }
+    const Frame& f = *cur_;
+    auto edge = [&](int xq, int yq, int xp, int yp) -> uint8_t {
+      const MvField& q = f.at(xq, yq);
+      const MvField& pp = f.at(xp, yp);
+      if (q.pred == PF_INTRA || pp.pred == PF_INTRA) return 2;
+      if (cbf_[u4(xq, yq)] || cbf_[u4(xp, yp)]) return 1;
+      return uint8_t(motion_bs(q, f.lists_at(xq, yq), pp, f.lists_at(xp, yp)));
+    };
+    for (int k = 0; k < n; k += 4) {
+      if (top && x0 + k < sps->width) bs_h_[u4(x0 + k, y0)] = edge(x0 + k, y0, x0 + k, y0 - 1);
+      if (left && y0 + k < sps->height) bs_v_[u4(x0, y0 + k)] = edge(x0, y0 + k, x0 - 1, y0 + k);
+    }
+    if (f.at(x0, y0).pred == PF_INTRA || n <= (1 << f.lpu)) return;
+    const RefList* l = f.lists_at(x0, y0);
+    for (int j = 8; j < n; j += 8)
+      for (int i = 0; i < n; i += 4)
+        bs_h_[u4(x0 + i, y0 + j)] =
+            uint8_t(motion_bs(f.at(x0 + i, y0 + j), l, f.at(x0 + i, y0 + j - 1), l));
+    for (int j = 0; j < n; j += 4)
+      for (int i = 8; i < n; i += 8)
+        bs_v_[u4(x0 + i, y0 + j)] =
+            uint8_t(motion_bs(f.at(x0 + i, y0 + j), l, f.at(x0 + i - 1, y0 + j), l));
   }
   int chroma_mode_ = 0;
 
@@ -1714,27 +2887,6 @@ class Decoder {
     cabac_.start(d.data(), d.size(), (pos + 7) >> 3);
   }
 
-  // the left and top edges of a block on the 8x8 grid, for deblocking (bS 2: intra)
-  void mark_edges(int x0, int y0, int size) {
-    if (!ctb_[size_t(cur_ctb_rs_)].deblock) return;
-    const Pps& p = *pps;
-    const int ctb_mask = (1 << sps->log2_ctb) - 1;
-    bool left = x0 > 0 && !(x0 & 7), top = y0 > 0 && !(y0 & 7);
-    if (left && !(x0 & ctb_mask)) {
-      const int nb = ctb_rs_of(x0 - 1, y0);
-      if (!sh_cur_lf_across() && ctb_[size_t(nb)].slice_addr != cur_slice_addr_) left = false;
-      if (!p.lf_across_tiles && tile_of_rs(nb) != tile_of_rs(cur_ctb_rs_)) left = false;
-    }
-    if (top && !(y0 & ctb_mask)) {
-      const int nb = ctb_rs_of(x0, y0 - 1);
-      if (!sh_cur_lf_across() && ctb_[size_t(nb)].slice_addr != cur_slice_addr_) top = false;
-      if (!p.lf_across_tiles && tile_of_rs(nb) != tile_of_rs(cur_ctb_rs_)) top = false;
-    }
-    for (int k = 0; k < size; k += 4) {
-      if (left && y0 + k < sps->height) bs_v_[u4(x0, y0 + k)] = 2;
-      if (top && x0 + k < sps->width) bs_h_[u4(x0 + k, y0)] = 2;
-    }
-  }
   bool sh_cur_lf_across() const { return ctb_[size_t(cur_ctb_rs_)].lf_across_slices; }
 
   // ------------------------------------------------------ transform tree --
@@ -1744,8 +2896,9 @@ class Decoder {
     int split;
     if (log2 <= q.log2_max_tb && log2 > q.log2_min_tb && depth < max_depth && !(nxn && depth == 0))
       split = cabac_.decision(ctx_[C_SPLIT_TU + 5 - log2]);
-    else
-      split = log2 > q.log2_max_tb || (nxn && depth == 0);
+    else   // interSplitFlag: an inter CU of several blocks without a transform depth of its own
+      split = log2 > q.log2_max_tb || (nxn && depth == 0) ||
+              (q.max_th_depth_inter == 0 && !cu_intra_ && cu_part_ != P_2Nx2N && depth == 0);
     bool cb = false, cr = false;
     if (log2 > 2) {
       if (depth == 0 || parent_cb) cb = cabac_.decision(ctx_[C_CBF_CHROMA + depth]);
@@ -1762,14 +2915,15 @@ class Decoder {
       transform_tree(x0 + h, y0 + h, x0, y0, log2 - 1, depth + 1, 3, max_depth, nxn, xcu, ycu, log2cu, cb, cr);
       return;
     }
-    const int cbf_luma = cabac_.decision(ctx_[C_CBF_LUMA + (depth == 0 ? 1 : 0)]);
+    int cbf_luma = 1;   // inferred in an inter CU's undivided tree without chroma
+    if (cu_intra_ || depth != 0 || cb || cr) cbf_luma = cabac_.decision(ctx_[C_CBF_LUMA + (depth == 0 ? 1 : 0)]);
     transform_unit(x0, y0, xb, yb, log2, blk, cbf_luma, cb, cr);
   }
 
   void transform_unit(int x0, int y0, int xb, int yb, int log2, int blk, int cbf_luma, bool cb,
                       bool cr) {
     const Pps& p = *pps;
-    tools |= 1ull << (T_TU4 + log2 - 2);
+    tools |= bit(T_TU4 + log2 - 2);
     const bool chroma_here = log2 > 2;
     const bool chroma_blk3 = log2 == 2 && blk == 3;
     const bool cbf_chroma = cb || cr;
@@ -1790,25 +2944,26 @@ class Decoder {
       if (v && cabac_.bypass()) v = -v;
       if (v < -26 || v > 25) fail("CuQpDeltaVal " + std::to_string(v) + " is outside -26..25");
       cu_qp_delta_coded_ = true;
-      if (v) tools |= 1ull << T_CU_QP_DELTA;
+      if (v) tools |= bit(T_CU_QP_DELTA);
       qp_y_ = ((qg_pred_ + v + 52) % 52);
     }
-    // luma: predict, then add the residual
-    const int mode = ipm_[u4(x0, y0)];
+    // luma: predict (intra; an inter CU's prediction is in place), then add the residual
+    const int mode = cu_intra_ ? ipm_[u4(x0, y0)] : -1;
     const int n = 1 << log2;
-    intra_predict(0, x0, y0, n, mode);
+    if (cu_intra_) intra_predict(0, x0, y0, n, mode);
     if (cbf_luma) {
       residual(log2, 0, mode);
       add_residual(0, x0, y0, n);
+      fill4_u8(cbf_, x0, y0, n, 1);
     }
-    mark_edges(x0, y0, n);
+    boundary_strengths(x0, y0, n);
     if (chroma_here || chroma_blk3) {
       const int xc = (chroma_here ? x0 : xb) / 2, yc = (chroma_here ? y0 : yb) / 2;
       const int nc = chroma_here ? n / 2 : 4;
       for (int c = 1; c < 3; ++c) {
-        intra_predict(c, xc, yc, nc, chroma_mode_);
+        if (cu_intra_) intra_predict(c, xc, yc, nc, chroma_mode_);
         if (c == 1 ? cb : cr) {
-          residual(chroma_here ? log2 - 1 : 2, c, chroma_mode_);
+          residual(chroma_here ? log2 - 1 : 2, c, cu_intra_ ? chroma_mode_ : -1);
           add_residual(c, xc, yc, nc);
         }
       }
@@ -1830,7 +2985,7 @@ class Decoder {
     bool ts = false;
     if (p.transform_skip && !bypass_ && log2 == 2) {
       ts = cabac_.decision(ctx_[C_TS + (c ? 1 : 0)]);
-      if (ts) tools |= 1ull << T_TRANSFORM_SKIP;
+      if (ts) tools |= bit(T_TRANSFORM_SKIP);
     }
     // last significant position
     int ctx_off, ctx_shift;
@@ -1855,7 +3010,7 @@ class Decoder {
       ly = (1 << k) * (2 + (py & 1)) + int(cabac_.bypass_bits(k));
     }
     int scan = 0;
-    if (log2 == 2 || (log2 == 3 && c == 0)) {
+    if (pred_mode >= 0 && (log2 == 2 || (log2 == 3 && c == 0))) {
       if (pred_mode >= 6 && pred_mode <= 14) scan = 2;
       else if (pred_mode >= 22 && pred_mode <= 30) scan = 1;
     }
@@ -1977,7 +3132,7 @@ class Decoder {
         const int xc = (xs << 2) + pos[k][0], yc = (ys << 2) + pos[k][1];
         coeffs_[yc * n + xc] = int16_t(clip3(-32768, 32767, v));
       }
-      if (hidden) tools |= 1ull << T_SIGN_HIDING;
+      if (hidden) tools |= bit(T_SIGN_HIDING);
     }
     // reconstruct the residual into res_
     if (bypass_) {
@@ -1989,7 +3144,7 @@ class Decoder {
     const int64_t scale = int64_t(kLevelScale[qp % 6]) << (qp / 6);
     const bool lists = q.scaling_list_enabled && !(ts && log2 > 2);
     const ScalingList& sl = p.scaling_present ? p.scaling : q.scaling;
-    const int matrix = c;   // intra: matrixId = cIdx
+    const int matrix = pred_mode >= 0 ? c : 3 + c;   // matrixId: cIdx, 3 + cIdx inter
     for (int y = 0; y < n; ++y)
       for (int x = 0; x < n; ++x) {
         const int lv = coeffs_[y * n + x];
@@ -2012,7 +3167,7 @@ class Decoder {
       for (int k = 0; k < n * n; ++k) res_[k] = (coeffs_[k] + 16) >> 5;   // (d << 7) >> 12, rounded
       return;
     }
-    inverse_transform(n, c == 0 && n == 4);
+    inverse_transform(n, c == 0 && n == 4 && pred_mode >= 0);
   }
 
   // ScalingFactor: the list entry at (x, y) of a size x size list in diagonal order
@@ -2079,15 +3234,25 @@ class Decoder {
     int left[129], top[129];
     bool al[129], at[129];
     int any = 0;
+    // constrained_intra_pred: samples of inter-coded blocks are unavailable too
+    const bool cip = pps->constrained_intra;
+    auto usable = [&](int xn, int yn) {
+      if (!avail(xl, yl, xn, yn)) return false;
+      if (cip && cur_->at(xn, yn).pred != PF_INTRA) {
+        tools |= bit(T_CIP_INTER);
+        return false;
+      }
+      return true;
+    };
     for (int i = 0; i <= 2 * n; ++i) {
       const int y = y0 - 1 + i;
-      al[i] = avail(xl, yl, (x0 - 1) * (1 << sh), y * (1 << sh));
+      al[i] = usable((x0 - 1) * (1 << sh), y * (1 << sh));
       if (al[i]) {
         left[i] = pl.at(x0 - 1, y);
         ++any;
       }
       const int x = x0 - 1 + i;
-      at[i] = i == 0 ? al[0] : avail(xl, yl, x * (1 << sh), (y0 - 1) * (1 << sh));
+      at[i] = i == 0 ? al[0] : usable(x * (1 << sh), (y0 - 1) * (1 << sh));
       if (at[i]) {
         top[i] = pl.at(x, y0 - 1);
         ++any;
@@ -2221,10 +3386,10 @@ class Decoder {
     for (uint8_t v : bs_h_) any_edge |= v != 0;
     bool any_disabled = false;
     for (const auto& c : ctb_) any_disabled |= !c.deblock;
-    if (any_disabled) tools |= 1ull << T_DEBLOCK_DISABLED;
+    if (any_disabled) tools |= bit(T_DEBLOCK_DISABLED);
     for (const auto& c : ctb_)
-      if (!c.lf_across_slices) tools |= 1ull << T_NO_FILTER_ACROSS_SLICES;
-    if (any_edge) tools |= 1ull << T_DEBLOCK;
+      if (!c.lf_across_slices) tools |= bit(T_NO_FILTER_ACROSS_SLICES);
+    if (any_edge) tools |= bit(T_DEBLOCK);
     filter_schedule();
     if (output_) {
       out_w = q.width - q.conf_left - q.conf_right;
@@ -2241,6 +3406,12 @@ class Decoder {
       }
       shown = true;
     }
+    // the picture joins the DPB as a short-term reference
+    Frame& f = *cur_;
+    for (int c = 0; c < 3; ++c) f.px[c] = std::move(pic_[c]);
+    f.ref = 1;
+    dpb_.push_back(cur_);
+    if (dpb_.size() > 32) fail("more than 32 pictures in the DPB");
   }
 
   int qp_at(int x, int y) const { return qp_[u4(x, y)]; }
@@ -2539,10 +3710,15 @@ class Decoder {
 
  public:
   // the POC scan of one sample: parse until the first slice header
+  std::vector<int> discarded;   // earlier samples (scan indices) this one's IRAP picture discards
+  int scan_id_ = -1;
   void scan(const uint8_t* d, size_t n) {
     scan_irap = false;
     scan_output = false;
     nal_type = -1;
+    temporal_id = 0;
+    discarded.clear();
+    ++scan_id_;
     decode(d, n, true);
   }
 };
@@ -2569,11 +3745,11 @@ void* c4d_hevc_open(const uint8_t* params, long n, int length_size, char* err, i
   }
 }
 
-// Decode one sample (an access unit). info[0..8] receive: whether it gave a
+// Decode one sample (an access unit). info[0..9] receive: whether it gave a
 // picture, its cropped width and height, its POC, its NAL type, whether it
-// is an IRAP picture, matrix_coeffs, video_full_range_flag and the VUI's
-// chroma_sample_loc_type_top_field (-1 without one). Returns 0, or -1 with
-// the reason in err.
+// is an IRAP picture, matrix_coeffs, video_full_range_flag, the VUI's
+// chroma_sample_loc_type_top_field (-1 without one) and its TemporalId.
+// Returns 0, or -1 with the reason in err.
 int c4d_hevc_decode(void* dec, const uint8_t* sample, long n, int* info, char* err, int err_cap) {
   auto* d = static_cast<hevc::Decoder*>(dec);
   try {
@@ -2587,6 +3763,7 @@ int c4d_hevc_decode(void* dec, const uint8_t* sample, long n, int* info, char* e
     info[6] = d->active ? d->active->matrix : 2;
     info[7] = d->active ? d->active->full_range : 0;
     info[8] = d->active ? d->active->chroma_loc : -1;
+    info[9] = d->temporal_id;
     return 0;
   } catch (const std::exception& e) {
     std::snprintf(err, size_t(err_cap), "%s", e.what());
@@ -2605,11 +3782,13 @@ int c4d_hevc_output(void* dec, uint8_t* y, uint8_t* u, uint8_t* v) {
   return 0;
 }
 
-// The sample's first slice header, without decoding: info[0..3] receive its
-// NAL type, whether it is an IRAP picture, its POC and whether it shows
-// (pic_output_flag, and not a RASL picture ffmpeg discards). Feed every
-// sample in decode order: the POC state carries over. Returns 0, or -1 with
-// the reason in err.
+// The sample's first slice header, without decoding: info[0..5] receive its
+// NAL type, whether it is an IRAP picture, its POC, whether it shows
+// (pic_output_flag, and not a RASL picture ffmpeg discards), its TemporalId
+// and the number of earlier samples whose pictures it discards before their
+// output (c4d_hevc_discarded names them). Feed every sample in decode
+// order: the POC and DPB state carries over. Returns 0, or -1 with the
+// reason in err.
 int c4d_hevc_scan(void* dec, const uint8_t* sample, long n, int* info, char* err, int err_cap) {
   auto* d = static_cast<hevc::Decoder*>(dec);
   try {
@@ -2618,11 +3797,23 @@ int c4d_hevc_scan(void* dec, const uint8_t* sample, long n, int* info, char* err
     info[1] = d->scan_irap;
     info[2] = d->poc;
     info[3] = d->nal_type >= 0 && d->scan_output;
+    info[4] = d->temporal_id;
+    info[5] = int(d->discarded.size());
     return 0;
   } catch (const std::exception& e) {
     std::snprintf(err, size_t(err_cap), "%s", e.what());
     return -1;
   }
+}
+
+// The scan indices (0 for the first sample scanned) of the pictures the last
+// scanned sample discards; returns how many were written.
+int c4d_hevc_discarded(void* dec, int* out, int cap) {
+  auto* d = static_cast<hevc::Decoder*>(dec);
+  int n = 0;
+  for (int id : d->discarded)
+    if (n < cap) out[n++] = id;
+  return n;
 }
 
 // sps_max_dec_pic_buffering and sps_max_num_reorder_pics of the active SPS
@@ -2633,8 +3824,12 @@ void c4d_hevc_buffering(void* dec, int* dpb, int* reorder) {
   *reorder = d->active ? d->active->num_reorder : -1;
 }
 
-// The Tool bits of everything decoded since open.
-unsigned long long c4d_hevc_tools(void* dec) { return static_cast<hevc::Decoder*>(dec)->tools; }
+// The Tool bits of everything decoded since open: bits 0-63 in out[0], 64-127 in out[1].
+void c4d_hevc_tools(void* dec, unsigned long long* out) {
+  const hevc::Tools t = static_cast<hevc::Decoder*>(dec)->tools;
+  out[0] = static_cast<unsigned long long>(t);
+  out[1] = static_cast<unsigned long long>(t >> 64);
+}
 
 // Forget the POC and RASL state (before decoding from an IRAP sample).
 void c4d_hevc_reset(void* dec) { static_cast<hevc::Decoder*>(dec)->reset(); }

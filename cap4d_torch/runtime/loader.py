@@ -119,7 +119,8 @@ _SIGNATURES = {
     "c4d_hevc_scan": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, _INT_P, ctypes.c_char_p,
                        ctypes.c_int], ctypes.c_int),
     "c4d_hevc_buffering": ([ctypes.c_void_p, _INT_P, _INT_P], None),
-    "c4d_hevc_tools": ([ctypes.c_void_p], ctypes.c_ulonglong),
+    "c4d_hevc_tools": ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)], None),
+    "c4d_hevc_discarded": ([ctypes.c_void_p, _INT_P, ctypes.c_int], ctypes.c_int),
     "c4d_hevc_reset": ([ctypes.c_void_p], None),
     "c4d_hevc_close": ([ctypes.c_void_p], None),
 }
